@@ -1,0 +1,77 @@
+"""Bilinear resizes as two small matmuls, `out = A_h @ img @ A_w^T`.
+
+Counterpart of `iip_uavsal_saliency_tpu/ops/resize.py`, with its own copy of
+the interpolation matrices:
+
+- align_corners=True (`F.interpolate(..., align_corners=True)` in the
+  reference model): `src = dst * (in - 1) / (out - 1)`;
+- half-pixel (`cv2.resize(..., INTER_LINEAR)` in the reference
+  postprocess): `src = (dst + 0.5) * in / out - 0.5`, clamped at the edges.
+
+Inputs are (..., H, W): NCHW activations or stacks of 2-D maps.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=128)
+def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 bilinear matrix, align_corners=True."""
+    a = np.zeros((n_out, n_in), np.float64)
+    if n_out == 1 or n_in == 1:
+        a[:, 0] = 1.0
+        return a
+    src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
+    frac = src - lo
+    a[np.arange(n_out), lo] = 1.0 - frac
+    a[np.arange(n_out), lo + 1] += frac
+    return a
+
+
+@lru_cache(maxsize=128)
+def interp_matrix_half_pixel(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 bilinear matrix, half-pixel (cv2 INTER_LINEAR)."""
+    a = np.zeros((n_out, n_in), np.float64)
+    if n_in == 1:
+        a[:, 0] = 1.0
+        return a
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    src = np.clip(src, 0.0, n_in - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
+    frac = src - lo
+    a[np.arange(n_out), lo] = 1.0 - frac
+    a[np.arange(n_out), lo + 1] += frac
+    return a
+
+
+@lru_cache(maxsize=128)
+def _matrix(kind: str, n_in: int, n_out: int, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    build = interp_matrix_align_corners if kind == "align_corners" else interp_matrix_half_pixel
+    return torch.from_numpy(build(n_in, n_out)).to(device=device, dtype=dtype)
+
+
+def _resize(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:
+    h, w = x.shape[-2], x.shape[-1]
+    if (h, w) == (out_h, out_w):
+        return x
+    ah = _matrix(kind, h, out_h, x.dtype, x.device)
+    aw = _matrix(kind, w, out_w, x.dtype, x.device)
+    return torch.matmul(torch.matmul(ah, x), aw.t())
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Matches F.interpolate(mode='bilinear', align_corners=True)."""
+    return _resize(x, out_h, out_w, "align_corners")
+
+
+def resize_bilinear_half_pixel(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Matches cv2.resize(..., INTER_LINEAR) on upsampling and mild
+    downsampling (no area averaging)."""
+    return _resize(x, out_h, out_w, "half_pixel")

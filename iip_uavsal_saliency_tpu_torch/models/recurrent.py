@@ -32,9 +32,11 @@ class _TWACell(nn.Module):
 class ConvTWA(nn.Module):
     """x (V, S, H, W, C), state (V, H, W, C) -> (ys (V, S, H, W, C), h_last).
 
-    The gate weight is split once into its input half (OIHW, for the conv)
-    and its hidden half permuted into the HWIO layout the kernel reads, and
-    split again only when the weight changes."""
+    The gate weight is split into its input half (OIHW, for the conv) and
+    its hidden half permuted into the HWIO layout the kernel reads. For
+    serving (no gradient wanted) the split is made once and again only when
+    the weight changes; when a gradient is wanted it is made on the fly, so
+    that it reaches `rnn_conv.weight`."""
 
     def __init__(self, hidden_dim: int = 256):
         super().__init__()
@@ -50,13 +52,17 @@ class ConvTWA(nn.Module):
     def split_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(W_x as OIHW in channels-last memory, W_h as contiguous HWIO)."""
         w = self.cell_list[0].rnn_conv.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return self._split_of(w)
         key = (w.data_ptr(), w.dtype, w.device, w._version)
         if self._split_key != key:
-            w = w.detach()
-            self._split = (w[:, :self.hidden_dim].contiguous(memory_format=torch.channels_last),
-                           w[:, self.hidden_dim:].permute(2, 3, 1, 0).contiguous())
+            self._split = self._split_of(w.detach())
             self._split_key = key
         return self._split
+
+    def _split_of(self, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (w[:, :self.hidden_dim].contiguous(memory_format=torch.channels_last),
+                w[:, self.hidden_dim:].permute(2, 3, 1, 0).contiguous())
 
     def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         v, s, h, w, c = x.shape

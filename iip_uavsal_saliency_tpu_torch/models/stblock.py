@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.layers import ConvBNAct, DWBlock
+from ..ops.layers import ConvBNAct, DWBlock, laid_out_as
 
 
 def temporal_differences(x: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
@@ -17,7 +17,7 @@ def temporal_differences(x: torch.Tensor, group: Optional[int] = None) -> torch.
     [x_i - x_{i-1}, x_i - x_{i+1}], edges mirrored: with d_i = x_{i+1} - x_i,
     chanA = [d_0, d_0, ..., d_{S-2}] and chanB = -[d_0, ..., d_{S-2}, d_{S-2}].
     With `group`, each run of `group` consecutive frames is its own sequence.
-    """
+    The result lies in memory as x does (channels-last on the card)."""
     s = x.shape[0]
     g = group if group is not None else s
     if s % g:
@@ -26,7 +26,8 @@ def temporal_differences(x: torch.Tensor, group: Optional[int] = None) -> torch.
     d = seq[:, 1:] - seq[:, :-1]
     chan_a = torch.cat([d[:, :1], d], dim=1)
     chan_b = -torch.cat([d, d[:, -1:]], dim=1)
-    return torch.cat([chan_a, chan_b], dim=2).reshape(s, 2 * x.shape[1], *x.shape[2:])
+    out = torch.cat([chan_a, chan_b], dim=2).reshape(s, 2 * x.shape[1], *x.shape[2:])
+    return laid_out_as(out, x)
 
 
 class SpConv(nn.Module):

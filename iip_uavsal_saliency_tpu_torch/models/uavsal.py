@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.layers import DWBlock
+from ..ops.layers import DWBlock, laid_out_as
 from ..ops.resize import resize_bilinear_align_corners
 from .recurrent import ConvTWA
 from .srfnet import SRFNet
@@ -46,9 +46,14 @@ class UAVSal(nn.Module):
     ob_prior    : (H/8, W/8, 20)
     state       : (V, H/8, W/8, 256) carried TWA hidden state
     saliency    : (V, S, H/8, W/8, 1)
+
+    `fused_dwblock=True` switches `use_kernel` on for every DWBlock of the
+    model; each block then runs as one fused kernel call (K2 on the card)
+    wherever `ops/dwblock.py::supports_fused_dwblock` admits it, and as
+    three convs elsewhere. Off by default, as in the JAX package.
     """
 
-    def __init__(self, time_dims: int = 5):
+    def __init__(self, time_dims: int = 5, fused_dwblock: bool = False):
         super().__init__()
         self.time_dims = time_dims
         planes = PLANES
@@ -68,6 +73,10 @@ class UAVSal(nn.Module):
         self.fucbst_layer = nn.Sequential(DWBlock(planes + planes // 4, planes))
         self.rnn = ConvTWA(planes)
         self.conv_out_st = DWBlock(planes, 1, 3)
+        if fused_dwblock:
+            for module in self.modules():
+                if isinstance(module, DWBlock):
+                    module.use_kernel = True
 
     def init_state(self, height: int, width: int, n_videos: int = 1,
                    dtype=torch.float32, device=None) -> torch.Tensor:
@@ -101,12 +110,12 @@ class UAVSal(nn.Module):
             cxt = layer(cxt)
         streams = [g, o, resize_bilinear_align_corners(cxt, ho, wo)]
         cb = torch.cat([p.expand(s // t, *p.shape[1:]) for p in streams], dim=1)
-        x_cb = self.fucb_layer(cb)
+        x_cb = self.fucb_layer(laid_out_as(cb, x))
         if compat_cxt_tile:
             x_cb = x_cb.repeat(t, 1, 1, 1)  # the reference's t-major tile
         else:
             x_cb = x_cb.repeat_interleave(t, dim=0)
-        return self.fucbst_layer(torch.cat([x, x_cb], dim=1))
+        return self.fucbst_layer(torch.cat([x, laid_out_as(x_cb, x)], dim=1))
 
     def forward(self, x: torch.Tensor, gauss_prior: torch.Tensor, ob_prior: torch.Tensor,
                 state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,169 @@
+"""The fused inverted-residual dwBlock: kernel K2 and its plain PyTorch version.
+
+Counterpart of `iip_uavsal_saliency_tpu/ops/pallas_dwblock.py`. With
+eval-mode BatchNorm folded into the conv weights and biases the block is
+
+    e = relu6(x . W1 + b1)          1x1 expand,  rounded to x.dtype
+    d = relu6(dw3x3_same(e) + bd)   depthwise,   rounded to x.dtype
+    p = d . W2 + b2 (+ x)           1x1 project, stored as x.dtype
+
+with every product accumulated in f32. Layouts are the JAX package's:
+x (N, H, W, C), W1 (C, E), b1 (E,), Wd (3, 3, E), bd (E,), W2 (E, Co),
+b2 (Co,), all of x's dtype.
+
+- `dwblock_ref`: the plain version, with the same rounding points.
+- `fused_dwblock_kernel`: on a CUDA tensor one launch of the hand-written
+  Hopper kernel `csrc/dwblock.cu`, which keeps e and d in shared memory;
+  on a CPU tensor `dwblock_ref`. Any other device, and anything the kernel
+  does not take, raises; nothing falls back.
+- `supports_fused_dwblock`: what the CUDA kernel takes.
+- `fused_dwblock`: the differentiable form. Forward as
+  `fused_dwblock_kernel`; backward recomputes through `dwblock_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+_DTYPES = (torch.bfloat16, torch.float32)
+# The kernel stages a pixel tile of x with its halo in shared memory beside
+# one chunk of e, d and the weights, which bounds C for both dtypes
+# (`static_assert`ed beside `Lay::smem_bytes` in csrc/dwblock.cu).
+MAX_C = 352
+
+
+def supports_fused_dwblock(x_shape: Sequence[int], dtype: torch.dtype, kernel_size: int,
+                           stride: int, dilation: int, expand: float, features: int,
+                           residual: bool = False) -> bool:
+    """Whether the CUDA kernel takes this block: 3x3, stride 1, undilated,
+    with an expand conv, bf16 or f32, C, E and Co multiples of 8 (16-byte
+    loads), C == Co for a residual, and an x tile that fits shared memory
+    (C <= 352). Any N, H, W >= 1."""
+    if dtype not in _DTYPES:
+        return False
+    if kernel_size != 3 or stride != 1 or dilation != 1 or expand == 1:
+        return False
+    n, h, w, c = x_shape
+    e = int(round(c * expand))
+    if min(n, h, w, c, e, features) < 1 or c % 8 or e % 8 or features % 8:
+        return False
+    if residual and c != features:
+        return False
+    return c <= MAX_C
+
+
+def dwblock_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor,
+                bd: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                residual: bool) -> torch.Tensor:
+    """Plain PyTorch version (and the recompute path of the backward): f32
+    arithmetic on the inputs' values, e and d rounded to x.dtype, the
+    residual added in f32 before the last cast. The depthwise conv is nine
+    shifted multiply-adds over the zero-padded e."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    h, w = x.shape[1], x.shape[2]
+    e = F.relu6(x.to(f32) @ w1.to(f32) + b1.to(f32)).to(x.dtype)
+    ep = F.pad(e.to(f32), (0, 0, 1, 1, 1, 1))
+    wdf = wd.to(f32)
+    d = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = ep[:, dy:dy + h, dx:dx + w, :] * wdf[dy, dx]
+            d = tap if d is None else d + tap
+    d = F.relu6(d + bd.to(f32)).to(x.dtype)
+    p = d.to(f32) @ w2.to(f32) + b2.to(f32)
+    if residual:
+        p = p + x.to(f32)
+    return p.to(x.dtype)
+
+
+def _lib():
+    lib = kernels.load("dwblock")
+    if lib.dwblock_bf16.argtypes is None:
+        for fn in (lib.dwblock_bf16, lib.dwblock_f32):
+            fn.argtypes = _SIGNATURE
+            fn.restype = ctypes.c_int
+        lib.dwblock_error_string.argtypes = [ctypes.c_int]
+        lib.dwblock_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dwblock kernel takes bf16 or f32, got {x.dtype}")
+    n, h, w, c = x.shape
+    e, co = w1.shape[-1], w2.shape[-1]
+    want = {"w1": (c, e), "b1": (e,), "wd": (3, 3, e), "bd": (e,), "w2": (e, co), "b2": (co,)}
+    tensors = {"w1": w1, "b1": b1, "wd": wd, "bd": bd, "w2": w2, "b2": b2}
+    for name, t in tensors.items():
+        if tuple(t.shape) != want[name] or t.dtype != x.dtype:
+            raise ValueError(f"{name} must be {want[name]} of {x.dtype}, got "
+                             f"{tuple(t.shape)} of {t.dtype}")
+    if min(n, h, w, c, e, co) < 1 or c % 8 or e % 8 or co % 8:
+        raise ValueError(f"dwblock kernel needs N, H, W >= 1 and C, E, Co multiples of 8; "
+                         f"got x {tuple(x.shape)}, E={e}, Co={co}")
+    if residual and c != co:
+        raise ValueError(f"a residual block needs C == Co, got {c} and {co}")
+    if c > MAX_C:
+        raise ValueError(f"dwblock kernel stages x in shared memory, which holds at most "
+                         f"C={MAX_C}; got C={c}")
+    for t in (x, *tensors.values()):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("dwblock kernel needs contiguous, 16-byte aligned tensors on one "
+                             "device (x as NHWC, which is an NCHW tensor in channels-last "
+                             "memory, permuted)")
+    lib = _lib()
+    fn = lib.dwblock_bf16 if x.dtype == torch.bfloat16 else lib.dwblock_f32
+    out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, e, co,
+                int(bool(residual)), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError("dwblock kernel launch failed: "
+                           + lib.dwblock_error_string(rc).decode())
+    kernels.launches["dwblock"] += 1
+    return out
+
+
+def fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+    """The block in one pass: kernel K2 on a CUDA tensor, `dwblock_ref` on a
+    CPU one. Not differentiable; see `fused_dwblock`."""
+    if x.device.type == "cpu":
+        return dwblock_ref(x, w1, b1, wd, bd, w2, b2, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dwblock runs on cuda or cpu tensors, got {x.device}")
+    return _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual)
+
+
+class _FusedDWBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, wd, bd, w2, b2, residual):
+        ctx.save_for_backward(x, w1, b1, wd, bd, w2, b2)
+        ctx.residual = residual
+        return fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [a for a in args if a.requires_grad]
+        with torch.enable_grad():
+            out = dwblock_ref(*args, ctx.residual)
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if a.requires_grad else None for a in args) + (None,)
+
+
+def fused_dwblock(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+    """Differentiable fused dwBlock: the kernel (or, on the CPU, the plain
+    version) forward, and a backward that recomputes through `dwblock_ref`."""
+    return _FusedDWBlock.apply(x, w1, b1, wd, bd, w2, b2, bool(residual))

@@ -10,7 +10,9 @@ Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
   dilated depthwise conv.
 - `DWBlock` == dwBlock: [1x1 expand] -> depthwise kxk -> 1x1 project + BN,
   with an identity residual when stride == 1 and in == out channels (which
-  `res_connect=False` turns off).
+  `res_connect=False` turns off). With `use_kernel=True` a block that
+  `ops/dwblock.py::supports_fused_dwblock` admits runs as one call of
+  `fused_dwblock` (kernel K2 on the card).
 
 Module names follow the reference's state_dict keys (`<conv>.0/.1`,
 `<block>.conv.{0..3}`), so a state_dict from `models/convert.py` loads
@@ -24,7 +26,18 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .dwblock import fused_dwblock, supports_fused_dwblock
+
 BN_EPS = 1e-5
+
+
+def laid_out_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """`t` in channels-last memory where `ref` lies so (as activations do on
+    the card), else `t` as it is. `cat`, `repeat` and reshapes give up the
+    layout; the fused dwBlock kernel needs it and cuDNN is faster with it."""
+    if ref.is_contiguous(memory_format=torch.channels_last) and not ref.is_contiguous():
+        return t.contiguous(memory_format=torch.channels_last)
+    return t
 
 
 class BatchNorm(nn.Module):
@@ -68,22 +81,47 @@ class ConvBNAct(nn.Sequential):
         super().__init__(*layers)
 
 
+def _folded(conv: nn.Conv2d, bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weight, bias) of `conv` with the BatchNorm after it folded in, in
+    f32; `bn` is an Identity once `ops/fold.py::fold_conv_bn` has run."""
+    w = conv.weight.to(torch.promote_types(conv.weight.dtype, torch.float32))
+    bias = None if conv.bias is None else conv.bias.to(w.dtype)
+    if isinstance(bn, BatchNorm):
+        s, b = bn.affine()
+        w = w * s.view(-1, 1, 1, 1)
+        bias = b if bias is None else b + bias * s
+    elif bias is None:
+        bias = w.new_zeros(w.shape[0])
+    return w, bias
+
+
 class DWBlock(nn.Module):
     """Inverted-residual block (expand_ratio default 6).
 
     With expand: `conv.0` (1x1 ConvBNAct), `conv.1` (depthwise ConvBNAct),
     `conv.2` (1x1 project), `conv.3` (BatchNorm). Without (ratio 1): `conv.0`
-    depthwise, `conv.1` project, `conv.2` BatchNorm."""
+    depthwise, `conv.1` project, `conv.2` BatchNorm.
+
+    `use_kernel=True` (counterpart of the JAX block's `use_pallas`, off by
+    default as there): where `supports_fused_dwblock` admits the block and
+    the input's dtype, the whole block is one call of `fused_dwblock` on
+    BN-folded weights packed into the kernel's layouts; otherwise the three
+    convs. The gate reads only the block's own static facts and the input's
+    shape and dtype. The state_dict is the same on both paths. On the card
+    the input must lie in channels-last memory."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, expand_ratio: int = 6, dilation: int = 1,
-                 res_connect: Optional[bool] = None):
+                 res_connect: Optional[bool] = None, use_kernel: bool = False):
         super().__init__()
         hidden = int(round(in_ch * expand_ratio))
         use_res = stride == 1 and in_ch == out_ch
         if res_connect is not None:
             use_res = use_res and res_connect
         self.use_res = use_res
+        self.use_kernel = use_kernel
+        self.out_ch = out_ch
+        self.geometry = (kernel_size, stride, dilation, expand_ratio)
         layers = []
         if expand_ratio != 1:
             layers.append(ConvBNAct(in_ch, hidden, 1))
@@ -93,7 +131,61 @@ class DWBlock(nn.Module):
             BatchNorm(out_ch),
         ]
         self.conv = nn.Sequential(*layers)
+        self._packed: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def takes_kernel(self, x_shape, dtype: torch.dtype) -> bool:
+        """Whether an (N, C, H, W) input of `dtype` goes through the kernel."""
+        if not self.use_kernel or len(x_shape) != 4:
+            return False
+        n, c, h, w = x_shape
+        return supports_fused_dwblock((n, h, w, c), dtype, *self.geometry,
+                                      self.out_ch, self.use_res)
+
+    def pack(self, dtype: torch.dtype) -> None:
+        """Pack the kernel's weights once, for serving. From here on the
+        kernel path reads these and no longer looks at the parameters, so
+        call it after the last cast or load (`make_baked_infer_step` does);
+        a later `.to()`, `load_state_dict` or `pack` drops them. A block
+        without an expand conv never takes the kernel and packs nothing."""
+        if len(self.conv) == 4:
+            with torch.no_grad():
+                self._packed = self._pack(dtype)
+
+    def packed_weights(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+        """(W1 (C, E), b1, Wd (3, 3, E), bd, W2 (E, Co), b2) in `dtype` with
+        BatchNorm folded, as `fused_dwblock` reads them: those `pack` made,
+        or else (and whenever a gradient is wanted, so that it reaches the
+        block's parameters) packed on the fly from the parameters as they
+        are now."""
+        packed = self._packed
+        if packed is None or packed[0].dtype != dtype or (
+                torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())):
+            return self._pack(dtype)
+        return packed
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed = None  # a cast or a move: the packed copies are stale
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._packed = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _pack(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+        expand, dw, project, project_bn = self.conv
+        w1, b1 = _folded(expand[0], expand[1])
+        wd, bd = _folded(dw[0], dw[1])
+        w2, b2 = _folded(project, project_bn)
+        packed = (w1[:, :, 0, 0].t(), b1, wd[:, 0].permute(1, 2, 0), bd,
+                  w2[:, :, 0, 0].t(), b2)
+        return tuple(t.to(dtype).contiguous() for t in packed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_kernel(x.shape, x.dtype):
+            # NCHW tensor in channels-last memory <-> the NHWC the kernel reads;
+            # on the card the kernel's wrapper raises on any other memory
+            out = fused_dwblock(x.permute(0, 2, 3, 1), *self.packed_weights(x.dtype),
+                                self.use_res)
+            return out.permute(0, 3, 1, 2)
         y = self.conv(x)
         return x + y if self.use_res else y

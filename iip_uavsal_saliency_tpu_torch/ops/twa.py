@@ -19,6 +19,10 @@ bf16); the source's header says what the design does about it. On a CPU
 tensor `twa_scan` runs `twa_scan_ref`, the plain loop of
 `twa_scan_xla`. Any other device raises; nothing falls back.
 
+`twa_scan` is differentiable in x, gx, W_h and h0 (counterpart of
+`pallas_twa.py::twa_scan`'s custom VJP): the backward recomputes through
+`twa_scan_ref` in the input dtype; it is not a kernel.
+
 Layouts are the JAX package's: x, gx (V, S, H, W, C), h0 (V, H, W, C) and
 W_h (3, 3, C, C) in HWIO order.
 """
@@ -50,14 +54,36 @@ def twa_scan_ref(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor,
     return torch.stack(ys, 1), h
 
 
+class _TWAScan(torch.autograd.Function):
+    """Kernel forward, backward recomputed through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, gx, w_h, h0):
+        ctx.save_for_backward(x, gx, w_h, h0)
+        return _twa_scan_cuda(x, gx, w_h, h0)
+
+    @staticmethod
+    def backward(ctx, grad_ys, grad_last):
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [a for a in args if a.requires_grad]
+        with torch.enable_grad():
+            outs = twa_scan_ref(*args)
+        grads = iter(torch.autograd.grad(outs, wanted, (grad_ys, grad_last)))
+        return tuple(next(grads) if a.requires_grad else None for a in args)
+
+
 def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor,
              h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The TWA scan: kernel K1 on a CUDA tensor, `twa_scan_ref` on a CPU one."""
+    """The TWA scan: kernel K1 on a CUDA tensor, `twa_scan_ref` on a CPU one
+    (where autograd differentiates the plain version itself)."""
     if x.device.type == "cpu":
         return twa_scan_ref(x, gx, w_h, h0)
     if x.device.type != "cuda":
         raise ValueError(f"twa_scan runs on cuda or cpu tensors, got {x.device}")
-    return _twa_scan_cuda(x, gx, w_h, h0)
+    # normalize at the kernel boundary, as the Pallas wrapper does: an f32
+    # initial state or weight beside bf16 streams is cast to the stream dtype
+    return _TWAScan.apply(x, gx, w_h.to(x.dtype), h0.to(x.dtype))
 
 
 def _lib():
@@ -84,10 +110,7 @@ def _twa_scan_cuda(x, gx, w_h, h0):
         raise ValueError("gx must match x in shape and dtype")
     if tuple(w_h.shape) != (3, 3, c, c) or tuple(h0.shape) != (v, h, w, c):
         raise ValueError(f"w_h must be (3, 3, {c}, {c}) and h0 ({v}, {h}, {w}, {c})")
-    # normalize at the kernel boundary, as the Pallas wrapper does: an f32
-    # initial state or weight beside bf16 streams is cast to the stream dtype
-    h0 = h0.to(x.dtype).contiguous()
-    w_h = w_h.to(x.dtype).contiguous()
+    h0, w_h = h0.contiguous(), w_h.contiguous()
     tensors = (x, gx, w_h, h0)
     for t in tensors:
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:

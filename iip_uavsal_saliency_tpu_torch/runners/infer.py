@@ -34,18 +34,20 @@ def load_model_for_inference(
     time_dims: int = 5,
     fold_bn: bool = True,
     device=None,
+    fused_dwblock: bool = False,
 ) -> UAVSal:
     """The flagship `uavsal` model in eval form on `device` (CUDA by default).
 
     Loads an unfolded tree or one the JAX package folded alike. `fold_bn`
     folds every BatchNorm into the conv before it (`ops/fold.py::fold_conv_bn`),
-    as serving does by default."""
+    as serving does by default. `fused_dwblock` serves every DWBlock the
+    fused kernel takes through it (`UAVSal(fused_dwblock=True)`)."""
     device = resolve_device(device)
     if isinstance(model_path_or_variables, (str, os.PathLike)):
         tree = load_checkpoint(os.fspath(model_path_or_variables))
     else:
         tree = model_path_or_variables
-    model = UAVSal(time_dims=time_dims)
+    model = UAVSal(time_dims=time_dims, fused_dwblock=fused_dwblock)
     model.load_state_dict(from_jax_variables(tree), strict=True)
     model.eval().requires_grad_(False)
     if fold_bn:

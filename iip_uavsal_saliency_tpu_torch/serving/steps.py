@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
+from ..ops.layers import DWBlock
 
 Step = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -52,8 +53,8 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
     cast once and frozen.
 
     Takes `model` over: it is cast to `compute_dtype` in place with its 4-D
-    weights stored channels-last, and must not be trained or loaded
-    afterwards. Give it a model from `load_model_for_inference`, whose
+    weights stored channels-last (and, with the fused dwBlock on, packed
+    for its kernel), and must not be trained or loaded afterwards. Give it a model from `load_model_for_inference`, whose
     BatchNorms are already folded into the convs. The priors are moved to
     the model's device and cast once."""
     device = _model_device(model)
@@ -62,6 +63,9 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
         model.to(compute_dtype)
     model.to(memory_format=torch.channels_last)
     dtype = compute_dtype or torch.float32
+    for block in model.modules():
+        if isinstance(block, DWBlock) and block.use_kernel:
+            block.pack(dtype)  # the fused kernel's weights, once
 
     def prep(p):
         return None if p is None else torch.as_tensor(p).to(device=device, dtype=dtype)

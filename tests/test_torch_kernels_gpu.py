@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from iip_uavsal_saliency_tpu_torch import kernels
+from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwblock,
+                                                       fused_dwblock_kernel)
 from iip_uavsal_saliency_tpu_torch.ops.twa import twa_scan, twa_scan_ref
 
 pytestmark = pytest.mark.gpu
@@ -61,3 +63,91 @@ def test_twa_kernel_raises_on_what_it_does_not_take(card):
         twa_scan(*(t[..., :8].half().contiguous() for t in (x, gx)),
                  w_h[:, :, :8, :8].half().contiguous(), h0[..., :8].half().contiguous())
     assert kernels.launches["twa_scan"] == 0
+
+
+def _dw_case(n, h, w, c, e, co, seed=0):
+    """Folded-block inputs whose e, d and output are all of order 1."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, h, w, c) * 0.5, rng.randn(c, e) * np.sqrt(2.0 / c),
+            rng.randn(e) * 0.5, rng.randn(3, 3, e) * 0.3, rng.randn(e) * 0.5,
+            rng.randn(e, co) * np.sqrt(1.0 / e), rng.randn(co) * 0.5)
+
+
+DW_SHAPES = {
+    # (n, h, w, c, e, co), residual
+    "ragged": ((2, 13, 7, 24, 144, 16), False),         # partial tiles, E chunk and Co tile
+    "co_differs": ((2, 12, 16, 64, 384, 32), False),
+    "residual": ((2, 12, 16, 64, 384, 64), True),
+    "one_frame": ((1, 9, 33, 32, 192, 32), True),        # N = 1, three column tiles
+    "one_pixel": ((1, 1, 1, 8, 48, 8), True),
+    "wide": ((1, 5, 6, 320, 1920, 264), False),          # C at fucbst's width, two Co tiles
+    # widths whose last slice of W1 is partial (32 and 64 rows of 128)
+    "c160_two_co_tiles": ((2, 12, 20, 160, 960, 320), False),  # features.17
+    "c192_four_frames": ((4, 9, 20, 192, 1152, 64), False),    # fucb_layer.0
+    "widest": ((1, 9, 17, 352, 2112, 352), True),              # C = MAX_C
+}
+
+
+# f32: the kernel's FMA chains and the plain version's matmuls sum C and E
+# products in other orders; outputs are of order 1 to 10. bf16: e, d and
+# the output are rounded to bf16 at the same points in both, so they differ
+# where an f32 sum that differs in its last bits rounds to the other
+# neighbour: one bf16 ulp of an output below 16 is 2^-4 = 0.0625.
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 0.0625)])
+@pytest.mark.parametrize("name", sorted(DW_SHAPES))
+def test_dwblock_kernel_matches_ref(card, name, dtype, atol):
+    shape, residual = DW_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, dtype) for a in _dw_case(*shape)]
+    kernels.reset_launches()
+    out = fused_dwblock_kernel(*args, residual)
+    torch.cuda.synchronize()
+    assert kernels.launches["dwblock"] == 1
+    ref = dwblock_ref(*args, residual)
+    assert out.shape == ref.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def test_dwblock_kernel_raises_on_what_it_does_not_take(card):
+    """A CUDA tensor launches the kernel or raises; nothing falls back."""
+    args = [torch.tensor(a, dtype=torch.float32, device=card)
+            for a in _dw_case(1, 4, 4, 16, 96, 16)]
+    kernels.reset_launches()
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fused_dwblock_kernel(*(a.half() for a in args), True)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_dwblock_kernel(*(torch.tensor(a, dtype=torch.float32, device=card)
+                               for a in _dw_case(1, 4, 4, 12, 72, 12)), True)
+    with pytest.raises(ValueError, match="C == Co"):
+        fused_dwblock_kernel(*args[:5], args[5][:, :8].contiguous(), args[6][:8].clone(), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_dwblock_kernel(args[0].permute(0, 2, 1, 3), *args[1:], True)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_dwblock_kernel(*(torch.tensor(a, dtype=torch.float32, device=card)
+                               for a in _dw_case(1, 2, 2, 360, 720, 8)), False)
+    with pytest.raises(ValueError, match="must be"):
+        fused_dwblock_kernel(args[0], args[1].bfloat16(), *args[2:], True)
+    assert kernels.launches["dwblock"] == 0
+
+
+def test_kernel_forward_gradients_match_plain_versions(card):
+    """`fused_dwblock` and `twa_scan` with the kernel forward in f32: the
+    backward recomputes through the plain version, so the gradients of a
+    sum of squares agree with autograd through the plain version up to the
+    forward's own f32 difference."""
+    def grads(fn, arrays):
+        args = [torch.tensor(a, dtype=torch.float32, device=card).requires_grad_()
+                for a in arrays]
+        outs = fn(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o ** 2).sum() for o in outs).backward()
+        return [a.grad for a in args]
+
+    dw = _dw_case(2, 6, 9, 16, 96, 16, seed=3)
+    kernels.reset_launches()
+    for got, want in zip(grads(lambda *a: fused_dwblock(*a, True), dw),
+                         grads(lambda *a: dwblock_ref(*a, True), dw)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    tw = _case(2, 3, 6, 5, 8, seed=5)
+    for got, want in zip(grads(twa_scan, tw), grads(twa_scan_ref, tw)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert kernels.launches == {"twa_scan": 3, "dwblock": 1}

@@ -26,6 +26,7 @@ from iip_uavsal_saliency_tpu.runners import infer as jinfer
 from iip_uavsal_saliency_tpu.training.checkpoint import save_checkpoint
 from iip_uavsal_saliency_tpu_torch import device as tdevice
 from iip_uavsal_saliency_tpu_torch.data import letterbox as tletterbox
+from iip_uavsal_saliency_tpu_torch.ops.layers import DWBlock
 from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference, predict_videos
 from iip_uavsal_saliency_tpu_torch.serving.steps import build_infer_fn, make_baked_infer_step
 from iip_uavsal_saliency_tpu_torch.training.checkpoint import load_checkpoint
@@ -91,6 +92,27 @@ def test_serving_step_matches_jax_on_uint8(served, form):
         assert got.dtype == torch.float32 and float(np.std(np.asarray(want))) > 1e-3
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_SALIENCY, rtol=0)
         np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), atol=ATOL_STATE, rtol=0)
+
+
+@pytest.mark.parametrize("v", [1, 2])
+def test_fused_dwblock_serving_step_matches_jax(served, v):
+    """`load_model_for_inference(..., fused_dwblock=True)` and the baked
+    step, f32 on the CPU, against the JAX step over 2 carried clips."""
+    jmodel, variables, (g, o), jstep = served
+    model = load_model_for_inference(variables, device="cpu", fused_dwblock=True)
+    step = make_baked_infer_step(model, g, o)
+    blocks = [m for m in model.modules() if isinstance(m, DWBlock)]
+    assert all(m.use_kernel for m in blocks)  # and baking packed the kernel's weights once
+    assert all(m._packed is not None for m in blocks if len(m.conv) == 4)
+    jstate = jmodel.init_state(H, W, v)
+    tstate = model.init_state(H, W, v)
+    for k in range(2):
+        x = _clip(v, T, 50 + 2 * v + k)
+        want, jstate = jstep(variables["params"], variables["batch_stats"],
+                             jnp.asarray(x), jnp.asarray(g), jnp.asarray(o), jstate)
+        got, tstate = step(torch.from_numpy(x), tstate)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+        np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), atol=2e-5, rtol=0)
 
 
 def _write_video(path, n, rng):

@@ -71,11 +71,41 @@ def test_conv_twa_matches_jax(v, s):
 
 def test_conv_twa_resplits_weight_after_load():
     tm = ConvTWA(8)
-    first = tm.split_weight()[1]
-    assert tm.split_weight()[1] is first  # cached while the weight is unchanged
-    with torch.no_grad():
+    with torch.no_grad():  # serving: no gradient wanted, the split is cached
+        first = tm.split_weight()[1]
+        assert tm.split_weight()[1] is first  # cached while the weight is unchanged
         tm.cell_list[0].rnn_conv.weight.mul_(2.0)
-    torch.testing.assert_close(tm.split_weight()[1], 2.0 * first)
+        torch.testing.assert_close(tm.split_weight()[1], 2.0 * first)
+    assert tm.split_weight()[1].requires_grad  # made on the fly when a gradient is wanted
+
+
+def test_twa_scan_grads_match_jax():
+    """Gradients of a sum of squares of (ys, h_last) w.r.t. x, gx, W_h, h0
+    against `jax.grad` through `twa_scan_xla`, f32 (the two frameworks sum
+    the conv products and the chain over 3 frames in other orders)."""
+    arrays = _case(v=2, s=3, h=6, w=5, c=8, seed=21)
+
+    def loss(*a):
+        ys, last = twa_scan_xla(*a)
+        return jnp.sum(ys ** 2) + jnp.sum(last ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*[jnp.asarray(a) for a in arrays])
+    targs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    ys, last = twa_scan(*targs)
+    ((ys ** 2).sum() + (last ** 2).sum()).backward()
+    for t, g in zip(targs, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=2e-4, atol=2e-5)
+
+
+def test_gradient_reaches_conv_twa_gate_weight():
+    rng = np.random.RandomState(4)
+    tm = ConvTWA(8)
+    x = torch.from_numpy(rng.randn(1, 3, 5, 4, 8).astype(np.float32))
+    ys, last = tm(x, tm.init_state(5, 4))
+    ((ys ** 2).sum() + last.sum()).backward()
+    grad = tm.cell_list[0].rnn_conv.weight.grad
+    assert grad is not None and grad.shape == (8, 16, 3, 3)
+    assert grad[:, :8].abs().sum() > 0 and grad[:, 8:].abs().sum() > 0  # both halves
 
 
 def test_cpu_scan_does_not_count_launches():

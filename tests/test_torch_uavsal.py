@@ -17,6 +17,7 @@ from iip_uavsal_saliency_tpu.models.srfnet import SRFNet as JSRFNet
 from iip_uavsal_saliency_tpu.ops.fold import fold_batchnorm
 from iip_uavsal_saliency_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
+from iip_uavsal_saliency_tpu_torch.ops.layers import DWBlock
 
 SMALL_H, SMALL_W, SMALL_T = 64, 128, 5
 # f32: XLA and torch order the conv sums differently. The JAX package held
@@ -52,8 +53,8 @@ def pair(uavsal_small):
     return model, variables, jax.jit(model.apply)
 
 
-def _port(variables):
-    m = UAVSal(time_dims=SMALL_T).eval()
+def _port(variables, fused_dwblock=False):
+    m = UAVSal(time_dims=SMALL_T, fused_dwblock=fused_dwblock).eval()
     m.load_state_dict(from_jax_variables(variables), strict=True)
     return m
 
@@ -73,6 +74,7 @@ def test_bridge_matches_export_and_loads_strict(pair):
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
     UAVSal(time_dims=SMALL_T).load_state_dict(got, strict=True)
+    UAVSal(time_dims=SMALL_T, fused_dwblock=True).load_state_dict(got, strict=True)
     back = to_jax_variables(got)
     for (pa, a), (pb, b) in zip(jax.tree_util.tree_flatten_with_path(variables)[0],
                                 jax.tree_util.tree_flatten_with_path(back)[0]):
@@ -124,3 +126,33 @@ def test_uavsal_two_clips_match_jax(pair, v, folded):
         assert float(np.std(np.asarray(want))) > 1e-3  # maps with structure
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_SALIENCY, rtol=0)
         np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), atol=ATOL_STATE, rtol=0)
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["unfolded", "folded"])
+@pytest.mark.parametrize("v", [1, 2])
+def test_uavsal_fused_dwblock_two_clips_match_jax(pair, v, folded):
+    """The slice as a whole: `UAVSal(fused_dwblock=True)`, every admitted
+    block through `fused_dwblock` (its plain version on the CPU), against
+    the JAX `UAVSal`, f32, saliency and carried state within 2e-5."""
+    jmodel, variables, japply = pair
+    if folded:
+        variables = jax.tree_util.tree_map(np.asarray, fold_batchnorm(variables))
+    m = _port(variables, fused_dwblock=True)
+    fused = []
+    for name, block in m.named_modules():
+        if isinstance(block, DWBlock):
+            block.register_forward_pre_hook(
+                lambda b, inp, name=name: fused.append(name)
+                if b.takes_kernel(inp[0].shape, inp[0].dtype) else None)
+    jstate = jmodel.init_state(SMALL_H, SMALL_W, v)
+    tstate = m.init_state(SMALL_H, SMALL_W, v)
+    for clip in range(2):
+        x, g, o = _frames(v, 10 * v + clip)
+        want, jstate = japply(variables, jnp.asarray(x), jnp.asarray(g), jnp.asarray(o), jstate)
+        with torch.no_grad():
+            got, tstate = m(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(o), tstate)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+        np.testing.assert_allclose(tstate.numpy(), np.asarray(jstate), atol=2e-5, rtol=0)
+    assert len(fused) == 2 * 22  # blocks through the fused path, per clip
+    assert {"st_layer.0.stconv_sp.spconv", "st_layer.1.stconv_sp.spconv", "fust_layer.0",
+            "fucbst_layer.0"} <= set(fused)

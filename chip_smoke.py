@@ -7,9 +7,15 @@
    kernel of the main path from `iip_uavsal_saliency_tpu_torch/csrc/` with
    nvcc for sm_90a, one nvcc per source, all started together.
 2. Holds each kernel against its plain PyTorch version on the card:
-   K1 (`ops/twa.py::twa_scan`) vs `twa_scan_ref` at the flagship shape
-   (V=1, S=20, 45x80x256) in bf16 and f32, and at a ragged shape
-   (V=2, S=3, 13x7x24) in bf16 and f32; K2 (`ops/dwblock.py::
+   K1 (`ops/twa.py::twa_scan`) vs `twa_scan_ref`: the persistent kernel
+   (one launch per clip, bf16) at the flagship shape (S=20, 45x80x256) for
+   V=1, 2 and 4, also against the per-frame bf16 kernel on the same inputs
+   and for equal bits on 20 more runs (a stale read of h_{s-1} between blocks
+   would be rare, so one repeat is not enough); the per-frame kernel at the flagship
+   shape in f32 and at a ragged shape (V=2, S=3, 13x7x24) in bf16 and f32;
+   and shard invariance, the content of the JAX package's
+   `twa_scan_sharded`: K1 on V=4 (S=3, 13x7x24 and 45x80x256, bf16 and f32)
+   equals, bit for bit, K1 on x[:2] and x[2:] concatenated. K2 (`ops/dwblock.py::
    fused_dwblock_kernel`) vs `dwblock_ref` at 20x45x80 with C=256->256,
    E=1536, residual, with C=320->256, E=1920, and at a ragged 2x13x7 with
    C=24->16, in bf16 and f32; and, with phase 3, at every shape the main
@@ -23,20 +29,29 @@
    the baked bf16 serving step, and `predict_videos` over one synthetic
    uint8 video of 3 clips of S=20 frames with the state carried, postprocessed to a native
    540x960 uint8. Launch counts are reset just before and read just after;
-   the run must launch K1 exactly 60 times. Outputs must be finite, in
+   a bf16 run must launch the persistent K1 exactly 3 times (once per clip)
+   and the per-frame K1 never, an f32 run the per-frame K1 exactly 60 times
+   and the persistent one never. Outputs must be finite, in
    [0, 1], the state must change from clip to clip, and the bf16 saliency
    must agree with an f32 run of the port on the card (CC >= 0.99 per frame).
+   What K1 was given and what it returned in each clip of the bf16 runs is
+   kept, and the persistent kernel's served output is held against the
+   per-frame kernel and the plain version on those same inputs.
    The same video then goes through the fused-dwBlock path
    (`load_model_for_inference(..., fused_dwblock=True)`): every DWBlock the
-   kernel's gate admits is one launch of K2, so the run must launch K1 60
-   times and K2 once per admitted block and clip, exactly; its bf16 maps
+   kernel's gate admits is one launch of K2, so the run must launch K1 as
+   above and K2 once per admitted block and clip, exactly; its bf16 maps
    must agree with the f32 run and with the bf16 run without K2 (CC >= 0.99
    per frame), and its f32 maps with the f32 run without K2.
 4. Times the serving step with K2 off and on (ms per clip, FPS), the whole
    of `predict_videos` five times per path in turns (host clock), and each
    kernel (its time per launch, its plain version's, one PyTorch call's, and
    its bound) with CUDA events after warm-up, each the median of 7 timed
-   windows, and writes a profiler table of one clip of each path to
+   windows; K1's two kernels and its library yardstick in turns (per-frame,
+   persistent, library, library, persistent, per-frame) at V=1 and V=4 in
+   bf16, with the fastest window beside each median, and the per-frame
+   kernel in f32, as the f32 paths launch it, beside its own f32 yardstick,
+   plain version and bound; and writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -59,6 +74,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K1's f32 route is plain FMA
 PEAK_BYTES = 3.35e12
 
 # K1 tolerances, max abs error against twa_scan_ref on the same inputs.
@@ -68,6 +84,13 @@ PEAK_BYTES = 3.35e12
 # of values of order 1 over 20 steps.
 TOL_F32 = 1e-5
 TOL_BF16 = 2e-2
+# K1's persistent kernel against its per-frame bf16 kernel on the same inputs:
+# both accumulate in f32 and round once per frame, at the store of h_s, so
+# they differ by summation order (and the last f32 bits of the gate), which
+# moves a stored value to the neighbouring bf16 now and then. |h| < 4 here,
+# where one bf16 ulp is 2^-6; the card showed 2^-7.
+TOL_K1_KERNELS = 2.0 ** -6
+REPEATS = 20   # further runs of the persistent kernel that must give the first run's bits
 CC_MIN = 0.99  # bf16 vs f32 saliency, Pearson CC per frame
 # K2 tolerances, max abs error against dwblock_ref on the same inputs.
 # f32: the kernel's FMA chains and the plain version's matmuls sum the C and
@@ -103,6 +126,11 @@ def cuda_ms(fn, reps: int, windows: int = 7) -> float:
     """Milliseconds per call of fn() on the card: after one warm-up call,
     `windows` windows of `reps` calls each are timed with CUDA events, and
     the median window's mean is returned."""
+    return float(np.median(cuda_windows(fn, reps, windows)))
+
+
+def cuda_windows(fn, reps: int, windows: int = 7) -> list:
+    """The windows of `cuda_ms`, each its mean in ms per call."""
     import torch
 
     fn()
@@ -116,7 +144,7 @@ def cuda_ms(fn, reps: int, windows: int = 7) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    return times
 
 
 def random_state_dict(model, rng):
@@ -156,30 +184,101 @@ def synthetic_video(rng, n: int) -> np.ndarray:
     return frames
 
 
-def check_k1(torch, twa, rng):
-    """Phase 2: K1 against twa_scan_ref. Returns the flagship bf16 error."""
+def k1_arrays(rng, shape):
+    v, s, h, w, c = shape
+    return [rng.normal(0, 0.5, shape), rng.normal(0, 0.5, shape),
+            rng.normal(0, np.sqrt(2.0 / (9 * c)), (3, 3, c, c)),
+            rng.normal(0, 0.5, (v, h, w, c))]
+
+
+def k1_case(torch, rng, shape, dtype, arrays=None):
+    return [torch.tensor(a, dtype=torch.float32).to("cuda", dtype)
+            for a in arrays or k1_arrays(rng, shape)]
+
+
+def check_k1(torch, kernels, twa, rng):
+    """Phase 2: K1's two kernels against twa_scan_ref and each other, and
+    shard invariance. Returns the flagship errors of the persistent kernel
+    (bf16) and of the per-frame kernel as the main paths launch it (f32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    flagship_err = None
-    for (v, s, h, w, c) in [(1, S, OUT_H, OUT_W, 256), (2, 3, 13, 7, 24)]:
-        arrays = [rng.normal(0, 0.5, (v, s, h, w, c)), rng.normal(0, 0.5, (v, s, h, w, c)),
-                  rng.normal(0, np.sqrt(2.0 / (9 * c)), (3, 3, c, c)),
-                  rng.normal(0, 0.5, (v, h, w, c))]
+    # the main generator gives the flagship and the ragged case and then goes
+    # on to K2's cases and the model's weights; the other cases have their own
+    flagship, ragged = (1, S, OUT_H, OUT_W, 256), (2, 3, 13, 7, 24)
+    drawn = {flagship: k1_arrays(rng, flagship), ragged: k1_arrays(rng, ragged)}
+    rng = np.random.default_rng(SEED + 1)
+
+    def held(what, shape, dtype, ys, h_last, args, tol):
+        ref, ref_last = twa.twa_scan_ref(*args)
+        err = (ys.float() - ref.float()).abs().max().item()
+        err_last = (h_last.float() - ref_last.float()).abs().max().item()
+        v, s, h, w, c = shape
+        name = str(dtype).replace("torch.", "")
+        print(f"K1 {what} {name} V={v} S={s} {h}x{w}x{c}: max_abs_err {err:.3g} "
+              f"(h_last {err_last:.3g}), tolerance {tol}")
+        if not (err <= tol and err_last <= tol):
+            fail(f"K1 ({what}) disagrees with twa_scan_ref in {name} at {shape}: {err}")
+        return err
+
+    def scan(args, route, frames):
+        """`twa_scan` on the route its gate must pick, counted."""
+        if twa.kernel_route(args[0].shape, args[0].dtype) != route:
+            fail(f"K1's gate does not send {tuple(args[0].shape)} {args[0].dtype} to {route}")
+        kernels.reset_launches()
+        out = twa.twa_scan(*args)
+        torch.cuda.synchronize()
+        want = {"twa_scan": int(route == "twa_scan"),
+                "twa_step": frames if route == "twa_step" else 0, "dwblock": 0}
+        if kernels.launches != want:
+            fail(f"K1 at {tuple(args[0].shape)}: launched {kernels.launches}, expected {want}")
+        return out
+
+    # the persistent kernel: flagship frame, V = 1, 2, 4
+    errs = {}
+    for v in (1, 2, 4):
+        shape = (v, S, OUT_H, OUT_W, 256)
+        args = k1_case(torch, rng, shape, torch.bfloat16, drawn.get(shape))
+        ys, h_last = scan(args, "twa_scan", S)
+        err = held("persistent", shape, torch.bfloat16, ys, h_last, args, TOL_BF16)
+        step, step_last = twa._twa_scan_cuda(*args, route="twa_step")
+        for run in range(REPEATS):
+            again, again_last = twa.twa_scan(*args)
+            if not (torch.equal(again, ys) and torch.equal(again_last, h_last)):
+                fail(f"K1 (persistent) gives other bits on run {run + 2} at V={v}")
+        diff = (ys.float() - step.float()).abs().max().item()
+        print(f"K1 persistent vs per-frame bf16 kernel V={v}: max abs diff {diff:.3g} "
+              f"({(ys != step).float().mean().item():.3%} of values differ), tolerance "
+              f"{TOL_K1_KERNELS}; {REPEATS + 1} persistent runs give equal bits")
+        if not diff <= TOL_K1_KERNELS:
+            fail(f"K1's two bf16 kernels disagree at V={v}: {diff}")
+        if v == 1:
+            errs["twa_scan"] = err
+            held("per-frame", shape, torch.bfloat16, step, step_last, args, TOL_BF16)
+    # the per-frame kernel: f32 at the flagship shape, the ragged shape in both
+    for shape, dtype, tol in [(flagship, torch.float32, TOL_F32), (ragged, torch.float32, TOL_F32),
+                              (ragged, torch.bfloat16, TOL_BF16)]:
+        args = k1_case(torch, rng, shape, dtype, drawn[shape])
+        ys, h_last = scan(args, "twa_step", shape[1])
+        err = held("per-frame", shape, dtype, ys, h_last, args, tol)
+        if (shape, dtype) == (flagship, torch.float32):
+            errs["twa_step"] = err
+    # shard invariance: whole V against the two halves, bit for bit
+    for hwc in ((13, 7, 24), (OUT_H, OUT_W, 256)):
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            args = [torch.tensor(a, dtype=torch.float32).to("cuda", dtype) for a in arrays]
-            ys, h_last = twa.twa_scan(*args)
+            shape = (4, 3, *hwc)
+            x, gx, w_h, h0 = k1_case(torch, rng, shape, dtype)
+            ys, h_last = twa.twa_scan(x, gx, w_h, h0)
+            halves = [twa.twa_scan(x[i:i + 2].contiguous(), gx[i:i + 2].contiguous(), w_h,
+                                   h0[i:i + 2].contiguous()) for i in (0, 2)]
             torch.cuda.synchronize()
-            ref, ref_last = twa.twa_scan_ref(*args)
-            err = (ys.float() - ref.float()).abs().max().item()
-            err_last = (h_last.float() - ref_last.float()).abs().max().item()
-            name = str(dtype).replace("torch.", "")
-            print(f"K1 {name} V={v} S={s} {h}x{w}x{c}: max_abs_err {err:.3g} "
-                  f"(h_last {err_last:.3g}), tolerance {tol}")
-            if not (err <= tol and err_last <= tol):
-                fail(f"K1 disagrees with twa_scan_ref in {name} at {(v, s, h, w, c)}: {err}")
-            if (v, s, c, dtype) == (1, S, 256, torch.bfloat16):
-                flagship_err = err
-    return flagship_err
+            route = twa.kernel_route(shape, dtype)
+            held(f"whole V ({route})", shape, dtype, ys, h_last, (x, gx, w_h, h0), tol)
+            if not (torch.equal(torch.cat([p[0] for p in halves]), ys)
+                    and torch.equal(torch.cat([p[1] for p in halves]), h_last)):
+                fail(f"K1 ({route}) on x[:2], x[2:] gives other bits than on x at {shape} {dtype}")
+            print(f"K1 {route} V=4 equals V=2 + V=2 bit for bit at {shape} "
+                  f"{str(dtype).replace('torch.', '')}")
+    return errs
 
 
 def dw_case(rng, n, h, w, c, e, co):
@@ -271,7 +370,7 @@ def check_gradients(torch, kernels, dwblock, twa, rng):
     pairs = {"fused_dwblock": (grads(lambda *a: dwblock.fused_dwblock(*a, True), dw),
                                grads(lambda *a: dwblock.dwblock_ref(*a, True), dw)),
              "twa_scan": (grads(twa.twa_scan, tw), grads(twa.twa_scan_ref, tw))}
-    if kernels.launches != {"twa_scan": 3, "dwblock": 1}:
+    if kernels.launches != {"twa_scan": 0, "twa_step": 3, "dwblock": 1}:  # f32: per frame
         fail(f"the gradient phase launched {kernels.launches}")
     for name, (got, want) in pairs.items():
         err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
@@ -325,39 +424,121 @@ def frame_cc(torch, a, b):
     return (a * b).sum(dim=(1, 2)) / (a.norm(dim=(1, 2)) * b.norm(dim=(1, 2)))
 
 
-def time_k1(torch, F, twa, rng):
-    """K1 time per frame at the flagship shape in bf16, beside its plain
-    version, one PyTorch call per frame (cuDNN conv + sigmoid/lerp) and the
-    bound. All in ms per frame. cuDNN picks its fastest algorithm for the
-    yardstick (`cudnn.benchmark`, autotuned in the warm-up call)."""
-    v, s, h, w, c = 1, S, OUT_H, OUT_W, 256
-    dt = torch.bfloat16
-    mk = lambda *shape, sd=0.5: torch.tensor(rng.normal(0, sd, shape), dtype=dt, device="cuda")  # noqa: E731
-    x, gx, h0 = mk(v, s, h, w, c), mk(v, s, h, w, c), mk(v, h, w, c)
-    w_h = mk(3, 3, c, c, sd=np.sqrt(2.0 / (9 * c)))
-    kernel_ms = cuda_ms(lambda: twa.twa_scan(x, gx, w_h, h0), 20) / s
-    plain_ms = cuda_ms(lambda: twa.twa_scan_ref(x, gx, w_h, h0), 10) / s
-
+def k1_library(torch, F, x, gx, w_h, h0):
+    """K1's library yardstick on these inputs: per frame one cuDNN conv in
+    channels-last memory, a sigmoid and a lerp."""
     w_oihw = w_h.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    xs, gxs = x[0].permute(0, 3, 1, 2), gx[0].permute(0, 3, 1, 2)  # channels-last views
+    xs, gxs = x.permute(1, 0, 4, 2, 3), gx.permute(1, 0, 4, 2, 3)  # channels-last views
     hp = h0.permute(0, 3, 1, 2)
 
     def library_frames():
         hh = hp
-        for t in range(s):
-            g = torch.sigmoid(gxs[t:t + 1] + F.conv2d(hh, w_oihw, padding=1))
-            hh = torch.lerp(hh, xs[t:t + 1], g)
+        for t in range(x.shape[1]):
+            g = torch.sigmoid(gxs[t] + F.conv2d(hh, w_oihw, padding=1))
+            hh = torch.lerp(hh, xs[t], g)
 
+    return library_frames
+
+
+def k1_bound(shape, itemsize, peak_flops):
+    """(ms, bound_by) the card needs at least for a scan of this shape: x, gx,
+    h_{s-1} and h_s of every frame and W_h once, or 9*C*C FMA per pixel."""
+    v, s, h, w, c = shape
+    flops_ms = 2.0 * s * v * h * w * 9 * c * c / peak_flops * 1e3
+    bytes_ms = (4.0 * s * v * h * w * c + 9 * c * c) * itemsize / PEAK_BYTES * 1e3
+    return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
+
+
+def time_k1(torch, F, twa, rng, v):
+    """K1 at V x 20 x 45 x 80 x 256 in bf16: the per-frame kernel, the
+    persistent kernel and the library yardstick (one cuDNN conv + sigmoid +
+    lerp per frame, `cudnn.benchmark` on, autotuned in the warm-up call),
+    timed in turns (per-frame, persistent, library, library, persistent,
+    per-frame), 7 windows of 10 clips a turn; then the plain version and the
+    bound. Returns ms per clip: {name: (median, fastest window)} over a
+    name's 14 windows, and the bound."""
+    s, h, w, c = S, OUT_H, OUT_W, 256
+    x, gx, w_h, h0 = k1_case(torch, rng, (v, s, h, w, c), torch.bfloat16)
+    calls = {"per-frame": lambda: twa._twa_scan_cuda(x, gx, w_h, h0, route="twa_step"),
+             "persistent": lambda: twa.twa_scan(x, gx, w_h, h0),
+             "library": k1_library(torch, F, x, gx, w_h, h0)}
+    windows = {name: [] for name in calls}
     torch.backends.cudnn.benchmark = True
-    library_ms = cuda_ms(library_frames, 20) / s
+    for name in ("per-frame", "persistent", "library", "library", "persistent", "per-frame"):
+        turn = cuda_windows(calls[name], 10)
+        windows[name] += turn
+        print(f"K1 V={v} {name}: median {np.median(turn) / s * 1e3:.2f} us/frame, fastest "
+              f"window {min(turn) / s * 1e3:.2f}")
     torch.backends.cudnn.benchmark = False
-    flops = 2.0 * v * h * w * 9 * c * c
-    bytes_moved = (4.0 * v * h * w * c + 9 * c * c) * 2  # x, gx, h_{s-1}, h_s, W_h
-    bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bound_bytes_ms = bytes_moved / PEAK_BYTES * 1e3
-    bound_ms = max(bound_flops_ms, bound_bytes_ms)
-    bound_by = "operations" if bound_flops_ms >= bound_bytes_ms else "bytes"
-    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+    times = {name: (float(np.median(ws)), min(ws)) for name, ws in windows.items()}
+    times["plain"] = (cuda_ms(lambda: twa.twa_scan_ref(x, gx, w_h, h0), 3), None)
+    bound_ms, bound_by = k1_bound(x.shape, 2, PEAK_BF16_FLOPS)  # per clip
+    for name, (med, fastest) in times.items():
+        best = "" if fastest is None else f", fastest window {fastest / s * 1e3:.2f}"
+        print(f"K1 bf16 at {v}x{s}x{h}x{w}x{c}, {name}: {med / s * 1e3:.2f} us/frame{best}")
+    print(f"K1 bf16 at {v}x{s}x{h}x{w}x{c}, bound: {bound_ms / s * 1e3:.2f} us/frame ({bound_by})")
+    return times, bound_ms, bound_by
+
+
+def time_k1_f32(torch, F, twa, rng):
+    """The per-frame kernel as the f32 main paths launch it, 1 x 45 x 80 x 256
+    in f32 on plain FMA, 20 launches a clip: beside its library yardstick
+    (one cuDNN conv, TF32 off, + sigmoid + lerp per frame), in turns (kernel,
+    library, library, kernel), then the plain version and the bound, which is
+    at the f32 rate outside the tensor cores. Returns ms per launch."""
+    s, h, w, c = S, OUT_H, OUT_W, 256
+    x, gx, w_h, h0 = k1_case(torch, rng, (1, s, h, w, c), torch.float32)
+    if twa.kernel_route(x.shape, x.dtype) != "twa_step":
+        fail("K1's gate does not send f32 to the per-frame kernel")
+    calls = {"kernel": lambda: twa.twa_scan(x, gx, w_h, h0),
+             "library": k1_library(torch, F, x, gx, w_h, h0)}
+    windows = {name: [] for name in calls}
+    torch.backends.cudnn.benchmark = True
+    for name in ("kernel", "library", "library", "kernel"):
+        windows[name] += cuda_windows(calls[name], 5)
+    torch.backends.cudnn.benchmark = False
+    out = {name: float(np.median(ws)) / s for name, ws in windows.items()}
+    out["plain"] = cuda_ms(lambda: twa.twa_scan_ref(x, gx, w_h, h0), 3) / s
+    out["bound"], out["bound_by"] = k1_bound((1, 1, h, w, c), 4, PEAK_F32_FLOPS)
+    print(f"K1 per-frame kernel, f32 at 1x{s}x{h}x{w}x{c}: {out['kernel'] * 1e3:.2f} us/frame "
+          f"(fastest window {min(windows['kernel']) / s * 1e3:.2f}), library "
+          f"{out['library'] * 1e3:.2f} (fastest {min(windows['library']) / s * 1e3:.2f}), plain "
+          f"{out['plain'] * 1e3:.2f}, bound {out['bound'] * 1e3:.2f} ({out['bound_by']}, at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)")
+    return out
+
+
+def check_k1_served(torch, twa, name, taken):
+    """K1 where it is served: `taken` holds, per clip of a bf16 main path,
+    the arguments `twa_scan` was called with and what it returned. The
+    persistent kernel's served output must be the bits it gives on those
+    inputs alone, agree with the per-frame kernel within one bf16 ulp of the
+    largest value (`TOL_K1_KERNELS` below 4), and hold the plain version
+    computed in f32 on the same bf16 inputs within `TOL_BF16`, which is for
+    values below 2 and grows as a bf16 ulp does. The plain version in bf16,
+    which rounds conv and gate every frame, is read against the same f32
+    result beside it."""
+    for k, ((x, gx, w_h, h0), (ys, h_last)) in enumerate(taken):
+        args = (x, gx, w_h.to(x.dtype), h0.to(x.dtype))
+        alone, alone_last = twa._twa_scan_cuda(*args, route="twa_scan")
+        step, _ = twa._twa_scan_cuda(*args, route="twa_step")
+        exact = twa.twa_scan_ref(*(a.float() for a in args))[0]
+        plain_err = (twa.twa_scan_ref(*args)[0].float() - exact).abs().max().item()
+        torch.cuda.synchronize()
+        top = exact.abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+        tol_exact, tol_step = TOL_BF16 * max(1.0, ulp * 2 ** 7), max(TOL_K1_KERNELS, ulp)
+        err = (ys.float() - exact).abs().max().item()
+        diff = (ys.float() - step.float()).abs().max().item()
+        same = torch.equal(alone, ys) and torch.equal(alone_last, h_last)
+        print(f"K1 as served, {name}, clip {k}: max |h| {top:.3g}; vs the plain version in f32 "
+              f"{err:.3g} (tolerance {tol_exact:.3g}; the plain version in bf16 {plain_err:.3g}), "
+              f"vs per-frame kernel {diff:.3g} (tolerance {tol_step:.3g}), equal bits alone: {same}")
+        if not same:
+            fail(f"{name} clip {k}: K1's served output is not what it gives on the same inputs")
+        if not (err <= tol_exact and diff <= tol_step):
+            fail(f"{name} clip {k}: K1's served output disagrees: {err} vs the plain version "
+                 f"in f32, {diff} vs the per-frame kernel")
 
 
 def main() -> None:
@@ -369,6 +550,7 @@ def main() -> None:
     try:
         from iip_uavsal_saliency_tpu_torch import kernels
         from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+        from iip_uavsal_saliency_tpu_torch.models import recurrent
         from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
         from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
         from iip_uavsal_saliency_tpu_torch.ops import dwblock, twa
@@ -395,7 +577,7 @@ def main() -> None:
 
     # 2. kernels against their plain versions, and the gradient wrappers
     rng = np.random.default_rng(SEED)
-    k1_err = check_k1(torch, twa, rng)
+    k1_err = check_k1(torch, kernels, twa, rng)
     k2_err = check_k2(torch, dwblock, rng)
     check_gradients(torch, kernels, dwblock, twa, rng)
 
@@ -403,7 +585,11 @@ def main() -> None:
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    variables = to_jax_variables(random_state_dict(UAVSal(), rng))
+    weights = random_state_dict(UAVSal(), rng)
+    # the seeded network: every agreement below is on this one set of weights
+    print(f"seeded weights: {len(weights)} tensors, sum |w| "
+          f"{sum(t.double().abs().sum().item() for t in weights.values()):.6f}")
+    variables = to_jax_variables(weights)
     gauss = get_gauss_priors(OUT_H, OUT_W, 8)
     ob = rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)
     video = synthetic_video(rng, V * S * CLIPS)
@@ -422,19 +608,31 @@ def main() -> None:
 
         return model, step, spy, seen
 
-    def drive(name, model, step, spy, seen, k2_launches):
+    def drive(name, model, step, spy, seen, bf16, k2_launches):
         """One main path: warm-up clip, counts to 0, the whole video through
-        `predict_videos`, counts read and held to the expected ones exactly."""
+        `predict_videos`, counts read and held to the expected ones exactly:
+        bf16 takes K1's persistent kernel once per clip, f32 its per-frame
+        kernel once per frame."""
         predict_videos(step, model, [video[:S]], native, batch_size=4)  # warm-up
         torch.cuda.synchronize()
+        taken = []
+
+        def recorder(*args):  # ConvTWA's call of K1, its arguments and results kept
+            out = twa.twa_scan(*args)
+            taken.append(([a.clone() for a in args], [o.clone() for o in out]))
+            return out
+
+        recurrent.twa_scan = recorder
         kernels.reset_launches()
         t0 = time.perf_counter()
         maps = predict_videos(spy, model, [video], native, batch_size=4)[0]
         torch.cuda.synchronize()
         e2e_s = time.perf_counter() - t0
         launches = dict(kernels.launches)
+        recurrent.twa_scan = twa.twa_scan
         print(f"{name}: {V * S * CLIPS} frames in {CLIPS} clips, launches {launches}")
-        want = {"twa_scan": S * CLIPS, "dwblock": k2_launches}
+        want = {"twa_scan": CLIPS if bf16 else 0, "twa_step": 0 if bf16 else S * CLIPS,
+                "dwblock": k2_launches}
         if launches != want:
             fail(f"{name}: launched {launches}, expected {want}")
         if maps.shape != (NATIVE_H, NATIVE_W, 1, V * S * CLIPS) or maps.dtype != np.uint8:
@@ -448,6 +646,10 @@ def main() -> None:
                 fail(f"{name} clip {k}: saliency outside [0, 1]")
             if not torch.isfinite(st_out).all() or torch.equal(st_in, st_out):
                 fail(f"{name} clip {k}: the carried state did not change or is not finite")
+        if len(taken) != CLIPS:
+            fail(f"{name}: ConvTWA called K1 {len(taken)} times in {CLIPS} clips")
+        if bf16:
+            check_k1_served(torch, twa, name, taken)
         return launches, e2e_s, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double()
 
     def compare(name, a, b):
@@ -471,18 +673,19 @@ def main() -> None:
 
     model16, step16, spy16, seen16 = serve(torch.bfloat16, False)
     launches_off, e2e_off, sal16 = drive("main path, K2 off (bf16)", model16, step16, spy16,
-                                         seen16, 0)
+                                         seen16, True, 0)
     launches_on, e2e_on, sal16k = drive("main path, K2 on (bf16)", model16k, step16k, spy16k,
-                                        seen16k, len(admitted) * CLIPS)
+                                        seen16k, True, len(admitted) * CLIPS)
     model32, step32, spy32, seen32 = serve(None, False)
-    _, _, sal32 = drive("main path, K2 off (f32)", model32, step32, spy32, seen32, 0)
+    launches_f32, _, sal32 = drive("main path, K2 off (f32)", model32, step32, spy32, seen32,
+                                   False, 0)
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
     if check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k, first_clip,
                          model32k.init_state(IN_H, IN_W, V, device="cuda")) != admitted:
         fail("the gate admits other blocks in f32 than in bf16")
     _, _, sal32k = drive("main path, K2 on (f32)", model32k, step32k, spy32k, seen32k,
-                         len(admitted) * CLIPS)
+                         False, len(admitted) * CLIPS)
     del model32, model32k, step32, step32k, spy32, spy32k
     print(f"f32 map mean {sal32.mean().item():.4g} std {sal32.std().item():.4g}")
     compare("bf16 vs f32 saliency, K2 off", sal16, sal32)
@@ -521,28 +724,40 @@ def main() -> None:
     write_profile(torch, step16, clip, state, "chip_smoke_profile.txt")
     write_profile(torch, step16k, clip, state, "chip_smoke_profile_k2.txt")
 
-    k1_ms, k1_plain_ms, k1_library_ms, k1_bound_ms, k1_bound_by = time_k1(torch, F, twa, rng)
-    print(f"K1 bf16 at 1x{OUT_H}x{OUT_W}x256: kernel {k1_ms * 1e3:.2f} us/frame, plain "
-          f"{k1_plain_ms * 1e3:.2f} us/frame, library {k1_library_ms * 1e3:.2f} us/frame, bound "
-          f"{k1_bound_ms * 1e3:.2f} us/frame ({k1_bound_by})")
+    k1_times, k1_bound_ms, k1_bound_by = time_k1(torch, F, twa, rng, 1)
+    time_k1(torch, F, twa, rng, 4)
     k2_ms, k2_plain_ms, k2_library_ms, k2_bound_ms, k2_bound_by = time_k2(torch, F, dwblock, rng)
     print(f"K2 bf16 at N,H,W,C,E,Co={K2_FLAGSHIP}, residual: kernel {k2_ms * 1e3:.2f} us/launch, "
           f"plain {k2_plain_ms * 1e3:.2f}, library (three cuDNN convs) {k2_library_ms * 1e3:.2f}, "
           f"bound {k2_bound_ms * 1e3:.2f} ({k2_bound_by})")
 
+    k1_f32 = time_k1_f32(torch, F, twa, rng)
+
     print(smi)
+    k1 = {"route": "cuda", "source": "iip_uavsal_saliency_tpu_torch/csrc/twa_scan.cu",
+          "replaces": "iip_uavsal_saliency_tpu/ops/pallas_twa.py:147"}
     print(json.dumps({"kernels": [{
-        "name": "twa_scan",
-        "route": "cuda",
-        "source": "iip_uavsal_saliency_tpu_torch/csrc/twa_scan.cu",
-        "replaces": "iip_uavsal_saliency_tpu/ops/pallas_twa.py:147",
+        # the persistent kernel: one launch is a clip of S frames of 1x45x80x256 bf16
+        "name": "twa_scan", **k1,
         "launches": launches_off["twa_scan"],
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
+        "max_abs_err": k1_err["twa_scan"],
+        "ms": k1_times["persistent"][0],
+        "plain_ms": k1_times["plain"][0],
         "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by,
-        "library_ms": k1_library_ms,
+        "library_ms": k1_times["library"][0],
+        "frames_per_launch": S,
+    }, {
+        # the per-frame kernel as the f32 paths launch it: one frame of 1x45x80x256 f32
+        "name": "twa_step", **k1,
+        "launches": launches_f32["twa_step"],
+        "max_abs_err": k1_err["twa_step"],
+        "ms": k1_f32["kernel"],
+        "plain_ms": k1_f32["plain"],
+        "bound_ms": k1_f32["bound"],
+        "bound_by": k1_f32["bound_by"],
+        "library_ms": k1_f32["library"],
+        "frames_per_launch": 1,
     }, {
         "name": "dwblock",
         "route": "cuda",

@@ -1,33 +1,69 @@
-// One frame of the ConvTWA recurrence on Hopper (sm_90a), CUDA C++.
+// The ConvTWA recurrence on Hopper (sm_90a), CUDA C++: two kernels.
 //
 // Replaces iip_uavsal_saliency_tpu/ops/pallas_twa.py::twa_scan_pallas (the
-// Pallas TPU kernel). For every video v of a clip, one launch computes
+// Pallas TPU kernel). For every video v of a clip and every frame s in order
 //
 //     g   = sigmoid(gx_s + conv3x3_same(h_{s-1}, W_h))
 //     h_s = g * x_s + (1 - g) * h_{s-1}
 //
 // as an implicit GEMM: M = H*W output pixels, N = C output channels,
-// K = 9*C (3x3 taps x input channels), accumulated in f32, with the
-// sigmoid/lerp fused into the epilogue. The host launches frames in order
-// (ops/twa.py); frame s reads h_{s-1} from ys[v, s-1] (or h0) and writes
-// ys[v, s], so no ping-pong buffer is needed.
+// K = 9*C (3x3 taps x input channels), accumulated in f32, gate and lerp in
+// f32 in the epilogue, one rounding at the store of h_s. Frame s reads
+// h_{s-1} from ys[v, s-1] (or h0) and writes ys[v, s]: no copy of h.
 //
 // What bounds it on an H100: at the flagship 45x80x256 one frame is
 // 2*3600*2304*256 = 4.25 GFLOP against ~8.6 MB of x, gx, h_{s-1}, h_s and
 // W_h, so it is compute-bound (about 4.3 us at the 989 TFLOP/s bf16 peak vs
-// 2.6 us for the bytes at 3.35 TB/s). The TPU kernel kept h resident in
-// VMEM across all frames; a Hopper block cannot hold the 1.8 MB h_{s-1}
-// (227 KB of shared memory at most) and blocks share no state, so the
-// design instead relies on the 50 MB L2 to keep h_{s-1}, W_h and the
-// neighbouring frame data on chip between launches, and spends its effort
-// on the tensor cores: bf16 runs on WMMA 16x16x16 tiles (f32 accumulate),
-// with the next K slice prefetched into registers while the current one
-// is multiplied. The f32 variant runs plain FMA (no TF32), for the f32
-// serving path. wgmma, TMA and a persistent kernel are later work.
+// 2.6 us for the bytes at 3.35 TB/s).
 //
-// Requirements (checked by the Python wrapper): C % 8 == 0, all pointers
-// 16-byte aligned, tensors contiguous in (V, S, H, W, C) / (V, H, W, C)
-// order, W_h contiguous in HWIO order (3, 3, C, C). Any H, W >= 1.
+// twa_clip_kernel (bf16; `twa_scan_bf16`): ONE cooperative launch per clip,
+// the counterpart of the TPU kernel's single pallas_call with W_h resident
+// in VMEM. The grid is at most what is resident at once (one block per SM at
+// this shared-memory size; the launch is refused otherwise), and every block
+// loops over all S frames.
+//   - A block owns a slice of PN = 32 output channels and keeps that slice
+//     of W_h (9*C x 32, 147 KB at C = 256) in shared memory for the whole
+//     clip: W_h is read from L2 once per clip, not once per tile and frame.
+//   - Its output tiles are TR image rows of one video: the most that give
+//     at most 256 GEMM rows and fit, with their halo, beside the slice
+//     (`clip_tile_rows`, the one place that decides it; 3 rows = 240 pixels
+//     at W = 80). Per tile and frame the rows with
+//     their one-pixel halo ((TR+2) x (W+2) pixels, zeros outside the image
+//     written by the loader) are staged once, in chunks of 32 input
+//     channels through a 3-deep cp.async ring, and the 9 taps are shifted
+//     reads of that one copy: ldmatrix takes an address per row, so a shift
+//     costs nothing. h_{s-1} is read from L2 once per tile, not once per tap.
+//   - Tensor cores through ldmatrix + mma.sync m16n8k16 (f32 accumulators in
+//     registers; 8 warps of 32 rows x 32 columns), not WMMA. Both operands
+//     are stored with a 16-byte-chunk XOR swizzle, so the eight rows of an
+//     ldmatrix phase fall on distinct banks whatever the shift, and the
+//     fragments of K step k + 1 are loaded while step k multiplies.
+//   - The epilogue works on the accumulator's own rows and columns straight
+//     from registers (no f32 tile in shared memory). The slice's columns
+//     are stored permuted so that a lane's 8 accumulator columns are 8
+//     consecutive channels: x_s, gx_s, h_{s-1} and h_s move as one 16-byte
+//     access per row, asked for before the GEMM and used after it.
+//   - Frames stay in order across blocks through per-tile counters in a
+//     scratch tensor the wrapper zeroes: after storing h_s of a tile every
+//     thread fences, the block's thread 0 adds 1 to the tile's counter, and
+//     a block starts frame s of a tile once the counters of the tile and of
+//     its row neighbours have reached (C / 32) * s. h_{s-1} is then read
+//     with cp.async.cg and ld.global.cg (L2 only, never the read-only path).
+//     Dependencies point to earlier frames only and all blocks are resident,
+//     so the wait cannot deadlock.
+//   - No split-K, no atomics on data: a tile's bits do not depend on which
+//     block computes it, so a split of V gives the bits of the whole.
+//
+// twa_step_kernel (bf16 on WMMA 16x16x16, f32 on plain FMA, no TF32;
+// `twa_step_*`): one frame per launch, the host launches frames in order
+// (ops/twa.py). It takes everything the persistent kernel's gate does not:
+// f32 (the f32 serving path's 2.44e-6 parity rests on FMA), C % 8 == 0 with
+// C % 32 != 0, widths whose halo tile does not fit beside the W_h slice.
+//
+// Requirements (checked by the Python wrapper): C % 8 == 0 (C % 32 == 0 for
+// the persistent kernel), all pointers 16-byte aligned, tensors contiguous
+// in (V, S, H, W, C) / (V, H, W, C) order, W_h contiguous in HWIO order
+// (3, 3, C, C). Any H, W >= 1 for the per-frame kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -312,6 +348,347 @@ int launch(const void* x, const void* gx, const void* hprev, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The persistent kernel: one launch per clip (bf16).
+
+// Timing builds only (tools/k1_probe): a bit mask of parts compiled out.
+// Such a build computes wrong values; the port never builds one.
+#ifndef CLIP_SKIP
+#define CLIP_SKIP 0
+#endif
+enum Part { MMA = 0, LDSM = 1, STAGING = 2, EPILOGUE = 3, ORDER = 4, FENCE = 5, OPERANDS = 6 };
+__host__ __device__ constexpr bool runs(Part p) { return !((CLIP_SKIP >> p) & 1); }
+
+constexpr int PN = 32;       // output channels per block: its slice of W_h
+constexpr int KC = 32;       // input channels per staged chunk of h_{s-1}
+constexpr int MT = 256;      // GEMM rows (pixels) per tile, at most
+constexpr int WM = 32;       // GEMM rows per warp: two 16-row mma tiles
+constexpr int MI = WM / 16;
+constexpr int NTHREAD = MT / WM * 32;  // 8 warps
+constexpr int NSTAGE = 3;    // chunk buffers in the cp.async ring
+constexpr int ROW_BYTES = KC * 2;   // one staged pixel, and one row of the slice
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a Hopper block can use
+
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+// Bytes of one staged chunk for a tile of `tr` rows with its halo.
+__host__ __device__ constexpr int stage_bytes(int tr, int W) {
+  return round_up((tr + 2) * (W + 2), 8) * ROW_BYTES;
+}
+__host__ __device__ constexpr int clip_smem_bytes(int tr, int W, int C) {
+  return 9 * C * ROW_BYTES + NSTAGE * stage_bytes(tr, W) +
+         round_up((tr + 2) * (W + 2), 4) * 4;
+}
+
+// 16-byte asynchronous copy from device to shared memory through L2 only;
+// `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `ldsm` loads four 8x8 b16 matrices from shared memory: lane l gives the
+// shared-space address of row l % 8 of matrix l / 8 and receives, of matrix i, the two
+// elements (row l / 4, columns 2 * (l % 4) and + 1) in r[i]; `.trans` hands
+// out the transposed matrices, which turns a (k, n) tile into the mma's B.
+__device__ __forceinline__ void ldsm(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_trans(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// c (16x8, f32) += a (16x16, bf16, row-major) . b (16x8, bf16). With
+// g = l / 4, t = l % 4: c[0], c[1] are (row g, columns 2t, 2t + 1) and
+// c[2], c[3] the same columns of row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// sigmoid in f32 on the special-function unit (ex2.approx, rcp.approx): a
+// few f32 ulps from expf and a full division, far inside the one rounding to
+// bf16 that follows, at a third of their cost.
+__device__ __forceinline__ float gate(float z) {
+  return __fdividef(1.0f, 1.0f + __expf(-z));
+}
+
+__device__ __forceinline__ float2 unpack(unsigned two_bf16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&two_bf16));
+}
+
+// Byte offset of 16-byte chunk `q` (of 4) in row `row` of a swizzled array
+// of 64-byte rows: rows 2 apart swap chunk pairs, so 8 consecutive rows put
+// one chunk each on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int swz(int row, int q) {
+  return row * ROW_BYTES + ((q ^ ((row >> 1) & 3)) << 4);
+}
+
+// grid = groups * (C / PN) blocks: block b owns channel slice b % (C / PN)
+// and the tiles b / (C / PN), + groups, ... of the V * ceil(H / TR) tiles.
+// `done[tile]` counts the slice blocks that have stored the tile's h_s, over
+// all frames so far; the wrapper zeroes it. TR = clip_tile_rows(H, W, C).
+__global__ void __launch_bounds__(NTHREAD, 1)
+    twa_clip_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ gx,
+                    const __nv_bfloat16* h0, const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* ys, int* done, int V, int S, int H, int W,
+                    int C, int TR) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Ws = smem;
+  const int sbytes = stage_bytes(TR, W);
+  unsigned char* stage = smem + 9 * C * ROW_BYTES;
+  int* table = reinterpret_cast<int*>(stage + NSTAGE * sbytes);
+  const unsigned ws_a = static_cast<unsigned>(__cvta_generic_to_shared(Ws));
+  const unsigned stage_a = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lrow = lane % 16, lhalf = lane / 16;
+  const unsigned b_lane = swz(lrow, lhalf);  // this lane's row and chunk of a B tile
+  const int nslice = C / PN, groups = gridDim.x / nslice;
+  const int n0 = (blockIdx.x % nslice) * PN;
+  const int tiles = (H + TR - 1) / TR, total = V * tiles;
+  const int PW = W + 2, nchunk = C / KC;
+  const long long hwc = static_cast<long long>(H) * W * C;
+
+  // The block's slice of W_h, resident for the whole clip. Its columns are
+  // stored permuted, pair (4a + b) of the 16 channel pairs at pair (4b + a):
+  // an mma hands lane t of a quad columns 2t, 2t + 1 of each of the four
+  // 8-column blocks, and with this order those are the 8 consecutive
+  // channels 8t .. 8t + 7, one 16-byte access per row in the epilogue.
+  for (int i = tid; i < 9 * C * (PN / 2); i += NTHREAD) {
+    const int k = i / (PN / 2), pa = i % (PN / 2);
+    const int ps = (pa % 4) * 4 + pa / 4;
+    *reinterpret_cast<unsigned*>(Ws + swz(k, ps / 4) + (ps % 4) * 4) =
+        __ldg(reinterpret_cast<const unsigned*>(w + static_cast<long long>(k) * C + n0) + pa);
+  }
+
+  for (int s = 0; s < S; ++s) {
+    for (int mt = blockIdx.x / nslice; mt < total; mt += groups) {
+      const int v = mt / tiles, t = mt - v * tiles;
+      const int y0 = t * TR, rows = min(TR, H - y0);
+      const int mrows = rows * W, npix = (rows + 2) * PW;
+      const bf16* hp = s == 0 ? h0 + v * hwc
+                              : ys + (static_cast<long long>(v) * S + s - 1) * hwc;
+
+      // element offset of every staged pixel in the image, -1 for the zero
+      // halo outside it (other videos' pixels are never read)
+      for (int i = tid; i < npix; i += NTHREAD) {
+        const int ry = i / PW, rx = i - ry * PW;
+        const int y = y0 - 1 + ry, xx = rx - 1;
+        table[i] = (y >= 0 && y < H && xx >= 0 && xx < W) ? (y * W + xx) * C : -1;
+      }
+      // frame s - 1 of this tile and of its row neighbours must be stored
+      if (runs(ORDER) && s > 0 && tid < 3) {
+        const int tt = t - 1 + tid;
+        if (tt >= 0 && tt < tiles) {
+          const int* flag = done + v * tiles + tt;
+          while (load_acquire(flag) < nslice * s) __nanosleep(40);
+        }
+      }
+      __syncthreads();
+
+      auto stage_chunk = [&](int chunk) {
+        unsigned char* dst = stage + (chunk % NSTAGE) * sbytes;
+        const bf16* src = hp + chunk * KC;
+        if constexpr (!runs(STAGING)) return;
+        for (int i = tid; i < npix * 4; i += NTHREAD) {
+          const int p = i >> 2, q = i & 3;
+          const int off = table[p];
+          cp_async16(dst + swz(p, q), src + max(off, 0) + q * 8, off >= 0);
+        }
+      };
+
+      // staged pixel of each ldmatrix row this lane addresses, centre tap
+      int pc[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = min(warp * WM + i * 16 + lrow, mrows - 1);
+        const int ry = r / W;
+        pc[i] = (ry + 1) * PW + (r - ry * W) + 1;
+      }
+
+      float acc[MI][4][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+      for (int st = 0; st < NSTAGE - 1; ++st) {
+        if (st < nchunk) stage_chunk(st);
+        cp_async_commit();
+      }
+
+      // The epilogue's operands for this thread's accumulator rows and
+      // columns (GEMM row r of the tile is pixel y0 * W + r of the image),
+      // asked for now, behind the first chunks, so that they arrive while the
+      // GEMM runs.
+      const long long frame = (static_cast<long long>(v) * S + s) * hwc;
+      const long long pix0 = static_cast<long long>(y0) * W * C + n0 + (lane % 4) * 8;
+      uint4 xr[MI][2], gr[MI][2], hr[MI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = warp * WM + i * 16 + lane / 4 + half * 8;
+          if (!runs(EPILOGUE) || r >= mrows) continue;
+          const long long off = pix0 + static_cast<long long>(r) * C;
+          if constexpr (!runs(OPERANDS)) {
+            xr[i][half] = gr[i][half] = hr[i][half] = make_uint4(tid, 0, r, 1);
+            continue;
+          }
+          xr[i][half] = __ldg(reinterpret_cast<const uint4*>(x + frame + off));
+          gr[i][half] = __ldg(reinterpret_cast<const uint4*>(gx + frame + off));
+          // another block of this launch may have written it: L2 only
+          hr[i][half] = __ldcg(reinterpret_cast<const uint4*>(hp + off));
+        }
+
+      for (int ch = 0; ch < nchunk; ++ch) {
+        cp_async_wait<NSTAGE - 2>();  // this thread's part of chunk ch landed
+        __syncthreads();              // everyone's did, and chunk ch - 1 is used up
+        if (ch + NSTAGE - 1 < nchunk) stage_chunk(ch + NSTAGE - 1);
+        cp_async_commit();
+        // 18 K steps (9 taps x 2 halves of the chunk), the fragments of
+        // step k + 1 loaded while step k multiplies
+        const unsigned A = stage_a + (ch % NSTAGE) * sbytes;
+        const unsigned B = ws_a + ch * (KC * ROW_BYTES) + b_lane;
+        unsigned a[2][MI][4], b[2][2][4];
+        if constexpr (!runs(LDSM)) {
+          for (int i = 0; i < 2 * MI * 4; ++i) (&a[0][0][0])[i] = tid;
+          for (int i = 0; i < 16; ++i) (&b[0][0][0])[i] = tid;
+        }
+        auto load = [&](int k, unsigned (&fa)[MI][4], unsigned (&fb)[2][4]) {
+          const int tap = k / 2, kk = k % 2;
+          const int shift = (tap / 3 - 1) * PW + (tap % 3 - 1);
+          // rows tap * C + ch * KC + kk * 16 + lrow of the slice: all but
+          // lrow are multiples of 16, so the swizzle sees lrow only
+          const unsigned bt = B + (tap * C + kk * 16) * ROW_BYTES;
+          if constexpr (!runs(LDSM)) return;
+          ldsm_trans(fb[0], bt);
+          ldsm_trans(fb[1], bt ^ 32);  // chunks 2, 3: the pair's other half
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const int p = pc[i] + shift;
+            ldsm(fa[i], (A + p * ROW_BYTES + ((lhalf ^ ((p >> 1) & 3)) << 4)) ^ (kk * 32));
+          }
+        };
+        load(0, a[0], b[0]);
+#pragma unroll
+        for (int k = 0; k < 18; ++k) {
+          if (k + 1 < 18) load(k + 1, a[(k + 1) & 1], b[(k + 1) & 1]);
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if constexpr (!runs(MMA)) continue;
+              mma_bf16(acc[i][2 * j], a[k & 1][i], b[k & 1][j][0], b[k & 1][j][1]);
+              mma_bf16(acc[i][2 * j + 1], a[k & 1][i], b[k & 1][j][2], b[k & 1][j][3]);
+            }
+        }
+      }
+
+      // Epilogue on the accumulator's own rows and columns, straight from
+      // registers: gate and lerp in f32, one rounding at the store of h_s.
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = warp * WM + i * 16 + lane / 4 + half * 8;
+          if (!runs(EPILOGUE) || r >= mrows) continue;
+          const long long off = pix0 + static_cast<long long>(r) * C;
+          const unsigned* xs = reinterpret_cast<const unsigned*>(&xr[i][half]);
+          const unsigned* gs = reinterpret_cast<const unsigned*>(&gr[i][half]);
+          const unsigned* hs = reinterpret_cast<const unsigned*>(&hr[i][half]);
+          uint4 out;
+          __nv_bfloat162* os = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // channels 2j, 2j + 1 of the lane's 8
+            const float2 xv = unpack(xs[j]), gv = unpack(gs[j]), hv = unpack(hs[j]);
+            const float g0 = gate(acc[i][j][half * 2] + gv.x);
+            const float g1 = gate(acc[i][j][half * 2 + 1] + gv.y);
+            os[j] = __floats2bfloat162_rn(g0 * xv.x + (1.0f - g0) * hv.x,
+                                          g1 * xv.y + (1.0f - g1) * hv.y);
+          }
+          *reinterpret_cast<uint4*>(ys + frame + off) = out;
+        }
+      if constexpr (runs(FENCE)) __threadfence();   // h_s is visible to the card before the count moves
+      __syncthreads();   // and the stage buffers and the table are free again
+      if (tid == 0) {
+        if constexpr (runs(FENCE)) __threadfence();  // cumulative: orders what the barrier made visible
+        atomicAdd(done + mt, 1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Image rows per tile: the most that give at most MT GEMM rows and fit,
+// with their one-pixel halo, beside the W_h slice; 0 when C is not a
+// multiple of PN or not even one row fits (the per-frame kernel's shapes).
+int clip_tile_rows(int H, int W, int C) {
+  if (H < 1 || W < 1 || C < PN || C % PN) return 0;
+  for (int tr = min(H, MT / W); tr >= 1; --tr)
+    if (clip_smem_bytes(tr, W, C) <= SMEM_LIMIT) return tr;
+  return 0;
+}
+
+int launch_clip(const void* x, const void* gx, const void* h0, const void* w,
+                void* ys, void* done, int V, int S, int H, int W, int C,
+                void* stream) {
+  auto kernel = twa_clip_kernel;
+  int TR = clip_tile_rows(H, W, C);
+  if (TR < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = clip_smem_bytes(TR, W, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREAD,
+                                                           smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  // every block must be resident: its waits are on other blocks' progress
+  const int nslice = C / PN, total = V * ((H + TR - 1) / TR);
+  const int groups = min(total, per_sm * sms / nslice);
+  if (groups < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&x, &gx, &h0, &w, &ys, &done, &V, &S, &H, &W, &C, &TR};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(groups * nslice), dim3(NTHREAD), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,6 +709,19 @@ int twa_step_f32(const void* x, const void* gx, const void* hprev,
   return launch<float>(x, gx, hprev, w, out, vstride, hstride, V, H, W, C,
                        stream);
 }
+
+// The whole clip in one cooperative launch (bf16). `done` is a zeroed int32
+// scratch of V * ceil(H / twa_clip_tile_rows(H, W, C)) entries. Returns the launch's error code (0 on
+// success): a grid that cannot be resident at once is refused, never hung.
+int twa_scan_bf16(const void* x, const void* gx, const void* h0, const void* w,
+                  void* ys, void* done, int V, int S, int H, int W, int C,
+                  void* stream) {
+  return launch_clip(x, gx, h0, w, ys, done, V, S, H, W, C, stream);
+}
+
+// The persistent kernel's tile height in image rows at this frame size, 0
+// where it does not take the shape.
+int twa_clip_tile_rows(int H, int W, int C) { return clip_tile_rows(H, W, C); }
 
 const char* twa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

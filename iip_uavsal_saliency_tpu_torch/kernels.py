@@ -7,9 +7,11 @@ loaded with `ctypes`. The library's file name carries a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
 loaded. Nothing is compiled or loaded when this module is imported.
 
-`launches` counts, per kernel, the launches its wrapper made; a run resets
-it with `reset_launches()` and reads it afterwards to show which kernels a
-path went through.
+`launches` counts, per kernel function, the launches its wrapper made
+(`twa_scan.cu` holds two: `twa_scan`, the persistent kernel, one launch per
+clip, and `twa_step`, one launch per frame); a run resets it with
+`reset_launches()` and reads it afterwards to show which kernels a path
+went through.
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("twa_scan", "dwblock")
+KERNELS = ("twa_scan", "twa_step", "dwblock")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -9,15 +9,34 @@ For each video v and each frame s in order it computes
 and returns (ys, h_last) with ys[v, s] = h_s and h_last a copy of ys[:, -1]
 (a copy, so that a carried state does not keep the whole clip alive).
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-`csrc/twa_scan.cu` once per frame, frames in order on the current stream.
-Each launch is an implicit-GEMM 3x3 conv (M = H*W pixels, N = C, K = 9*C,
-f32 accumulation) with the sigmoid/lerp fused into its epilogue; frame s
-reads h_{s-1} from ys[:, s-1]. At the flagship 45x80x256 a frame is 4.25
-GFLOP, so the kernel is compute-bound on an H100 (bound ~4.3 us/frame in
-bf16); the source's header says what the design does about it. On a CPU
-tensor `twa_scan` runs `twa_scan_ref`, the plain loop of
-`twa_scan_xla`. Any other device raises; nothing falls back.
+On a CUDA tensor it launches one of the two hand-written Hopper kernels of
+`csrc/twa_scan.cu`; `kernel_route` says which, from shape and dtype alone:
+
+- `twa_scan`, the persistent kernel, ONE cooperative launch per clip, as the
+  TPU kernel is one `pallas_call` per clip. It takes bf16 with C a multiple
+  of 32 whenever one image row with its halo fits in shared memory beside
+  the block's slice of W_h (`clip_takes`; the kernel source chooses the
+  tile height and exports it as `twa_clip_tile_rows`). Each block keeps a
+  32-channel slice of W_h on its SM for all S frames, stages the rows of
+  h_{s-1} it needs once per tile and reads the 9 taps as shifted views of
+  that copy, runs the implicit GEMM (M = H*W pixels, N = C, K = 9*C, f32
+  accumulation) on `ldmatrix` + `mma.sync`, and keeps frames in order
+  across blocks through per-tile counters in a scratch tensor that this
+  wrapper allocates and zeroes.
+- `twa_step`, one launch per frame, frames in order on the current stream:
+  everything else the kernel takes (f32 on plain FMA, which the f32 serving
+  path's parity rests on; C a multiple of 8 but not of 32; widths whose halo
+  tile does not fit).
+
+Both fuse the sigmoid and the lerp into the GEMM's epilogue in f32 and round
+once, at the store of h_s; frame s reads h_{s-1} from ys[:, s-1]. At the
+flagship 45x80x256 a frame is 4.25 GFLOP, so either is compute-bound on an
+H100 (bound ~4.3 us/frame in bf16); the source's header says what each
+design does about it. A video's result does not depend on which other videos
+share the launch, so a split of V gives the bits of the whole (the content
+of the JAX package's `twa_scan_sharded`). On a CPU tensor `twa_scan` runs
+`twa_scan_ref`, the plain loop of `twa_scan_xla`. Any other device raises;
+nothing falls back.
 
 `twa_scan` is differentiable in x, gx, W_h and h0 (counterpart of
 `pallas_twa.py::twa_scan`'s custom VJP): the backward recomputes through
@@ -30,14 +49,50 @@ W_h (3, 3, C, C) in HWIO order.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
 
-_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_STEP_SIGNATURE = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+_SCAN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+_SLICE = 32  # the persistent kernel's output channels per block
+
+
+def clip_takes(w: int, c: int) -> bool:
+    """Whether the persistent kernel takes frames of width w with c channels:
+    c a multiple of 32, and a tile of one image row fits in a block's 227 KB
+    of shared memory: 64 bytes for each of the 9*c rows of its W_h slice,
+    and for each of the 3*(w+2) pixels of the row with its halo 3 buffers of
+    64 bytes and one int. The layout and the tile height are the kernel
+    source's (`twa_clip_tile_rows`, 0 exactly where this says no: the tests
+    on the card hold the two together)."""
+    pixels = 3 * (w + 2)
+    smem = 9 * c * 64 + 3 * 64 * (-(-pixels // 8) * 8) + 4 * (-(-pixels // 4) * 4)
+    return c % _SLICE == 0 and 1 <= w <= 256 and smem <= 232448
+
+
+def kernel_route(x_shape: Sequence[int], dtype: torch.dtype) -> str:
+    """Which kernel `twa_scan` launches for x of this shape and dtype on a
+    CUDA device: "twa_scan" (the persistent kernel, one launch per clip) or
+    "twa_step" (one launch per frame). Raises on what neither takes."""
+    if len(x_shape) != 5:
+        raise ValueError(f"x must be (V, S, H, W, C), got {tuple(x_shape)}")
+    v, s, h, w, c = x_shape
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"twa_scan kernel takes bf16 or f32, got {dtype}")
+    if c % 8 or min(v, s, h, w) < 1 or h * w * c >= 2 ** 31:
+        raise ValueError(f"twa_scan kernel needs C % 8 == 0, V, S, H, W >= 1 and "
+                         f"H*W*C < 2^31; got x of shape {tuple(x_shape)}")
+    if dtype == torch.bfloat16 and clip_takes(w, c):
+        return "twa_scan"
+    if v > 65535:
+        raise ValueError(f"the per-frame twa_scan kernel takes V <= 65535, got {v}")
+    return "twa_step"
 
 
 def twa_scan_ref(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor,
@@ -90,50 +145,75 @@ def _lib():
     lib = kernels.load("twa_scan")
     if lib.twa_step_bf16.argtypes is None:
         for fn in (lib.twa_step_bf16, lib.twa_step_f32):
-            fn.argtypes = _SIGNATURE
+            fn.argtypes = _STEP_SIGNATURE
             fn.restype = ctypes.c_int
+        lib.twa_scan_bf16.argtypes = _SCAN_SIGNATURE
+        lib.twa_scan_bf16.restype = ctypes.c_int
+        lib.twa_clip_tile_rows.argtypes = [ctypes.c_int] * 3
+        lib.twa_clip_tile_rows.restype = ctypes.c_int
         lib.twa_error_string.argtypes = [ctypes.c_int]
         lib.twa_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _twa_scan_cuda(x, gx, w_h, h0):
-    if x.dim() != 5:
-        raise ValueError(f"x must be (V, S, H, W, C), got {tuple(x.shape)}")
+def _twa_scan_cuda(x, gx, w_h, h0, route=None):
+    """Launch the kernel `kernel_route` names (`route` overrides it, for the
+    checks that hold one kernel against the other) or raise."""
+    chosen = kernel_route(x.shape, x.dtype)  # raises on what K1 does not take
+    route = route or chosen
     v, s, h, w, c = x.shape
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"twa_scan kernel takes bf16 or f32, got {x.dtype}")
-    if c % 8 or s == 0 or h == 0 or w == 0 or v == 0 or v > 65535:
-        raise ValueError(f"twa_scan kernel needs C % 8 == 0, S, H, W >= 1 and "
-                         f"1 <= V <= 65535; got x of shape {tuple(x.shape)}")
     if gx.shape != x.shape or gx.dtype != x.dtype:
         raise ValueError("gx must match x in shape and dtype")
     if tuple(w_h.shape) != (3, 3, c, c) or tuple(h0.shape) != (v, h, w, c):
         raise ValueError(f"w_h must be (3, 3, {c}, {c}) and h0 ({v}, {h}, {w}, {c})")
     h0, w_h = h0.contiguous(), w_h.contiguous()
-    tensors = (x, gx, w_h, h0)
-    for t in tensors:
+    for t in (x, gx, w_h, h0):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("twa_scan kernel needs contiguous, 16-byte aligned "
                              "tensors on one device")
     lib = _lib()
-    fn = lib.twa_step_bf16 if x.dtype == torch.bfloat16 else lib.twa_step_f32
     ys = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "twa_scan":
+            _launch_clip(lib, x, gx, w_h, h0, ys, stream)
+        else:
+            _launch_frames(lib, x, gx, w_h, h0, ys, stream)
+    return ys, ys[:, -1].clone()
+
+
+def _check(lib, rc: int) -> None:
+    if rc:
+        raise RuntimeError("twa_scan kernel launch failed: "
+                           + lib.twa_error_string(rc).decode())
+
+
+def _launch_clip(lib, x, gx, w_h, h0, ys, stream) -> None:
+    v, s, h, w, c = x.shape
+    tr = lib.twa_clip_tile_rows(h, w, c)
+    if x.dtype != torch.bfloat16 or not tr:
+        raise ValueError(f"the persistent twa_scan kernel does not take "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    # frames done per tile, counted by the kernel's blocks
+    done = torch.zeros(v * -(-h // tr), dtype=torch.int32, device=x.device)
+    _check(lib, lib.twa_scan_bf16(x.data_ptr(), gx.data_ptr(), h0.data_ptr(),
+                                  w_h.data_ptr(), ys.data_ptr(), done.data_ptr(),
+                                  v, s, h, w, c, stream))
+    kernels.launches["twa_scan"] += 1
+
+
+def _launch_frames(lib, x, gx, w_h, h0, ys, stream) -> None:
+    v, s, h, w, c = x.shape
+    fn = lib.twa_step_bf16 if x.dtype == torch.bfloat16 else lib.twa_step_f32
     hwc = h * w * c
     step = hwc * x.element_size()  # bytes from one frame to the next
     vstride = s * hwc
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for t in range(s):
-            if t == 0:
-                hprev, hstride = h0.data_ptr(), hwc
-            else:
-                hprev, hstride = ys.data_ptr() + (t - 1) * step, vstride
-            rc = fn(x.data_ptr() + t * step, gx.data_ptr() + t * step, hprev,
-                    w_h.data_ptr(), ys.data_ptr() + t * step, vstride, hstride,
-                    v, h, w, c, stream)
-            if rc:
-                raise RuntimeError("twa_scan kernel launch failed: "
-                                   + lib.twa_error_string(rc).decode())
-            kernels.launches["twa_scan"] += 1
-    return ys, ys[:, -1].clone()
+    for t in range(s):
+        if t == 0:
+            hprev, hstride = h0.data_ptr(), hwc
+        else:
+            hprev, hstride = ys.data_ptr() + (t - 1) * step, vstride
+        _check(lib, fn(x.data_ptr() + t * step, gx.data_ptr() + t * step, hprev,
+                       w_h.data_ptr(), ys.data_ptr() + t * step, vstride, hstride,
+                       v, h, w, c, stream))
+        kernels.launches["twa_step"] += 1

@@ -15,7 +15,8 @@ import torch
 from iip_uavsal_saliency_tpu_torch import kernels
 from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwblock,
                                                        fused_dwblock_kernel)
-from iip_uavsal_saliency_tpu_torch.ops.twa import twa_scan, twa_scan_ref
+from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_takes,
+                                                    kernel_route, twa_scan, twa_scan_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -35,6 +36,12 @@ def _case(v, s, h, w, c, seed=0):
             rng.randn(3, 3, c, c) * np.sqrt(2.0 / (9 * c)), rng.randn(v, h, w, c) * 0.5)
 
 
+def _launches(route, frames):
+    """What a scan of `frames` frames adds to the counts on `route`."""
+    return {"twa_scan": int(route == "twa_scan"),
+            "twa_step": frames if route == "twa_step" else 0, "dwblock": 0}
+
+
 # f32: the kernel and cuDNN (TF32 off) sum the 9*C products in other orders.
 # bf16: the plain version rounds the conv and the gate to bf16 every frame,
 # the kernel keeps them in f32 until it stores h_s.
@@ -46,10 +53,89 @@ def test_twa_kernel_matches_ref(card, shape, dtype, atol):
     kernels.reset_launches()
     ys, last = twa_scan(*args)
     torch.cuda.synchronize()
-    assert kernels.launches["twa_scan"] == shape[1]  # one launch per frame
+    assert kernel_route(shape, dtype) == "twa_step"  # C % 32 != 0: one launch per frame
+    assert kernels.launches == _launches("twa_step", shape[1])
     ref, ref_last = twa_scan_ref(*args)
     torch.testing.assert_close(ys.float(), ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(last.float(), ref_last.float(), atol=atol, rtol=0)
+
+
+CLIP_SHAPES = {
+    # (v, s, h, w, c): shapes the persistent kernel takes in bf16
+    "flagship_s1": (1, 1, 45, 80, 256),
+    "flagship_s2": (1, 2, 45, 80, 256),
+    "flagship_s20": (1, 20, 45, 80, 256),
+    "flagship_v2": (2, 20, 45, 80, 256),
+    "flagship_v4": (4, 20, 45, 80, 256),       # four tiles per block
+    "288x512_v1": (1, 20, 36, 64, 256),
+    "288x512_v4": (4, 2, 36, 64, 256),
+    "ragged_last_tile": (2, 20, 10, 80, 256),  # tiles of 3, 3, 3 and 1 rows
+    "narrow_c64": (2, 3, 7, 50, 64),           # tiles of 5 and 2 rows, two slices
+    "one_row_tiles": (1, 2, 4, 128, 256),      # the halo tile fits one row only
+    "one_pixel": (1, 2, 1, 1, 32),
+}
+
+
+# bf16 against the plain version: as above, 2e-2 over 20 frames. Against
+# the per-frame bf16 kernel: both accumulate in f32 and round once, so they
+# differ in summation order (and the gate's last f32 bits) only, which moves
+# a stored h_s by one bf16 ulp now and then; h stays below 4, where an ulp is
+# 2^-6, and the card showed 2^-7.
+@pytest.mark.parametrize("name", sorted(CLIP_SHAPES))
+def test_twa_persistent_kernel_matches_ref_and_per_frame_kernel(card, name):
+    shape = CLIP_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, torch.bfloat16)
+            for a in _case(*shape)]
+    assert kernel_route(shape, torch.bfloat16) == "twa_scan"
+    kernels.reset_launches()
+    ys, last = twa_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches == _launches("twa_scan", shape[1])  # one launch per clip
+    ref, ref_last = twa_scan_ref(*args)
+    torch.testing.assert_close(ys.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(last.float(), ref_last.float(), atol=2e-2, rtol=0)
+    assert torch.equal(last, ys[:, -1])
+    again, _ = twa_scan(*args)
+    assert torch.equal(again, ys)  # no atomics on data: the same bits every run
+    kernels.reset_launches()
+    step, _ = _twa_scan_cuda(*args, route="twa_step")
+    assert kernels.launches == _launches("twa_step", shape[1])
+    torch.testing.assert_close(ys.float(), step.float(), atol=2.0 ** -6, rtol=0)
+
+
+# The tile height is the kernel source's; Python only gates. The two must
+# say the same about which shapes the persistent kernel takes.
+@pytest.mark.parametrize("hwc,rows", [((45, 80, 256), 3), ((36, 64, 256), 4), ((7, 50, 64), 5),
+                                      ((2, 80, 256), 2), ((4, 128, 256), 1), ((4, 142, 256), 1),
+                                      ((4, 143, 256), 0), ((4, 150, 256), 0), ((4, 300, 64), 0),
+                                      ((4, 80, 320), 0), ((13, 7, 24), 0), ((1, 1, 32), 1),
+                                      ((10, 80, 256), 3)])
+def test_twa_gate_agrees_with_the_kernels_tile_rows(card, hwc, rows):
+    h, w, c = hwc
+    assert _lib().twa_clip_tile_rows(h, w, c) == rows
+    assert clip_takes(w, c) == bool(rows)
+    for width in range(1, 300, 7):  # and over a sweep of widths and channel counts
+        for channels in (32, 64, 128, 256, 288, 320, 24):
+            assert clip_takes(width, channels) == bool(
+                _lib().twa_clip_tile_rows(4, width, channels)), (width, channels)
+
+
+# `twa_scan_sharded` of the JAX package: the kernel unchanged on each V
+# shard. On one card that is shard invariance: V = 4 gives the bits that
+# x[:2] and x[2:] give, on either kernel.
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(4, 3, 13, 7, 24), (4, 3, 45, 80, 256)],
+                         ids=["ragged", "flagship_width"])
+def test_twa_kernel_is_shard_invariant(card, shape, dtype, atol):
+    x, gx, w_h, h0 = [torch.tensor(a, dtype=torch.float32).to(card, dtype)
+                      for a in _case(*shape)]
+    ys, last = twa_scan(x, gx, w_h, h0)
+    parts = [twa_scan(x[i:i + 2].contiguous(), gx[i:i + 2].contiguous(), w_h,
+                      h0[i:i + 2].contiguous()) for i in (0, 2)]
+    assert torch.equal(torch.cat([p[0] for p in parts]), ys)
+    assert torch.equal(torch.cat([p[1] for p in parts]), last)
+    ref, _ = twa_scan_ref(x, gx, w_h, h0)
+    torch.testing.assert_close(ys.float(), ref.float(), atol=atol, rtol=0)
 
 
 def test_twa_kernel_raises_on_what_it_does_not_take(card):
@@ -62,7 +148,11 @@ def test_twa_kernel_raises_on_what_it_does_not_take(card):
     with pytest.raises(TypeError, match="bf16 or f32"):
         twa_scan(*(t[..., :8].half().contiguous() for t in (x, gx)),
                  w_h[:, :, :8, :8].half().contiguous(), h0[..., :8].half().contiguous())
-    assert kernels.launches["twa_scan"] == 0
+    with pytest.raises(ValueError, match="persistent"):  # f32 is not the persistent kernel's
+        _twa_scan_cuda(*(t[..., :8].contiguous() for t in (x, gx)),
+                       w_h[:, :, :8, :8].contiguous(), h0[..., :8].contiguous(),
+                       route="twa_scan")
+    assert kernels.launches["twa_scan"] == 0 and kernels.launches["twa_step"] == 0
 
 
 def _dw_case(n, h, w, c, e, co, seed=0):
@@ -150,4 +240,4 @@ def test_kernel_forward_gradients_match_plain_versions(card):
     tw = _case(2, 3, 6, 5, 8, seed=5)
     for got, want in zip(grads(twa_scan, tw), grads(twa_scan_ref, tw)):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    assert kernels.launches == {"twa_scan": 3, "dwblock": 1}
+    assert kernels.launches == {"twa_scan": 0, "twa_step": 3, "dwblock": 1}  # f32: per frame

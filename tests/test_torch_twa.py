@@ -12,7 +12,8 @@ from iip_uavsal_saliency_tpu.models.recurrent import ConvTWA as JConvTWA
 from iip_uavsal_saliency_tpu.ops.pallas_twa import twa_scan_pallas, twa_scan_xla
 from iip_uavsal_saliency_tpu_torch import kernels
 from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
-from iip_uavsal_saliency_tpu_torch.ops.twa import twa_scan, twa_scan_ref
+from iip_uavsal_saliency_tpu_torch.ops.twa import (clip_takes, kernel_route, twa_scan,
+                                                    twa_scan_ref)
 
 # f32 on the CPU: XLA and torch sum the 9*C conv products in other orders
 ATOL = 1e-5
@@ -112,7 +113,97 @@ def test_cpu_scan_does_not_count_launches():
     kernels.reset_launches()
     arrays = [torch.from_numpy(a) for a in _case(v=1, s=3, h=5, w=4, c=8)]
     twa_scan(*arrays)
-    assert kernels.launches["twa_scan"] == 0
+    assert kernels.launches["twa_scan"] == 0 and kernels.launches["twa_step"] == 0
+    # a shape the persistent kernel would take on the card, on the CPU
+    twa_scan(*[torch.from_numpy(a).bfloat16() for a in _case(v=1, s=2, h=3, w=4, c=32)])
+    assert kernels.launches == {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
+
+
+# Which kernel a CUDA tensor of this shape and dtype launches: the persistent
+# one takes bf16 with C a multiple of 32 when a tile of rows with its halo
+# fits in shared memory beside the W_h slice; the per-frame one the rest.
+ROUTE_SHAPES = {
+    "flagship_45x80x256": ((45, 80, 256), "twa_scan"),
+    "288x512_36x64x256": ((36, 64, 256), "twa_scan"),
+    "ragged_13x7x24": ((13, 7, 24), "twa_step"),       # C % 32 != 0
+}
+
+
+@pytest.mark.parametrize("v", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", sorted(ROUTE_SHAPES))
+def test_kernel_route(name, dtype, v):
+    (h, w, c), bf16_route = ROUTE_SHAPES[name]
+    want = bf16_route if dtype == torch.bfloat16 else "twa_step"  # f32 stays on plain FMA
+    assert kernel_route((v, 20, h, w, c), dtype) == want
+
+
+@pytest.mark.parametrize("hwc,takes", [((45, 80, 256), True), ((36, 64, 256), True),
+                                       ((7, 50, 64), True), ((2, 80, 256), True),
+                                       ((4, 128, 256), True), ((4, 142, 256), True),
+                                       ((4, 150, 256), False), ((4, 300, 64), False),
+                                       ((4, 80, 320), False), ((4, 80, 24), False)])
+def test_clip_takes(hwc, takes):
+    """The persistent kernel's gate: C a multiple of 32 and one image row with
+    its halo fits beside the W_h slice; what it refuses goes to the per-frame
+    kernel. (The tile height is the kernel source's, and the tests on the
+    card hold this gate against it.)"""
+    h, w, c = hwc
+    assert clip_takes(w, c) == takes
+    route = kernel_route((1, 2, *hwc), torch.bfloat16)
+    assert route == ("twa_scan" if takes else "twa_step")
+
+
+@pytest.mark.parametrize("shape,dtype,error", [
+    ((1, 2, 3, 4, 12), torch.float32, ValueError),       # C % 8 != 0
+    ((1, 2, 3, 4, 12), torch.bfloat16, ValueError),
+    ((1, 2, 3, 4, 8), torch.float16, TypeError),
+    ((2, 3, 4, 8), torch.float32, ValueError),           # rank 4
+    ((1, 0, 3, 4, 8), torch.float32, ValueError),        # no frame
+    ((70000, 1, 3, 4, 8), torch.float32, ValueError),    # per-frame grid limit
+], ids=["c12_f32", "c12_bf16", "f16", "rank4", "s0", "v70000"])
+def test_kernel_route_raises_on_what_no_kernel_takes(shape, dtype, error):
+    with pytest.raises(error):
+        kernel_route(shape, dtype)
+
+
+def test_kernel_route_persistent_takes_any_v():
+    assert kernel_route((70000, 1, 3, 4, 32), torch.bfloat16) == "twa_scan"
+
+
+def test_split_v_matches_jax_twa_scan_sharded():
+    """`twa_scan_sharded` says that the scan is independent per video: the
+    kernel runs unchanged on each V shard. The port's `twa_scan` on whole V
+    and on x[:2], x[2:] concatenated against the JAX package's
+    `twa_scan_sharded` under a 4-way data mesh (interpret mode, CPU devices,
+    as tests/test_sharding.py runs it). f32; the frameworks sum the conv
+    products in other orders."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    import iip_uavsal_saliency_tpu.ops.pallas_twa as ptwa
+    from iip_uavsal_saliency_tpu.parallel import make_mesh
+
+    arrays = _case(v=4, s=4, h=12, w=8, c=8, seed=7)
+    mesh = make_mesh(n_data=4)
+    data, rep = NamedSharding(mesh, P("data")), NamedSharding(mesh, P())
+    x, gx, w_h, h0 = [jnp.asarray(a) for a in arrays]
+    ptwa.INTERPRET = True
+    try:
+        want_ys, want_last = jax.jit(ptwa.twa_scan_sharded)(
+            jax.device_put(x, data), jax.device_put(gx, data), jax.device_put(w_h, rep),
+            jax.device_put(h0, data))
+    finally:
+        ptwa.INTERPRET = False
+    tx, tgx, tw, th0 = [torch.from_numpy(a) for a in arrays]
+    whole_ys, whole_last = twa_scan(tx, tgx, tw, th0)
+    parts = [twa_scan(tx[i:i + 2], tgx[i:i + 2], tw, th0[i:i + 2]) for i in (0, 2)]
+    split_ys = torch.cat([p[0] for p in parts])
+    split_last = torch.cat([p[1] for p in parts])
+    for got_ys, got_last in ((whole_ys, whole_last), (split_ys, split_last)):
+        np.testing.assert_allclose(got_ys.numpy(), np.asarray(want_ys), atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last), atol=ATOL, rtol=0)
+    torch.testing.assert_close(split_ys, whole_ys, atol=ATOL, rtol=0)
 
 
 def test_twa_scan_rejects_other_devices():

@@ -51,7 +51,9 @@
    persistent, library, library, persistent, per-frame) at V=1 and V=4 in
    bf16, with the fastest window beside each median, and the per-frame
    kernel in f32, as the f32 paths launch it, beside its own f32 yardstick,
-   plain version and bound; and writes a profiler table of one clip of each path to
+   plain version and bound; K2 at each admitted block of the bf16 path on
+   that block's own input beside the block as three cuDNN convs and its
+   bound; and writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -319,7 +321,9 @@ def check_k2_admitted(torch, dwblock, DWBlock, model, step, clip, state):
     """K2 against dwblock_ref at every shape the main path gives it: one
     serving step with a hook on each DWBlock keeps the input of every block
     the gate admits; K2 and the plain version then run on that input and the
-    block's own packed weights. Returns the admitted (name, shape) list."""
+    block's own weights as `DWBlock.pack` made them (for bf16 the packed
+    layout too). Returns the admitted (name, shape) list and, per block,
+    (name, module, input)."""
     taken = []
     hooks = [m.register_forward_pre_hook(
         lambda m, inp, name=name: taken.append((name, m, inp[0].clone()))
@@ -332,8 +336,11 @@ def check_k2_admitted(torch, dwblock, DWBlock, model, step, clip, state):
         fail("the gate admits no DWBlock of the model")
     worst = 0.0
     for name, m, x in taken:
-        args = (x.permute(0, 2, 3, 1), *m.packed_weights(x.dtype), m.use_res)
-        out = dwblock.fused_dwblock_kernel(*args)
+        weights, blobs = m.kernel_weights(x.dtype)
+        if x.dtype == torch.bfloat16 and blobs is None:
+            fail(f"{name}: the served bf16 block has no packed weights")
+        args = (x.permute(0, 2, 3, 1), *weights, m.use_res)
+        out = dwblock.fused_dwblock_kernel(*args, blobs)
         torch.cuda.synchronize()
         ref = dwblock.dwblock_ref(*args)
         err = (out.float() - ref.float()).abs().max().item()
@@ -349,7 +356,69 @@ def check_k2_admitted(torch, dwblock, DWBlock, model, step, clip, state):
         worst = max(worst, err / tol)
     print(f"K2 holds dwblock_ref at all {len(taken)} admitted blocks of {len(hooks)} DWBlocks "
           f"in {str(x.dtype).replace('torch.', '')}; largest error {worst:.3g} of its tolerance")
-    return [(name, tuple(x.shape)) for name, _, x in taken]
+    return [(name, tuple(x.shape)) for name, _, x in taken], taken
+
+
+def k2_bound(n, h, w, c, e, co, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
+    """(ms, bound_by) the card needs at least for one block: x, the weights
+    and the output moved once, or the three convs' operations."""
+    flops = 2.0 * n * h * w * (c * e + 9 * e + e * co)
+    bytes_moved = (n * h * w * (c + co) + c * e + 11 * e + e * co + co) * itemsize
+    flops_ms, bytes_ms = flops / peak_flops * 1e3, bytes_moved / PEAK_BYTES * 1e3
+    return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
+
+
+def graph_ms(torch, fn, reps: int = 10) -> float:
+    """Device milliseconds per call of fn() with the host's issue time taken
+    out: fn is captured once in a CUDA graph, after three warm-up calls on a
+    side stream (cuDNN's autotuning included), and the graph's replays are
+    timed as in `cuda_ms`."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the kernel's launcher sets its shared-memory attribute on every call
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def time_k2_admitted(torch, dwblock, taken):
+    """K2 at each admitted block of the bf16 path, on that block's own input
+    and packed weights, beside the same block as its three cuDNN convs (the
+    module with the kernel off, as the K2-off path serves it: conv, bias,
+    ReLU6, residual; `cudnn.benchmark` on) and its bound; device us per
+    launch, each captured in a CUDA graph so that the host's issue time of a
+    small block does not stand in for the card's; one line per block, then
+    the sums."""
+    torch.backends.cudnn.benchmark = True
+    sums = np.zeros(3)
+    print("K2 bf16 per admitted block (device us per launch, CUDA graphs): kernel, three cuDNN "
+          "convs, bound")
+    for name, m, x in taken:
+        weights, blobs = m.kernel_weights(x.dtype)
+        xn = x.permute(0, 2, 3, 1)
+        kernel_ms = graph_ms(torch, lambda: dwblock.fused_dwblock_kernel(xn, *weights, m.use_res,
+                                                                          blobs))
+        m.use_kernel = False
+        try:
+            with torch.no_grad():
+                convs_ms = graph_ms(torch, lambda: m(x))
+        finally:
+            m.use_kernel = True
+        n, c, h, w = x.shape
+        e, co = weights[0].shape[1], weights[4].shape[1]
+        bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
+        sums += (kernel_ms, convs_ms, bound_ms)
+        print(f"  {name} N,H,W,C,E,Co={(n, h, w, c, e, co)}: kernel {kernel_ms * 1e3:.2f}, "
+              f"convs {convs_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} ({bound_by}); "
+              f"kernel/convs {kernel_ms / convs_ms:.3f}, kernel/bound {kernel_ms / bound_ms:.2f}")
+    torch.backends.cudnn.benchmark = False
+    print(f"K2 bf16 over the {len(taken)} admitted blocks: kernel {sums[0] * 1e3:.2f} us, "
+          f"convs {sums[1] * 1e3:.2f} us, bound {sums[2] * 1e3:.2f} us per step")
 
 
 def check_gradients(torch, kernels, dwblock, twa, rng):
@@ -391,7 +460,8 @@ def time_k2(torch, F, dwblock, rng):
     args = [torch.tensor(a, dtype=torch.float32).to("cuda", torch.bfloat16)
             for a in dw_case(rng, *K2_FLAGSHIP)]
     x, w1, b1, wd, bd, w2, b2 = args
-    kernel_ms = cuda_ms(lambda: dwblock.fused_dwblock_kernel(*args, True), 10)
+    blobs = dwblock.pack_dwblock_weights(w1, b1, wd, bd, w2)  # packed once, as served
+    kernel_ms = cuda_ms(lambda: dwblock.fused_dwblock_kernel(*args, True, blobs), 10)
     plain_ms = cuda_ms(lambda: dwblock.dwblock_ref(*args, True), 3)
 
     cl = torch.channels_last
@@ -408,12 +478,7 @@ def time_k2(torch, F, dwblock, rng):
     torch.backends.cudnn.benchmark = True
     library_ms = cuda_ms(library_block, 10)
     torch.backends.cudnn.benchmark = False
-    flops = 2.0 * n * h * w * (c * e + 9 * e + e * co)
-    bytes_moved = sum(t.numel() for t in args) * 2.0 + n * h * w * co * 2.0
-    bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bound_bytes_ms = bytes_moved / PEAK_BYTES * 1e3
-    bound_ms = max(bound_flops_ms, bound_bytes_ms)
-    bound_by = "operations" if bound_flops_ms >= bound_bytes_ms else "bytes"
+    bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -664,8 +729,9 @@ def main() -> None:
     first_clip = torch.from_numpy(video[None, :S]).cuda()
     model16k, step16k, spy16k, seen16k = serve(torch.bfloat16, True)
     print("K2 bf16 at the admitted blocks of one serving step:")
-    admitted = check_k2_admitted(torch, dwblock, DWBlock, model16k, step16k, first_clip,
-                                 model16k.init_state(IN_H, IN_W, V, device="cuda"))
+    admitted, taken16k = check_k2_admitted(torch, dwblock, DWBlock, model16k, step16k,
+                                           first_clip,
+                                           model16k.init_state(IN_H, IN_W, V, device="cuda"))
     needed = {"st_layer.0.stconv_sp.spconv", "st_layer.1.stconv_sp.spconv", "fust_layer.0",
               "fucbst_layer.0"}
     if not needed <= {name for name, _ in admitted}:
@@ -682,7 +748,7 @@ def main() -> None:
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
     if check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k, first_clip,
-                         model32k.init_state(IN_H, IN_W, V, device="cuda")) != admitted:
+                         model32k.init_state(IN_H, IN_W, V, device="cuda"))[0] != admitted:
         fail("the gate admits other blocks in f32 than in bf16")
     _, _, sal32k = drive("main path, K2 on (f32)", model32k, step32k, spy32k, seen32k,
                          False, len(admitted) * CLIPS)
@@ -730,6 +796,7 @@ def main() -> None:
     print(f"K2 bf16 at N,H,W,C,E,Co={K2_FLAGSHIP}, residual: kernel {k2_ms * 1e3:.2f} us/launch, "
           f"plain {k2_plain_ms * 1e3:.2f}, library (three cuDNN convs) {k2_library_ms * 1e3:.2f}, "
           f"bound {k2_bound_ms * 1e3:.2f} ({k2_bound_by})")
+    time_k2_admitted(torch, dwblock, taken16k)
 
     k1_f32 = time_k1_f32(torch, F, twa, rng)
 

@@ -8,9 +8,9 @@
 //     d = relu6(dw3x3_same(e) + bd)     depthwise,   E  -> E   (rounded to T)
 //     p = d . W2 + b2 (+ x)             1x1 project, E  -> Co  (stored as T)
 //
-// over x (N, H, W, C) in NHWC order, W1 (C, E), Wd (3, 3, E), W2 (E, Co),
-// products accumulated in f32, with the rounding points of `dwblock_ref`.
-// The expanded maps e and d never reach device memory.
+// over x (N, H, W, C) in NHWC order, products accumulated in f32, with the
+// rounding points of `dwblock_ref`. The expanded maps e and d never reach
+// device memory.
 //
 // What bounds it on an H100: at the flagship 20x45x80, C = Co = 256,
 // E = 1536 one call is 2*72000*(256*1536 + 9*1536 + 1536*256) = 115 GFLOP
@@ -20,39 +20,55 @@
 // 221 MB expanded maps through device memory several times; keeping them
 // in shared memory is the point of the kernel.
 //
-// Design. One block of 512 threads per tile of TH x TW output pixels of one
-// frame (and per 256 output channels). The block stages the tile's x with a
-// 1-pixel halo in shared memory once, then walks E in chunks of EC. All
-// staging is cp.async: the next slice of W1 (into the next chunk) lands in
-// a second buffer while the current one is multiplied and while the
-// depthwise and project phases run; a chunk's W2 rows, biases and taps land
-// during its expand GEMM.
-//   A. expand: e[halo pixels, EC] = xs . W1[:, chunk], the K dimension in
-//      slices of 128, 64 or 32 rows of W1 (the most that fit) staged in
-//      shared memory; + b1, ReLU6, rounded to T into shared memory. A halo
-//      pixel outside the image is written as ZERO, not relu6(b1): the
-//      depthwise conv pads the expanded map. Halo pixels inside the image
-//      are real and recomputed per tile.
+// Design. One block of 512 threads (four warpgroups) per tile of 8 x 16
+// output pixels of one frame and per 256 output channels. The block stages
+// the tile's x with a 1-pixel halo (10 x 18 = 180 pixels, 192 GEMM rows) in
+// shared memory once, then walks E in chunks of 64:
+//   A. expand: e[192, 64] = xs . W1[:, chunk] on wgmma, warpgroups 0-2 one
+//      m64n64k16 row block each over K = round_up(C, 16); + b1, ReLU6,
+//      rounded to T into shared memory. A halo pixel outside the image is
+//      written as ZERO, not relu6(b1): the depthwise conv pads e. Halo
+//      pixels inside the image are real and recomputed per tile.
 //   B. depthwise: 9 taps in f32 from the staged e, + bd, ReLU6, rounded to
 //      T into shared memory.
-//   C. project: p[tile pixels, Co] += d . W2[chunk, :], accumulated in f32
-//      registers across all chunks.
+//   C. project: p[128, 256] += d . W2[chunk, :] on wgmma, each warpgroup one
+//      m64n128k16 quarter, accumulated in registers across all chunks.
 // The epilogue adds b2 and, for a residual block, x from the staged tile,
-// and stores T. bf16 runs both GEMMs on the tensor cores (mma.sync
-// m16n8k16, f32 accumulate, operands through ldmatrix, which also turns the
-// row-major W1 and W2 tiles into B operands); f32 runs plain FMA (no TF32)
-// on a smaller tile, so the f32 check is tight enough to show an indexing
-// error. Ragged H, W, C, E and Co are handled by zero fill while staging
-// and by masks in the epilogue. The three phases of a chunk run one after
-// the other behind block-wide barriers, both GEMMs are bound by ldmatrix's
-// shared-memory reads, and every block re-reads all of W1 and W2 from L2:
-// wgmma, TMA (with multicast across a cluster) and overlapping the phases
-// are later work.
+// and stores T.
+//
+// bf16 layout. Both GEMMs read A and B from shared memory by descriptor, in
+// wgmma's K-major layout without swizzle: core matrices of 8 rows x 16 bytes
+// (8 channels) stored as "planes" [K / 8][rows][8]. x is staged into such
+// planes with one 16-byte cp.async per pixel and plane, and the depthwise
+// phase writes d into them; each plane of x and d is padded by 16 bytes,
+// which puts the 16-byte pieces of consecutive planes (cp.async writes) and
+// the per-pixel reads of the depthwise stores and the residual on distinct
+// banks. The weights are constants: `ops/dwblock.py::pack_dwblock_weights`
+// lays them out once, at load, in the byte order the kernel wants in shared
+// memory (W1 as [chunk][C/8 planes][64][8]; per chunk and 256-column block
+// W2 as [8 planes][Co rows][8], followed by the chunk's b1, bd and nine rows
+// of taps), so each piece arrives by one bulk copy (cp.async.bulk, the TMA
+// unit without a tensor map) issued by one thread and completed on an
+// mbarrier: W1 in slices of 64 rows through a ring of as many 8 KB buffers
+// as shared memory holds (2 at C = 352, 6 at C = 256, at most 8), the
+// next chunk's first slices landing while this chunk's epilogue, depthwise
+// and project run; a chunk's W2 piece after the previous chunk's project,
+// during this chunk's expand. Zero padding (K to 16, the last ragged E
+// chunk) is the pack's, so the kernel has no masks on C or E. The three
+// phases of a chunk still run one after the other behind block barriers,
+// and every block still reads all of W1 and W2 from L2: TMA multicast over
+// a cluster, warp-specialised overlap of the phases and a narrow variant
+// for small Co are later work.
+//
+// f32 runs plain FMA (no TF32) on a smaller tile, so the f32 check is tight
+// enough to show an indexing error; it stages its weights with cp.async from
+// the plain (C, E), (E, Co) tensors.
 //
 // Requirements (checked by the Python wrapper): C, E, Co multiples of 8,
 // all pointers 16-byte aligned, contiguous tensors, and a staged tile that
-// fits the 227 KB of shared memory (`Lay::smem_bytes`): C <= MAX_C.
+// fits the 227 KB of shared memory: C <= MAX_C.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -64,31 +80,71 @@ constexpr int NP = 256;            // output channels per block
 constexpr int SMEM_LIMIT = 232448; // 227 KB, the most a Hopper block can use
 constexpr int MAX_C = 352;         // widest x that fits; ops/dwblock.py gates on it
 
-// Timing-only builds (tools/k2_probe.py) compile parts of the kernel out with
-// -DDWBLOCK_SKIP=<bit mask over Part>; their results are wrong by design.
+// Timing-only builds (tools/k2_probe.py) compile parts of the bf16 kernel
+// out with -DDWBLOCK_SKIP=<bit mask over Part>; their results are wrong by
+// design.
 #ifndef DWBLOCK_SKIP
 #define DWBLOCK_SKIP 0
 #endif
-enum Part { W1_COPIES, EXPAND, EXPAND_EPILOGUE, DEPTHWISE, PROJECT, W2_COPIES };
+enum Part { COPIES, EXPAND, EXPAND_EPILOGUE, DEPTHWISE, PROJECT };
 __host__ __device__ constexpr bool runs(Part p) { return !((DWBLOCK_SKIP >> p) & 1); }
 
 __host__ __device__ constexpr int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
 
+// The bf16 kernel's shared memory (bytes unless named *_ELEMS or a stride in
+// elements), in this order: mbarriers, the W1 ring, the W2 piece, e, d, x.
+struct BLay {
+  static constexpr int TH = 8, TW = 16, EC = 64;
+  static constexpr int PLANE = 8;                  // channels per core-matrix row
+  static constexpr int KS = 64;                    // rows of W1 per bulk copy
+  static constexpr int HW2 = TW + 2;               // halo tile width
+  static constexpr int HP = (TH + 2) * HW2;        // halo pixels
+  static constexpr int MP = 192;                   // rows of the expand GEMM: 3 x m64
+  static constexpr int TP = TH * TW;               // output pixels: 2 x m64
+  static constexpr int XPLANE = MP * PLANE + PLANE;  // elements of a plane of x, padded
+  static constexpr int DPLANE = TP * PLANE + PLANE;  // elements of a plane of d, padded
+  static constexpr int LDE = EC + PLANE;           // row of e (pixel-major, padded)
+  static constexpr int SLICE_ELEMS = KS * EC;
+  static constexpr int VEC_ELEMS = 11 * EC;        // b1, bd, nine rows of taps
+  static constexpr int MAX_RING = 8;
+  static constexpr int BAR_BYTES = 256;            // 2 * MAX_RING + 1 mbarriers
+  static constexpr int RING_SLOT = SLICE_ELEMS * 2;
+  static constexpr int W2_BYTES = (EC * NP + VEC_ELEMS) * 2;
+  static constexpr int ES_BYTES = MP * LDE * 2;
+  static constexpr int DS_BYTES = EC / PLANE * DPLANE * 2;
+  __host__ __device__ static constexpr int xs_bytes(int C) {
+    return round_up(C, 16) / PLANE * XPLANE * 2;
+  }
+  __host__ __device__ static constexpr int fixed_bytes(int C) {
+    return BAR_BYTES + W2_BYTES + ES_BYTES + DS_BYTES + xs_bytes(C);
+  }
+  // Slots of the W1 ring: as many as fit, at most MAX_RING; the pipeline
+  // needs two (a slot is refilled only once every expand warp is done with it).
+  __host__ __device__ static constexpr int ring(int C) {
+    return (SMEM_LIMIT - fixed_bytes(C)) / RING_SLOT < MAX_RING
+               ? (SMEM_LIMIT - fixed_bytes(C)) / RING_SLOT
+               : MAX_RING;
+  }
+  __host__ __device__ static constexpr int smem_bytes(int C) {
+    return fixed_bytes(C) + ring(C) * RING_SLOT;
+  }
+};
+static_assert(BLay::W2_BYTES % 128 == 0 && BLay::ES_BYTES % 128 == 0 &&
+                  BLay::DS_BYTES % 128 == 0 && BLay::RING_SLOT % 128 == 0,
+              "every buffer starts 128-byte aligned");
+static_assert(BLay::MP >= BLay::HP && BLay::TW == NWARP, "tiling");
+
 template <typename T>
 struct Cfg;
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int TH = 8, TW = 16, EC = 64;
-};
 template <>
 struct Cfg<float> {
   static constexpr int TH = 4, TW = 16, EC = 32;
 };
 
-// Shared-memory layout. Row strides carry VEC elements of padding, which
-// keeps rows 16-byte aligned and ldmatrix's eight rows off a common bank.
+// The f32 kernel's shared-memory layout. Row strides carry VEC elements of
+// padding, which keeps rows 16-byte aligned.
 template <typename T>
 struct Lay {
   static constexpr int TH = Cfg<T>::TH, TW = Cfg<T>::TW;
@@ -114,8 +170,8 @@ struct Lay {
     return xs_bytes(C) + ES_BYTES + DS_BYTES + W2_BYTES + VEC_BYTES;
   }
   // Rows of W1 in one staged slice: the most of 128, 64, 32 whose two
-  // buffers fit beside the rest. Every slice costs the block a barrier and
-  // a refill of its tensor-core pipeline, so longer slices are faster.
+  // buffers fit beside the rest. Every slice costs the block a barrier, so
+  // longer slices are faster.
   __host__ __device__ static constexpr int w1_bytes(int ks) {
     return round_up(ks * LDE * static_cast<int>(sizeof(T)), 128);
   }
@@ -129,7 +185,7 @@ struct Lay {
   }
 };
 
-static_assert(Lay<__nv_bfloat16>::smem_bytes(MAX_C) <= SMEM_LIMIT &&
+static_assert(BLay::smem_bytes(MAX_C) <= SMEM_LIMIT && BLay::ring(MAX_C) >= 2 &&
                   Lay<float>::smem_bytes(MAX_C) <= SMEM_LIMIT &&
                   Lay<float>::smem_bytes(MAX_C + 8) > SMEM_LIMIT,
               "MAX_C is the widest x tile that fits shared memory");
@@ -209,156 +265,368 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Tensor-core primitives (PTX). `ldsm` loads four 8x8 b16 matrices from
-// shared memory: lane l gives the address of row l % 8 of matrix l / 8, and
-// receives, of matrix i, the two elements (row l / 4, columns 2 * (l % 4)
-// and + 1) in r[i]; `.trans` hands out the transposed matrices instead,
-// which is how a row-major (k, n) tile becomes the mma's B operand.
-__device__ __forceinline__ void ldsm(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// Hopper primitives (PTX): mbarriers, bulk copies, the async-proxy fence
+// and wgmma.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void ldsm_trans(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-// c (16x8, f32) += a (16x16, bf16, row-major) . b (16x8, bf16). With
-// g = l / 4, t = l % 4: c[0], c[1] are (row g, columns 2t, 2t + 1) and
-// c[2], c[3] the same columns of row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// One thread: `bytes` from device memory to shared memory as one bulk copy,
+// which completes (with this thread's arrival) the current phase of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Shared-memory writes of ordinary stores and cp.async, made visible to
+// wgmma (the async proxy); a barrier must follow before wgmma reads them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The two GEMMs of a block, per element type. `each_e` / `each_p` hand the
-// accumulators to f(row, col, v) in runs of consecutive columns (2 in bf16,
-// the pair a thread holds of an mma tile; 8 in f32).
-template <typename T>
-struct Mma;
+// wgmma operand descriptor without swizzle: start address, the byte distance
+// between core matrices along K (leading) and along M or N (stride). Adding
+// bytes / 16 moves the start.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int k_bytes, int mn_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(k_bytes >> 4) << 16 |
+         static_cast<uint64_t>(mn_bytes >> 4) << 32;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of accumulators across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-// bf16 on the tensor cores (mma.sync m16n8k16, operands through ldmatrix).
-// Expand: warp w owns the 48 rows of block w / EN and the 16 columns of
-// block w % EN. Project: warp w owns the 32 rows of block w % PMB and the
-// 64 columns of block w / PMB.
-template <>
-struct Mma<__nv_bfloat16> {
+// d (64 x N, f32) += A (64 x 16, bf16) . B (16 x N, bf16), both K-major in
+// shared memory. Of d, thread t of the warpgroup holds, for each 8 columns
+// j, d[4j], d[4j + 1] at (row 16 * (t / 32) + (t % 32) / 4, columns
+// 8j + 2 * (t % 4) and + 1) and d[4j + 2], d[4j + 3] at the row 8 below.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// bf16 on wgmma. w1p and w2p are the packed weights of
+// ops/dwblock.py::pack_dwblock_weights. grid = (N * tiles_y * tiles_x,
+// ceil(Co / NP)).
+__global__ void __launch_bounds__(NT, 1)
+    dwblock_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w1p,
+                        const __nv_bfloat16* __restrict__ w2p,
+                        const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
+                        int H, int W, int C, int E, int Co, int tiles_x, int tiles_y,
+                        int residual) {
   using T = __nv_bfloat16;
-  using L = Lay<T>;
-  static constexpr int EN = L::EC / 16;             // column blocks, expand
-  static constexpr int EMB = NWARP / EN;            // row blocks, expand
-  static constexpr int EI = L::MP / 16 / EMB;       // 16-row tiles per warp
-  static constexpr int PMB = L::TP / 32;            // row blocks, project
-  static constexpr int PJ = NP / (NWARP / PMB) / 16;  // 16-column groups per warp
-  static_assert(NWARP % EN == 0 && EMB * EI * 16 == L::MP, "expand tiling");
-  static_assert(NWARP % PMB == 0 && (NWARP / PMB) * PJ * 16 == NP, "project tiling");
-  float acc_e[EI][2][4];
-  float acc_p[2][2 * PJ][4];
+  using L = BLay;
+  constexpr int PL = L::PLANE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int R = L::ring(C);
+  const int planes = round_up(C, 16) / PL;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [R]: a W1 slice landed
+  uint64_t* empty = full + L::MAX_RING;                // [R]: all expand warps read it
+  uint64_t* w2full = empty + L::MAX_RING;              // the chunk's W2 piece landed
+  unsigned char* sp = smem + L::BAR_BYTES;
+  T* ring = reinterpret_cast<T*>(sp);
+  sp += R * L::RING_SLOT;
+  T* w2s = reinterpret_cast<T*>(sp);  // [8 planes][ncol][8], then b1, bd, taps
+  sp += L::W2_BYTES;
+  T* es = reinterpret_cast<T*>(sp);   // [MP][LDE]
+  sp += L::ES_BYTES;
+  T* ds = reinterpret_cast<T*>(sp);   // [8 planes][TP][8] + pad
+  sp += L::DS_BYTES;
+  T* xs = reinterpret_cast<T*>(sp);   // [planes][MP][8] + pad
 
-  __device__ void zero_e() {
-#pragma unroll
-    for (int i = 0; i < EI; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc_e[i][j][q] = 0.0f;
-  }
-  __device__ void zero_p() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2 * PJ; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc_p[i][j][q] = 0.0f;
-  }
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int tiles = tiles_x * tiles_y;
+  const int tile = blockIdx.x % tiles;
+  const long long n = blockIdx.x / tiles;
+  const int ty0 = (tile / tiles_x) * L::TH, tx0 = (tile % tiles_x) * L::TW;
+  const int co0 = blockIdx.y * NP;
+  const int ncol = Co - co0 < NP ? Co - co0 : NP;  // rows of this block's W2 piece
+  const T* b1s = w2s + L::EC * ncol;
+  const T* bds = b1s + L::EC;
+  const T* wds = bds + L::EC;  // [9][EC]
+  x += n * H * W * C;
+  out += n * H * W * Co;
 
-  // One K slice of the expand GEMM: rows k0 .. k0 + kn of W1 (kn a multiple
-  // of 16, zero past C) are staged in w1s.
-  __device__ void expand(const T* xs, int ldx, int k0, int kn, const T* w1s) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int lrow = lane % 16, lcol = (lane / 16) * 8;
-    const int r0 = (warp / EN) * EI * 16, n0 = (warp % EN) * 16;
-#pragma unroll 2
-    for (int kk = 0; kk < kn; kk += 16) {
-      unsigned b[4];
-      ldsm_trans(b, w1s + (kk + lrow) * L::LDE + n0 + lcol);
-#pragma unroll
-      for (int i = 0; i < EI; ++i) {
-        unsigned a[4];
-        ldsm(a, xs + (r0 + i * 16 + lrow) * ldx + k0 + kk + lcol);
-        mma_bf16(acc_e[i][0], a, b[0], b[1]);
-        mma_bf16(acc_e[i][1], a, b[2], b[3]);
-      }
+  const int nchunks = (E + L::EC - 1) / L::EC;
+  const int nslices = (planes * PL + L::KS - 1) / L::KS;
+  const int total = nchunks * nslices;
+  constexpr int PRODUCER = 3 * 128;  // the first thread of the warpgroup the expand leaves free
+
+  // Slice q of the flat (chunk, K slice) sequence of W1, into slot q % R.
+  auto issue_w1 = [&](int q) {
+    const int chunk = q / nslices, p0 = (q % nslices) * (L::KS / PL);
+    const int np = planes - p0 < L::KS / PL ? planes - p0 : L::KS / PL;
+    uint64_t* bar = &full[q % R];
+    if constexpr (runs(COPIES))
+      bulk_load(ring + (q % R) * L::SLICE_ELEMS,
+                w1p + (static_cast<long long>(chunk) * planes + p0) * L::EC * PL,
+                np * L::EC * PL * 2, bar);
+    else
+      bar_arrive(bar);
+  };
+  // The chunk's W2 rows of this column block, then its b1, bd and taps.
+  auto issue_w2 = [&](int chunk) {
+    const long long at = static_cast<long long>(chunk) * (L::EC * Co + gridDim.y * L::VEC_ELEMS) +
+                         blockIdx.y * (L::EC * NP + L::VEC_ELEMS);
+    if constexpr (runs(COPIES))
+      bulk_load(w2s, w2p + at, (L::EC * ncol + L::VEC_ELEMS) * 2, w2full);
+    else
+      bar_arrive(w2full);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 12);  // the 12 warps of warpgroups 0-2
     }
+    bar_init(w2full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  template <typename F>
-  __device__ void each_e(F f) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int r0 = (warp / EN) * EI * 16 + lane / 4;
-    const int n0 = (warp % EN) * 16 + (lane % 4) * 2;
-#pragma unroll
-    for (int i = 0; i < EI; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float lo[2] = {acc_e[i][j][0], acc_e[i][j][1]};
-        const float hi[2] = {acc_e[i][j][2], acc_e[i][j][3]};
-        f(r0 + i * 16, n0 + j * 8, lo);
-        f(r0 + i * 16 + 8, n0 + j * 8, hi);
-      }
+  __syncthreads();
+  if (tid == PRODUCER) {
+    for (int q = 0; q < R && q < total; ++q) issue_w1(q);
+    issue_w2(0);
   }
+  // x with its halo, zero outside the image and past C: one 16-byte
+  // cp.async per pixel and plane, consecutive threads on consecutive planes
+  for (int i = tid; i < L::MP * planes; i += NT) {
+    const int hp = i / planes, g = i % planes, c = g * PL;
+    const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
+    const bool ok = hp < L::HP && c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16(xs + g * L::XPLANE + hp * PL,
+               ok ? x + (static_cast<long long>(gy) * W + gx) * C + c : x, ok);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
 
-  __device__ void project(const T* ds, const T* w2s, int ncol) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int lrow = lane % 16, lcol = (lane / 16) * 8;
-    const int r0 = (warp % PMB) * 32, n0 = (warp / PMB) * PJ * 16;
+  float acc_p[64];
 #pragma unroll
-    for (int kk = 0; kk < L::EC; kk += 16) {
-      unsigned a[2][4];
+  for (int i = 0; i < 64; ++i) acc_p[i] = 0.0f;
+  const int prow = (wg % 2) * 64, pcol = (wg / 2) * 128;  // this warpgroup's quarter of p
+
+  for (int chunk = 0, q = 0; chunk < nchunks; ++chunk, q += nslices) {
+    // A. expand, warpgroup wg < 3 on halo rows 64 wg ..; slice q + s of W1
+    // is waited for on its slot's `full`, and released on `empty` once the
+    // wgmma group that read it has completed (one group stays in flight).
+    if (wg < 3) {
+      float acc[32];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm(a[i], ds + (r0 + i * 16 + lrow) * L::LDE + kk + lcol);
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        if (n0 + j * 16 >= ncol) continue;  // no such output channels
-        unsigned b[4];
-        ldsm_trans(b, w2s + (kk + lrow) * L::LDW2 + n0 + j * 16 + lcol);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc_p[i][2 * j], a[i], b[0], b[1]);
-          mma_bf16(acc_p[i][2 * j + 1], a[i], b[2], b[3]);
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      keep(acc);
+      wgmma_fence();
+      const uint64_t da = smem_desc(xs + wg * 64 * PL, L::XPLANE * 2, 16 * PL);
+      for (int s = 0; s < nslices; ++s) {
+        const int qq = q + s, p0 = s * (L::KS / PL);
+        const int np = planes - p0 < L::KS / PL ? planes - p0 : L::KS / PL;
+        bar_wait(&full[qq % R], (qq / R) & 1);
+        __syncwarp();
+        const uint64_t db = smem_desc(ring + (qq % R) * L::SLICE_ELEMS, L::EC * 16, 16 * PL);
+        if constexpr (runs(EXPAND))
+          for (int kk = 0; kk < np; kk += 2)  // 16 channels: two planes
+            wgmma_m64n64(acc, da + (((p0 + kk) * L::XPLANE * 2) >> 4),
+                         db + ((kk * L::EC * 16) >> 4));
+        wgmma_commit();
+        if (s > 0) {
+          wgmma_wait<1>();
+          if (lane == 0) bar_arrive(&empty[(qq - 1) % R]);
         }
       }
+      wgmma_wait<0>();
+      keep(acc);
+      if (lane == 0) bar_arrive(&empty[(q + nslices - 1) % R]);
+      bar_wait(w2full, chunk & 1);  // b1 rides with the chunk's W2 piece
+      // + b1, ReLU6, zero outside the image, rounded to bf16 into e
+      if constexpr (runs(EXPAND_EPILOGUE)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          const float bb[2] = {to_f(b1s[col]), to_f(b1s[col + 1])};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int hp = wg * 64 + 16 * warp + lane / 4 + 8 * h;
+            const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
+            const bool inside = hp < L::HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+            const float o[2] = {inside ? relu6(acc[4 * j + 2 * h] + bb[0]) : 0.0f,
+                                inside ? relu6(acc[4 * j + 2 * h + 1] + bb[1]) : 0.0f};
+            store_run<T, 2>(es + hp * L::LDE + col, o);
+          }
+        }
+      }
+    } else if (tid == PRODUCER) {
+      // refill each slot of this chunk with the slice R later, once read
+      for (int s = 0; s < nslices && q + s + R < total; ++s) {
+        bar_wait(&empty[(q + s) % R], ((q + s) / R) & 1);
+        issue_w1(q + s + R);
+      }
+      bar_wait(w2full, chunk & 1);
+    } else {
+      bar_wait(w2full, chunk & 1);
+    }
+    __syncthreads();
+
+    // B. depthwise 3x3 over the staged e: a warp per output column, a lane
+    // per CPL channels; each staged e is read once and feeds the (up to)
+    // three output rows it touches, taps in dy, dx order. d goes into planes.
+    if constexpr (runs(DEPTHWISE)) {
+      constexpr int CPL = L::EC / 32;
+      const int ox = tid / 32, c = (tid % 32) * CPL;
+      float wt[9][CPL], acc[L::TH][CPL];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) load_run<T, CPL>(wds + t * L::EC + c, wt[t]);
+#pragma unroll
+      for (int oy = 0; oy < L::TH; ++oy)
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) acc[oy][e] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < L::TH + 2; ++r)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          float ev[CPL];
+          load_run<T, CPL>(es + (r * L::HW2 + ox + dx) * L::LDE + c, ev);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int oy = r - dy;
+            if (oy < 0 || oy >= L::TH) continue;
+#pragma unroll
+            for (int e = 0; e < CPL; ++e)
+              acc[oy][e] = fmaf(ev[e], wt[dy * 3 + dx][e], acc[oy][e]);
+          }
+        }
+      float bias[CPL];
+      load_run<T, CPL>(bds + c, bias);
+#pragma unroll
+      for (int oy = 0; oy < L::TH; ++oy) {
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) acc[oy][e] = relu6(acc[oy][e] + bias[e]);
+        store_run<T, CPL>(ds + (c / PL) * L::DPLANE + (oy * L::TW + ox) * PL + c % PL, acc[oy]);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // C. partial project GEMM: 64 pixels x 128 output channels per
+    // warpgroup, over the chunk's 64 rows of W2 (four k16 steps).
+    if (pcol < ncol) {
+      wgmma_fence();
+      const uint64_t da = smem_desc(ds + prow * PL, L::DPLANE * 2, 16 * PL);
+      const uint64_t db = smem_desc(w2s + pcol * PL, ncol * 16, 16 * PL);
+      if constexpr (runs(PROJECT))
+#pragma unroll
+        for (int kk = 0; kk < L::EC / PL; kk += 2)
+          wgmma_m64n128(acc_p, da + ((kk * L::DPLANE * 2) >> 4), db + ((kk * ncol * 16) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc_p);
+    }
+    __syncthreads();  // d, the W2 piece and the vectors are free again
+    if (tid == PRODUCER && chunk + 1 < nchunks) issue_w2(chunk + 1);
+  }
+
+  // Epilogue: + b2 (+ x), store the pixels and channels that exist.
+  if (pcol >= ncol) return;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = pcol + 8 * j + 2 * (lane % 4);
+    if (col >= ncol) continue;
+    float bv[2];
+    load_run<T, 2>(b2 + co0 + col, bv);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = prow + 16 * warp + lane / 4 + 8 * h;
+      const int oy = p / L::TW, ox = p % L::TW;
+      const int gy = ty0 + oy, gx = tx0 + ox;
+      if (gy >= H || gx >= W) continue;
+      float o[2] = {acc_p[4 * j + 2 * h] + bv[0], acc_p[4 * j + 2 * h + 1] + bv[1]};
+      if (residual) {
+        const int c = co0 + col, hp = (oy + 1) * L::HW2 + ox + 1;
+        float xv[2];
+        load_run<T, 2>(xs + (c / PL) * L::XPLANE + hp * PL + c % PL, xv);
+        o[0] += xv[0];
+        o[1] += xv[1];
+      }
+      store_run<T, 2>(out + (static_cast<long long>(gy) * W + gx) * Co + co0 + col, o);
     }
   }
-
-  template <typename F>
-  __device__ void each_p(int ncol, F f) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int r0 = (warp % PMB) * 32 + lane / 4;
-    const int n0 = (warp / PMB) * PJ * 16 + (lane % 4) * 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2 * PJ; ++j) {
-        if (n0 + j * 8 >= ncol) continue;
-        const float lo[2] = {acc_p[i][j][0], acc_p[i][j][1]};
-        const float hi[2] = {acc_p[i][j][2], acc_p[i][j][3]};
-        f(r0 + i * 16, n0 + j * 8, lo);
-        f(r0 + i * 16 + 8, n0 + j * 8, hi);
-      }
-  }
-};
+}
 
 // f32 on plain FMA. Expand: thread t < MP * EC / 8 owns row t / (EC/8) and
-// 8 columns. Project: thread t owns 8 columns (t % 32) and PI rows.
+// 8 columns. Project: thread t owns 8 columns (t % 32) and PI rows. `each_e`
+// / `each_p` hand the accumulators to f(row, col, v) in runs of 8 columns.
+template <typename T>
+struct Mma;
 template <>
 struct Mma<float> {
   using T = float;
@@ -425,7 +693,8 @@ struct Mma<float> {
   }
 };
 
-// grid = (N * tiles_y * tiles_x, ceil(Co / NP)).
+// The f32 kernel: W1 (C, E), Wd (3, 3, E), W2 (E, Co) as they are, staged
+// by cp.async. grid = (N * tiles_y * tiles_x, ceil(Co / NP)).
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
     dwblock_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -529,19 +798,16 @@ __global__ void __launch_bounds__(NT, 1)
     for (int s = 0; s < nslices; ++s, ++q) {
       cp_async_wait_all();
       __syncthreads();  // slice q is there, and slice q - 1's buffer is free
-      if constexpr (runs(W2_COPIES))
-        if (s == 0 && chunk > 0) stage_chunk(chunk * L::EC);
-      if constexpr (runs(W1_COPIES)) stage_w1(q + 1);
+      if (s == 0 && chunk > 0) stage_chunk(chunk * L::EC);
+      stage_w1(q + 1);
       cp_async_commit();
       const int k0 = s * ks;
-      if constexpr (runs(EXPAND))
-        mma.expand(xs, ldx, k0, cpad - k0 < ks ? cpad - k0 : ks, w1s + (q % 2) * w1_elems);
+      mma.expand(xs, ldx, k0, cpad - k0 < ks ? cpad - k0 : ks, w1s + (q % 2) * w1_elems);
     }
     if (nslices == 1) {  // then nothing above waited for the chunk's own copies
       cp_async_wait_all();
       __syncthreads();
     }
-    if constexpr (runs(EXPAND_EPILOGUE))
     mma.each_e([&](int hp, int col, const auto& v) {
       constexpr int RUN = sizeof(v) / sizeof(float);
       const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
@@ -558,7 +824,7 @@ __global__ void __launch_bounds__(NT, 1)
     // B. depthwise 3x3 over the staged e: a warp per output column, a lane
     // per CPL channels; each staged e is read once and feeds the (up to)
     // three output rows it touches, taps in dy, dx order.
-    if constexpr (runs(DEPTHWISE)) {
+    {
       constexpr int CPL = L::EC / 32;
       static_assert(L::TW == NWARP && L::EC % 32 == 0, "depthwise tiling");
       const int ox = tid / 32, c = (tid % 32) * CPL;
@@ -596,7 +862,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
 
     // C. partial project GEMM.
-    if constexpr (runs(PROJECT)) mma.project(ds, w2s, ncol);
+    mma.project(ds, w2s, ncol);
     __syncthreads();
   }
 
@@ -620,10 +886,21 @@ __global__ void __launch_bounds__(NT, 1)
   });
 }
 
-template <typename T>
-int launch(const void* x, const void* w1, const void* b1, const void* wd,
-           const void* bd, const void* w2, const void* b2, void* out, int N,
-           int H, int W, int C, int E, int Co, int residual, void* stream) {
+// Grid of one block per tile and 256 output channels; 0 or the CUDA error.
+int grid_of(int N, int H, int W, int Co, int th, int tw, int* tiles_x, int* tiles_y,
+            dim3* grid) {
+  *tiles_x = (W + tw - 1) / tw;
+  *tiles_y = (H + th - 1) / th;
+  const long long blocks = static_cast<long long>(N) * *tiles_x * *tiles_y;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = dim3(static_cast<unsigned>(blocks), (Co + NP - 1) / NP);
+  return 0;
+}
+
+int launch_f32(const void* x, const void* w1, const void* b1, const void* wd,
+               const void* bd, const void* w2, const void* b2, void* out, int N,
+               int H, int W, int C, int E, int Co, int residual, void* stream) {
+  using T = float;
   using L = Lay<T>;
   const int smem = L::smem_bytes(C);
   if (smem > SMEM_LIMIT || (residual && C != Co))
@@ -631,10 +908,9 @@ int launch(const void* x, const void* w1, const void* b1, const void* wd,
   cudaError_t rc = cudaFuncSetAttribute(
       dwblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int tiles_x = (W + L::TW - 1) / L::TW, tiles_y = (H + L::TH - 1) / L::TH;
-  const long long blocks = static_cast<long long>(N) * tiles_x * tiles_y;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), (Co + NP - 1) / NP);
+  int tiles_x, tiles_y;
+  dim3 grid;
+  if (int bad = grid_of(N, H, W, Co, L::TH, L::TW, &tiles_x, &tiles_y, &grid)) return bad;
   dwblock_kernel<T><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(wd),
@@ -644,25 +920,55 @@ int launch(const void* x, const void* w1, const void* b1, const void* wd,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_bf16(const void* x, const void* w1p, const void* w2p, const void* b2, void* out,
+                int N, int H, int W, int C, int E, int Co, int residual, void* stream) {
+  using T = __nv_bfloat16;
+  using L = BLay;
+  const int smem = L::smem_bytes(C);
+  if (L::ring(C) < 2 || smem > SMEM_LIMIT || (residual && C != Co))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaFuncSetAttribute(
+      dwblock_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int tiles_x, tiles_y;
+  dim3 grid;
+  if (int bad = grid_of(N, H, W, Co, L::TH, L::TW, &tiles_x, &tiles_y, &grid)) return bad;
+  dwblock_bf16_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1p), static_cast<const T*>(w2p),
+      static_cast<const T*>(b2), static_cast<T*>(out), H, W, C, E, Co, tiles_x, tiles_y,
+      residual);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns cudaGetLastError() right after the launch (0 on success).
-int dwblock_bf16(const void* x, const void* w1, const void* b1, const void* wd,
-                 const void* bd, const void* w2, const void* b2, void* out,
-                 int N, int H, int W, int C, int E, int Co, int residual,
+// bf16 reads the weights packed by ops/dwblock.py::pack_dwblock_weights.
+int dwblock_bf16(const void* x, const void* w1_packed, const void* w2_packed, const void* b2,
+                 void* out, int N, int H, int W, int C, int E, int Co, int residual,
                  void* stream) {
-  return launch<__nv_bfloat16>(x, w1, b1, wd, bd, w2, b2, out, N, H, W, C, E,
-                               Co, residual, stream);
+  return launch_bf16(x, w1_packed, w2_packed, b2, out, N, H, W, C, E, Co, residual, stream);
 }
 
 int dwblock_f32(const void* x, const void* w1, const void* b1, const void* wd,
                 const void* bd, const void* w2, const void* b2, void* out,
                 int N, int H, int W, int C, int E, int Co, int residual,
                 void* stream) {
-  return launch<float>(x, w1, b1, wd, bd, w2, b2, out, N, H, W, C, E, Co,
-                       residual, stream);
+  return launch_f32(x, w1, b1, wd, bd, w2, b2, out, N, H, W, C, E, Co, residual, stream);
+}
+
+// The packed-weight layout the bf16 kernel reads, for the pack to be held
+// against: E columns per chunk, rows of W1 per bulk copy, channels per plane,
+// output channels per block, and the multiple C is padded to.
+void dwblock_bf16_layout(int* chunk, int* slice_rows, int* plane, int* column_block,
+                         int* k_step) {
+  *chunk = BLay::EC;
+  *slice_rows = BLay::KS;
+  *plane = BLay::PLANE;
+  *column_block = NP;
+  *k_step = 16;
 }
 
 const char* dwblock_error_string(int code) {

@@ -16,6 +16,9 @@ b2 (Co,), all of x's dtype.
   Hopper kernel `csrc/dwblock.cu`, which keeps e and d in shared memory;
   on a CPU tensor `dwblock_ref`. Any other device, and anything the kernel
   does not take, raises; nothing falls back.
+- `pack_dwblock_weights`: the weights in the byte order the bf16 kernel
+  wants in shared memory, made once at load (`DWBlock.pack`) or, where the
+  caller has none, by the wrapper on the fly.
 - `supports_fused_dwblock`: what the CUDA kernel takes.
 - `fused_dwblock`: the differentiable form. Forward as
   `fused_dwblock_kernel`; backward recomputes through `dwblock_ref`.
@@ -24,7 +27,7 @@ b2 (Co,), all of x's dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +35,22 @@ import torch.nn.functional as F
 from .. import kernels
 
 _SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SIGNATURE_BF16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 # The kernel stages a pixel tile of x with its halo in shared memory beside
 # one chunk of e, d and the weights, which bounds C for both dtypes
 # (`static_assert`ed beside `Lay::smem_bytes` in csrc/dwblock.cu).
 MAX_C = 352
+# The bf16 kernel's packed-weight layout (`dwblock_bf16_layout` in the
+# source, which a GPU test holds these against): E columns per chunk, rows
+# of W1 per bulk copy, channels per 16-byte core-matrix row ("plane"),
+# output channels per block, and the multiple C is padded to (a wgmma k16).
+CHUNK = 64
+SLICE_ROWS = 64
+PLANE = 8
+COLUMN_BLOCK = 256
+K_STEP = 16
 
 
 def supports_fused_dwblock(x_shape: Sequence[int], dtype: torch.dtype, kernel_size: int,
@@ -84,18 +97,63 @@ def dwblock_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.T
     return p.to(x.dtype)
 
 
+def _ceil_to(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def pack_dwblock_weights(w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor,
+                         bd: torch.Tensor, w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's weights, laid out once in the byte order it wants
+    in shared memory: wgmma's K-major layout without swizzle, planes of 8
+    channels of 8 x 16-byte core matrices, zero-padded so that the kernel
+    needs no masks on C or E. From W1 (C, E), b1 (E,), Wd (3, 3, E), bd (E,),
+    W2 (E, Co), with E padded to chunks of 64 and C to a multiple of 16:
+
+    - `w1_blob`, flat [chunk][C/8 planes][64 columns of the chunk][8]:
+      element [q, p, n, k] is W1[8p + k, 64q + n]. A bulk copy brings 8
+      planes (`SLICE_ROWS` rows of W1, 8 KB) at a time.
+    - `w2_blob`, flat, per chunk and per block of 256 output channels: that
+      block's W2 rows of the chunk as [8 planes][its columns][8] (element
+      [p, n, k] is W2[64q + 8p + k, co0 + n]), then the chunk's b1, bd and
+      nine rows of depthwise taps (11 x 64 values). One bulk copy a chunk.
+    """
+    c, e = w1.shape
+    co = w2.shape[1]
+    cp, ep = _ceil_to(c, K_STEP), _ceil_to(e, CHUNK)
+    nq = ep // CHUNK
+    w1_blob = (F.pad(w1, (0, ep - e, 0, cp - c))
+               .reshape(cp // PLANE, PLANE, nq, CHUNK).permute(2, 0, 3, 1).reshape(-1))
+    w2r = F.pad(w2, (0, 0, 0, ep - e)).reshape(nq, CHUNK // PLANE, PLANE, co)
+    vectors = F.pad(torch.cat([b1[None], bd[None], wd.reshape(9, e)]), (0, ep - e))
+    vectors = vectors.reshape(11, nq, CHUNK).permute(1, 0, 2).reshape(nq, -1)
+    pieces = []
+    for co0 in range(0, co, COLUMN_BLOCK):
+        pieces += [w2r[..., co0:co0 + COLUMN_BLOCK].permute(0, 1, 3, 2).reshape(nq, -1), vectors]
+    return w1_blob, torch.cat(pieces, dim=1).reshape(-1)
+
+
+def packed_sizes(c: int, e: int, co: int) -> Tuple[int, int]:
+    """Elements of the two blobs `pack_dwblock_weights` makes."""
+    nq = _ceil_to(e, CHUNK) // CHUNK
+    blocks = _ceil_to(co, COLUMN_BLOCK) // COLUMN_BLOCK
+    return nq * _ceil_to(c, K_STEP) * CHUNK, nq * (CHUNK * co + blocks * 11 * CHUNK)
+
+
 def _lib():
     lib = kernels.load("dwblock")
     if lib.dwblock_bf16.argtypes is None:
+        lib.dwblock_bf16.argtypes = _SIGNATURE_BF16
+        lib.dwblock_f32.argtypes = _SIGNATURE
         for fn in (lib.dwblock_bf16, lib.dwblock_f32):
-            fn.argtypes = _SIGNATURE
             fn.restype = ctypes.c_int
         lib.dwblock_error_string.argtypes = [ctypes.c_int]
         lib.dwblock_error_string.restype = ctypes.c_char_p
+        lib.dwblock_bf16_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+        lib.dwblock_bf16_layout.restype = None
     return lib
 
 
-def _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+def _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual: bool, blobs=None) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -121,13 +179,27 @@ def _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
             raise ValueError("dwblock kernel needs contiguous, 16-byte aligned tensors on one "
                              "device (x as NHWC, which is an NCHW tensor in channels-last "
                              "memory, permuted)")
+    if x.dtype == torch.bfloat16:
+        if blobs is None:
+            blobs = pack_dwblock_weights(w1, b1, wd, bd, w2)
+        for blob, size in zip(blobs, packed_sizes(c, e, co)):
+            if (blob.shape != (size,) or blob.dtype != x.dtype or blob.device != x.device
+                    or not blob.is_contiguous() or blob.data_ptr() % 16):
+                raise ValueError(f"packed weights must be two flat, contiguous, 16-byte aligned "
+                                 f"{x.dtype} tensors of {packed_sizes(c, e, co)} elements "
+                                 "(pack_dwblock_weights)")
     lib = _lib()
-    fn = lib.dwblock_bf16 if x.dtype == torch.bfloat16 else lib.dwblock_f32
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-                w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, e, co,
-                int(bool(residual)), torch.cuda.current_stream().cuda_stream)
+        if x.dtype == torch.bfloat16:
+            rc = lib.dwblock_bf16(x.data_ptr(), blobs[0].data_ptr(), blobs[1].data_ptr(),
+                                  b2.data_ptr(), out.data_ptr(), n, h, w, c, e, co,
+                                  int(bool(residual)), stream)
+        else:
+            rc = lib.dwblock_f32(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
+                                 bd.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                                 n, h, w, c, e, co, int(bool(residual)), stream)
     if rc:
         raise RuntimeError("dwblock kernel launch failed: "
                            + lib.dwblock_error_string(rc).decode())
@@ -135,22 +207,26 @@ def _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
     return out
 
 
-def fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+def fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual: bool,
+                         blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """The block in one pass: kernel K2 on a CUDA tensor, `dwblock_ref` on a
-    CPU one. Not differentiable; see `fused_dwblock`."""
+    CPU one. `blobs`, for bf16, are `pack_dwblock_weights` of these weights
+    made beforehand (without them the wrapper packs on the fly); the f32
+    kernel and the plain version read the weights as they are. Not
+    differentiable; see `fused_dwblock`."""
     if x.device.type == "cpu":
         return dwblock_ref(x, w1, b1, wd, bd, w2, b2, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dwblock runs on cuda or cpu tensors, got {x.device}")
-    return _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual)
+    return _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual, blobs)
 
 
 class _FusedDWBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, wd, bd, w2, b2, residual):
+    def forward(ctx, x, w1, b1, wd, bd, w2, b2, residual, blobs):
         ctx.save_for_backward(x, w1, b1, wd, bd, w2, b2)
         ctx.residual = residual
-        return fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual)
+        return fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual, blobs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -160,10 +236,11 @@ class _FusedDWBlock(torch.autograd.Function):
         with torch.enable_grad():
             out = dwblock_ref(*args, ctx.residual)
         grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if a.requires_grad else None for a in args) + (None,)
+        return tuple(next(grads) if a.requires_grad else None for a in args) + (None, None)
 
 
-def fused_dwblock(x, w1, b1, wd, bd, w2, b2, residual: bool) -> torch.Tensor:
+def fused_dwblock(x, w1, b1, wd, bd, w2, b2, residual: bool, blobs=None) -> torch.Tensor:
     """Differentiable fused dwBlock: the kernel (or, on the CPU, the plain
-    version) forward, and a backward that recomputes through `dwblock_ref`."""
-    return _FusedDWBlock.apply(x, w1, b1, wd, bd, w2, b2, bool(residual))
+    version) forward, and a backward that recomputes through `dwblock_ref`
+    from the plain weights (`blobs` as in `fused_dwblock_kernel`)."""
+    return _FusedDWBlock.apply(x, w1, b1, wd, bd, w2, b2, bool(residual), blobs)

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .dwblock import fused_dwblock, supports_fused_dwblock
+from .dwblock import fused_dwblock, pack_dwblock_weights, supports_fused_dwblock
 
 BN_EPS = 1e-5
 
@@ -132,6 +132,7 @@ class DWBlock(nn.Module):
         ]
         self.conv = nn.Sequential(*layers)
         self._packed: Optional[Tuple[torch.Tensor, ...]] = None
+        self._blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def takes_kernel(self, x_shape, dtype: torch.dtype) -> bool:
         """Whether an (N, C, H, W) input of `dtype` goes through the kernel."""
@@ -142,14 +143,19 @@ class DWBlock(nn.Module):
                                       self.out_ch, self.use_res)
 
     def pack(self, dtype: torch.dtype) -> None:
-        """Pack the kernel's weights once, for serving. From here on the
-        kernel path reads these and no longer looks at the parameters, so
-        call it after the last cast or load (`make_baked_infer_step` does);
-        a later `.to()`, `load_state_dict` or `pack` drops them. A block
-        without an expand conv never takes the kernel and packs nothing."""
+        """Pack the kernel's weights once, for serving: the folded weights
+        and, for bf16, the kernel's shared-memory layout of them
+        (`pack_dwblock_weights`). From here on the kernel path reads these
+        and no longer looks at the parameters, so call it after the last
+        cast or load (`make_baked_infer_step` does); a later `.to()`,
+        `load_state_dict` or `pack` drops them. A block without an expand
+        conv never takes the kernel and packs nothing."""
         if len(self.conv) == 4:
             with torch.no_grad():
                 self._packed = self._pack(dtype)
+                w1, b1, wd, bd, w2, _ = self._packed
+                self._blobs = (pack_dwblock_weights(w1, b1, wd, bd, w2)
+                               if dtype == torch.bfloat16 else None)
 
     def packed_weights(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
         """(W1 (C, E), b1, Wd (3, 3, E), bd, W2 (E, Co), b2) in `dtype` with
@@ -163,12 +169,18 @@ class DWBlock(nn.Module):
             return self._pack(dtype)
         return packed
 
+    def kernel_weights(self, dtype: torch.dtype):
+        """(`packed_weights(dtype)`, the bf16 kernel's blobs that `pack` made
+        of exactly those, or None: then the kernel's wrapper packs on the fly)."""
+        weights = self.packed_weights(dtype)
+        return weights, self._blobs if weights is self._packed else None
+
     def _apply(self, fn, *args, **kwargs):
-        self._packed = None  # a cast or a move: the packed copies are stale
+        self._packed = self._blobs = None  # a cast or a move: the packed copies are stale
         return super()._apply(fn, *args, **kwargs)
 
     def _load_from_state_dict(self, *args, **kwargs):
-        self._packed = None
+        self._packed = self._blobs = None
         super()._load_from_state_dict(*args, **kwargs)
 
     def _pack(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
@@ -184,8 +196,8 @@ class DWBlock(nn.Module):
         if self.takes_kernel(x.shape, x.dtype):
             # NCHW tensor in channels-last memory <-> the NHWC the kernel reads;
             # on the card the kernel's wrapper raises on any other memory
-            out = fused_dwblock(x.permute(0, 2, 3, 1), *self.packed_weights(x.dtype),
-                                self.use_res)
+            weights, blobs = self.kernel_weights(x.dtype)
+            out = fused_dwblock(x.permute(0, 2, 3, 1), *weights, self.use_res, blobs)
             return out.permute(0, 3, 1, 2)
         y = self.conv(x)
         return x + y if self.use_res else y

@@ -3,13 +3,16 @@
     python3 -m iip_uavsal_saliency_tpu_torch.tools.k2_probe
 
 On one NVIDIA GPU, at 20x45x80, C=256 -> 256, E=1536, residual, bf16, times
-builds of `csrc/dwblock.cu` with one part compiled out each
-(`-DDWBLOCK_SKIP=<bit mask>`, see `Part` in the source): the W1 slice
-copies, the expand GEMM, its epilogue (which also removes the GEMM, whose
-result is then unused), the depthwise taps, the project GEMM, the
-W2/bias/tap copies, and all four compute parts together. Those builds give
-wrong results and only their times are read: the time a part takes is the
-full kernel's time less the time without it. Whether K2 is right, and its
+builds of `csrc/dwblock.cu` with one part of the bf16 kernel compiled out
+each (`-DDWBLOCK_SKIP=<bit mask>`, see `Part` in the source): the bulk
+copies of the packed weights (W1 slices and W2 pieces; their mbarriers are
+then completed by a plain arrival), the expand `wgmma`, its epilogue (which
+also lets the compiler drop the GEMM, whose result is then unused), the
+depthwise taps, the project `wgmma`, all four compute parts together, and
+all five (what is left is the skeleton: staging x, the barriers and
+mbarrier waits of every chunk, and the output epilogue).
+Those builds give wrong results and only their times are read: the time a
+part takes is the full kernel's time less the time without it. Whether K2 is right, and its
 time beside its plain version, library call and bound, is `chip_smoke.py`'s
 to say.
 """
@@ -24,11 +27,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.dwblock import _SIGNATURE
+from ..ops.dwblock import _SIGNATURE_BF16, pack_dwblock_weights
 
 SHAPE = (20, 45, 80, 256, 1536, 256)  # N, H, W, C, E, Co
-PARTS = ["W1_COPIES", "EXPAND", "EXPAND_EPILOGUE", "DEPTHWISE", "PROJECT", "W2_COPIES"]  # as Part
-VARIANTS = [[]] + [[p] for p in PARTS] + [["EXPAND", "EXPAND_EPILOGUE", "DEPTHWISE", "PROJECT"]]
+PARTS = ["COPIES", "EXPAND", "EXPAND_EPILOGUE", "DEPTHWISE", "PROJECT"]  # as Part
+VARIANTS = [[]] + [[p] for p in PARTS] + [PARTS[1:], PARTS]
 
 
 def us_per_call(fn, reps=5, windows=5):
@@ -54,7 +57,10 @@ def main():
     n, h, w, c, e, co = SHAPE
     shapes = [(n, h, w, c), (c, e), (e,), (3, 3, e), (e,), (e, co), (co,), (n, h, w, co)]
     gen = torch.Generator("cuda").manual_seed(0)
-    tensors = [torch.randn(s, device="cuda", generator=gen).mul(0.1).bfloat16() for s in shapes]
+    x, w1, b1, wd, bd, w2, b2, out = [torch.randn(s, device="cuda", generator=gen).mul(0.1).bfloat16()
+                                      for s in shapes]
+    blobs = pack_dwblock_weights(w1, b1, wd, bd, w2)  # kept alive while the pointers are used
+    pointers = [t.data_ptr() for t in (x, *blobs, b2, out)]
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for i, parts in enumerate(VARIANTS):  # one nvcc per build, all started together
@@ -70,11 +76,10 @@ def main():
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed without {parts}:\n{log}")
             fn = ctypes.CDLL(lib).dwblock_bf16
-            fn.argtypes, fn.restype = _SIGNATURE, ctypes.c_int
+            fn.argtypes, fn.restype = _SIGNATURE_BF16, ctypes.c_int
 
             def call():
-                rc = fn(*[t.data_ptr() for t in tensors], n, h, w, c, e, co, 1,
-                        torch.cuda.current_stream().cuda_stream)
+                rc = fn(*pointers, n, h, w, c, e, co, 1, torch.cuda.current_stream().cuda_stream)
                 assert rc == 0, rc
 
             times.append(us_per_call(call))

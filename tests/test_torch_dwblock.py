@@ -134,6 +134,91 @@ def test_dwblock_use_kernel_matches_jax_use_pallas(pallas_interpret, c, co, res_
     torch.testing.assert_close(fused_out, plain_out, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["packed_on_the_fly", "packed_at_load"])
+def test_bf16_dwblock_with_packed_weights_matches_jax_use_pallas(pallas_interpret, packed):
+    """`DWBlock(use_kernel=True)` in bf16 on folded weights, with the kernel
+    weights packed by `pack` (serving) or not, against the JAX block running
+    its Pallas kernel in interpreter mode: one bf16 ulp of the output on
+    under 1% of the elements, as above. On the CPU the plain weights are
+    what is read; the packed layout is carried beside them."""
+    c = co = 64
+    rng = np.random.RandomState(17)
+    x = rng.randn(2, 12, 16, c).astype(np.float32)
+    jm, v, state_dict = _jax_block(c, co, x, rng)
+    v = jax.tree_util.tree_map(np.asarray, jfold.fold_batchnorm(v))
+    tm = tl.DWBlock(c, co, 3, use_kernel=True).eval()
+    tm.load_state_dict(state_dict(v, 6), strict=True)
+    fold_conv_bn(tm)
+    tm.bfloat16()
+    if packed:
+        tm.pack(torch.bfloat16)
+    with torch.no_grad():  # with a gradient wanted, the weights are packed on the fly
+        weights, blobs = tm.kernel_weights(torch.bfloat16)
+        assert (blobs is not None) == packed
+        if packed:
+            assert weights is tm.packed_weights(torch.bfloat16)
+            for got, want in zip(blobs, tdw.pack_dwblock_weights(*weights[:5])):
+                assert torch.equal(got, want)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    vb = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), v)
+    want = np.asarray(jm.apply(vb, xb).astype(jnp.float32))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2).bfloat16())
+    diff = np.abs(got.permute(0, 2, 3, 1).float().numpy() - want)
+    assert np.abs(want).max() < 8
+    assert diff.max() <= 2.0 ** -5 and (diff > 0).mean() < 0.01
+
+
+def _unpack(w1_blob, w2_blob, c, e, co):
+    """The inverse of `pack_dwblock_weights`, from its docstring: W1, W2 and
+    the (11, E) rows b1, bd, taps, each packed piece read back by index."""
+    cp, ep = -(-c // 16) * 16, -(-e // 64) * 64
+    nq = ep // 64
+    w1 = w1_blob.reshape(nq, cp // 8, 64, 8).permute(1, 3, 0, 2).reshape(cp, ep)
+    per_chunk = w2_blob.reshape(nq, -1)
+    w2, vectors, at = [], [], 0
+    for co0 in range(0, co, 256):
+        rows = min(256, co - co0)
+        w2.append(per_chunk[:, at:at + 64 * rows].reshape(nq, 8, rows, 8).permute(0, 1, 3, 2)
+                  .reshape(ep, rows))
+        at += 64 * rows
+        vectors.append(per_chunk[:, at:at + 11 * 64].reshape(nq, 11, 64).permute(1, 0, 2)
+                       .reshape(11, ep))
+        at += 11 * 64
+    assert at == per_chunk.shape[1]
+    return w1, torch.cat(w2, dim=1), vectors
+
+
+# (C, E, Co) of the admitted blocks' widths: K padded to 16 (C=24), a ragged
+# last E chunk (E=144), Co != C (64->96, 160->320, 320->256), Co over two
+# column blocks (320), the widest C.
+PACK_WIDTHS = {"c24": (24, 144, 24), "c24_to_16": (24, 144, 16), "c32": (32, 192, 32),
+               "c64": (64, 384, 64), "c64_to_96": (64, 384, 96), "c96": (96, 576, 96),
+               "c160": (160, 960, 160), "c160_to_320": (160, 960, 320),
+               "c256": (256, 1536, 256), "c320_to_256": (320, 1920, 256),
+               "c352": (352, 2112, 352)}
+
+
+@pytest.mark.parametrize("name", sorted(PACK_WIDTHS))
+def test_pack_dwblock_weights_unpacks_exactly(name):
+    c, e, co = PACK_WIDTHS[name]
+    rng = np.random.RandomState(c + e + co)
+    w1, b1, wd, bd, w2 = (torch.from_numpy(rng.randn(*s).astype(np.float32)).bfloat16()
+                          for s in ((c, e), (e,), (3, 3, e), (e,), (e, co)))
+    w1_blob, w2_blob = tdw.pack_dwblock_weights(w1, b1, wd, bd, w2)
+    assert (w1_blob.numel(), w2_blob.numel()) == tdw.packed_sizes(c, e, co)
+    assert w1_blob.is_contiguous() and w2_blob.is_contiguous()
+    got_w1, got_w2, vectors = _unpack(w1_blob, w2_blob, c, e, co)
+    assert torch.equal(got_w1[:c, :e], w1) and torch.equal(got_w2[:e], w2)
+    for v in vectors:  # every column block carries the chunk's vectors
+        assert torch.equal(v[:, :e], torch.cat([b1[None], bd[None], wd.reshape(9, e)]))
+    # the padding the kernel relies on instead of masks is zero
+    assert not got_w1[c:].any() and not got_w1[:, e:].any() and not got_w2[e:].any()
+    assert not any(v[:, e:].any() for v in vectors)
+    # a bulk copy of W1 is SLICE_ROWS rows of one chunk, 8 planes of 64 x 16 bytes
+    assert tdw.SLICE_ROWS // tdw.PLANE * tdw.CHUNK * tdw.PLANE * 2 == 8192
+
+
 def test_fused_dwblock_grads_match_jax(pallas_interpret):
     """Gradients of a sum of squares for all 7 arguments against `jax.grad`
     through the JAX `fused_dwblock` (tests/test_pallas_dwblock.py:87-105)."""

@@ -8,13 +8,16 @@ without JAX; the repository's conftest imports JAX, so run it there as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from iip_uavsal_saliency_tpu_torch import kernels
+from iip_uavsal_saliency_tpu_torch.ops import dwblock as dw
 from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwblock,
-                                                       fused_dwblock_kernel)
+                                                       fused_dwblock_kernel, pack_dwblock_weights)
 from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_takes,
                                                     kernel_route, twa_scan, twa_scan_ref)
 
@@ -197,6 +200,35 @@ def test_dwblock_kernel_matches_ref(card, name, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
+def test_dwblock_layout_constants_are_the_kernels(card):
+    """The pack's layout constants are the ones the kernel source states."""
+    values = [ctypes.c_int() for _ in range(5)]
+    dw._lib().dwblock_bf16_layout(*[ctypes.byref(v) for v in values])
+    assert [v.value for v in values] == [dw.CHUNK, dw.SLICE_ROWS, dw.PLANE, dw.COLUMN_BLOCK,
+                                         dw.K_STEP]
+
+
+# The cases wgmma and the packed weights make new: K padded to 16 (C=24), a
+# ragged last E chunk (E=144), a partial 2x13x7 tile, Co=320 over two column
+# blocks, the widest C (two ring slots).
+@pytest.mark.parametrize("name", ["ragged", "c160_two_co_tiles", "widest", "wide"])
+def test_dwblock_bf16_kernel_is_deterministic_with_packed_weights(card, name):
+    """Two runs give equal bits, and weights packed beforehand give the bits
+    the wrapper's own packing gives."""
+    shape, residual = DW_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, torch.bfloat16)
+            for a in _dw_case(*shape, seed=9)]
+    blobs = pack_dwblock_weights(*args[1:6])
+    kernels.reset_launches()
+    first = fused_dwblock_kernel(*args, residual)
+    again = fused_dwblock_kernel(*args, residual, blobs)
+    torch.cuda.synchronize()
+    assert kernels.launches["dwblock"] == 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first.float(), dwblock_ref(*args, residual).float(),
+                               atol=0.0625, rtol=0)
+
+
 def test_dwblock_kernel_raises_on_what_it_does_not_take(card):
     """A CUDA tensor launches the kernel or raises; nothing falls back."""
     args = [torch.tensor(a, dtype=torch.float32, device=card)
@@ -216,6 +248,10 @@ def test_dwblock_kernel_raises_on_what_it_does_not_take(card):
                                for a in _dw_case(1, 2, 2, 360, 720, 8)), False)
     with pytest.raises(ValueError, match="must be"):
         fused_dwblock_kernel(args[0], args[1].bfloat16(), *args[2:], True)
+    bf = [a.bfloat16() for a in args]
+    w1_blob, w2_blob = pack_dwblock_weights(*bf[1:6])
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_dwblock_kernel(*bf, True, (w1_blob[:-8], w2_blob))
     assert kernels.launches["dwblock"] == 0
 
 

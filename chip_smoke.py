@@ -43,8 +43,22 @@
    above and K2 once per admitted block and clip, exactly; its bf16 maps
    must agree with the f32 run and with the bf16 run without K2 (CC >= 0.99
    per frame), and its f32 maps with the f32 run without K2.
-4. Times the serving step with K2 off and on (ms per clip, FPS), the whole
-   of `predict_videos` five times per path in turns (host clock), and each
+   Each of the four paths runs twice: with the eager step (the checks
+   above, whose recorders need Python to run on every call) and as a user
+   runs it, the step replayed from a CUDA graph (`graph_step`) through the
+   pipelined `predict_videos`, under the profiler. The kernels that ran in
+   the graphed run, counted from the trace, must be the eager run's
+   launches, exactly (the wrappers count none there: a replay runs without
+   them); it must give the eager run's uint8 maps bit for bit, and over the
+   3 carried clips the eager step's saliency and state bit for bit. The
+   `launches` of the kernels line are the eager runs' counts.
+4. Times the serving step with K2 off and on, eager and graphed (ms per
+   clip, FPS), the host's time to issue one step (eager against one
+   replay), the pipelined `predict_videos` end to end, graphed and eager,
+   K2 off and on, in turns, five runs each over 3 clips and over 20 clips
+   (host clock), the runner alone (a step that does no work) and the idle
+   share of the serving stream over one graphed 20-clip run under the
+   profiler (`build/chip_smoke_profile_runner.txt`), and each
    kernel (its time per launch, its plain version's, one PyTorch call's, and
    its bound) with CUDA events after warm-up, each the median of 7 timed
    windows; K1's two kernels and its library yardstick in turns (per-frame,
@@ -114,6 +128,8 @@ TOL_F32_PATHS = 1e-4
 TOL_GRAD = 2e-4
 
 V, S, CLIPS = 1, 20, 3
+LONG_CLIPS = 20  # the runner's steady state is timed over a video of this many clips
+E2E_RUNS = 5     # end-to-end runs per path, in turns
 IN_H, IN_W, OUT_H, OUT_W = 360, 640, 45, 80
 NATIVE_H, NATIVE_W = 540, 960
 SEED = 0
@@ -622,7 +638,7 @@ def main() -> None:
         from iip_uavsal_saliency_tpu_torch.ops.layers import DWBlock
         from iip_uavsal_saliency_tpu_torch.runners.infer import (
             load_model_for_inference, predict_videos)
-        from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+        from iip_uavsal_saliency_tpu_torch.serving.steps import graph_step, make_baked_infer_step
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py: {e}")
     import torch.nn.functional as F
@@ -674,10 +690,11 @@ def main() -> None:
         return model, step, spy, seen
 
     def drive(name, model, step, spy, seen, bf16, k2_launches):
-        """One main path: warm-up clip, counts to 0, the whole video through
-        `predict_videos`, counts read and held to the expected ones exactly:
-        bf16 takes K1's persistent kernel once per clip, f32 its per-frame
-        kernel once per frame."""
+        """One main path, the eager step: warm-up clip, counts to 0, the whole
+        video through `predict_videos`, counts read and held to the expected
+        ones exactly: bf16 takes K1's persistent kernel once per clip, f32 its
+        per-frame kernel once per frame. Then the same path replayed from a
+        CUDA graph (`drive_graphed`)."""
         predict_videos(step, model, [video[:S]], native, batch_size=4)  # warm-up
         torch.cuda.synchronize()
         taken = []
@@ -689,10 +706,8 @@ def main() -> None:
 
         recurrent.twa_scan = recorder
         kernels.reset_launches()
-        t0 = time.perf_counter()
         maps = predict_videos(spy, model, [video], native, batch_size=4)[0]
         torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
         launches = dict(kernels.launches)
         recurrent.twa_scan = twa.twa_scan
         print(f"{name}: {V * S * CLIPS} frames in {CLIPS} clips, launches {launches}")
@@ -715,7 +730,56 @@ def main() -> None:
             fail(f"{name}: ConvTWA called K1 {len(taken)} times in {CLIPS} clips")
         if bf16:
             check_k1_served(torch, twa, name, taken)
-        return launches, e2e_s, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double()
+        graphed = drive_graphed(name, model, step, want, seen, maps)
+        return launches, graphed, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double()
+
+    def drive_graphed(name, model, step, want, seen, maps):
+        """The main path as a user runs it: `predict_videos` with the step
+        replayed from a CUDA graph (`graph_step`), after one warm-up clip
+        that captures it, under the profiler. The kernels that ran on the
+        card, counted from the trace, must be the eager run's launches; the
+        wrappers must count none (a replay runs without them), and the
+        step's own per-replay tally must agree. Its maps must be the eager
+        run's bits, and over the same 3 carried clips its saliency and
+        state the eager step's bits."""
+        from torch.profiler import ProfilerActivity, profile
+
+        graphed = graph_step(step)
+        predict_videos(graphed, model, [video[:S]], native, batch_size=4)  # capture
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        tally = dict(graphed.replayed)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graphed_maps = predict_videos(graphed, model, [video], native, batch_size=4)[0]
+            torch.cuda.synchronize()
+        traced = kernels.traced_launches(prof)
+        counted = dict(kernels.launches)
+        tally = {k: n - tally[k] for k, n in graphed.replayed.items()}
+        if traced != want:
+            fail(f"{name}, graphed: the trace shows {traced} kernel launches, expected {want}")
+        if any(counted.values()) or tally != want:
+            fail(f"{name}, graphed: the wrappers counted {counted} (expected none) and the "
+                 f"replays' tally is {tally} (expected {want})")
+        replayed = []
+
+        def keep(x, state):  # the replayed step's outputs, kept before the next replay
+            out, new_state = graphed(x, state)
+            replayed.append((out.clone(), new_state.float().clone()))
+            return out, new_state
+
+        predict_videos(keep, model, [video], native, batch_size=4)
+        torch.cuda.synchronize()
+        sal_diff = max((g.float() - e.float()).abs().max().item()
+                       for (g, _), (e, _, _) in zip(replayed, seen))
+        state_diff = max((g - e).abs().max().item() for (_, g), (_, _, e) in zip(replayed, seen))
+        same_maps = np.array_equal(graphed_maps, maps)
+        print(f"{name}, graphed: kernels in the trace {traced}, the replays' tally {tally}; "
+              f"against the eager step over {CLIPS} "
+              f"carried clips: saliency max abs diff {sal_diff:.3g}, state max abs diff "
+              f"{state_diff:.3g}; uint8 maps equal: {same_maps}")
+        if len(replayed) != CLIPS or sal_diff != 0 or state_diff != 0 or not same_maps:
+            fail(f"{name}: the graphed path does not give the eager step's bits")
+        return graphed
 
     def compare(name, a, b):
         cc = frame_cc(torch, a, b)
@@ -738,10 +802,10 @@ def main() -> None:
         fail(f"the flagship blocks {sorted(needed)} are not all admitted")
 
     model16, step16, spy16, seen16 = serve(torch.bfloat16, False)
-    launches_off, e2e_off, sal16 = drive("main path, K2 off (bf16)", model16, step16, spy16,
-                                         seen16, True, 0)
-    launches_on, e2e_on, sal16k = drive("main path, K2 on (bf16)", model16k, step16k, spy16k,
-                                        seen16k, True, len(admitted) * CLIPS)
+    launches_off, graphed16, sal16 = drive("main path, K2 off (bf16)", model16, step16, spy16,
+                                           seen16, True, 0)
+    launches_on, graphed16k, sal16k = drive("main path, K2 on (bf16)", model16k, step16k,
+                                            spy16k, seen16k, True, len(admitted) * CLIPS)
     model32, step32, spy32, seen32 = serve(None, False)
     launches_f32, _, sal32 = drive("main path, K2 off (f32)", model32, step32, spy32, seen32,
                                    False, 0)
@@ -765,28 +829,19 @@ def main() -> None:
     # 4. measurements
     clip = first_clip
     state = model16.init_state(IN_H, IN_W, V, dtype=torch.bfloat16, device="cuda")
-    times = {"off": [], "on": []}
+    paths = {("off", "eager"): step16, ("off", "graphed"): graphed16,
+             ("on", "eager"): step16k, ("on", "graphed"): graphed16k}
+    times = {key: [] for key in paths}
     for which in ("off", "on", "on", "off"):  # in turns, on one card
-        step = step16 if which == "off" else step16k
-        times[which].append(cuda_ms(lambda: step(clip, state), 10))
-    for which, (first, second) in times.items():
-        print(f"serving step, K2 {which} (bf16, V={V}, S={S}, 360x640, uint8 clip on the card): "
-              f"{first:.3f} and {second:.3f} ms per clip, {V * S / first * 1e3:.1f} and "
-              f"{V * S / second * 1e3:.1f} FPS")
-    # the host's clock spreads from run to run: the counted runs above, then
-    # four more of each path in turns
-    e2e = {"off": [e2e_off], "on": [e2e_on]}
-    for which in ("off", "on", "on", "off") * 2:
-        model, step = (model16, step16) if which == "off" else (model16k, step16k)
-        t0 = time.perf_counter()
-        predict_videos(step, model, [video], native, batch_size=4)
-        torch.cuda.synchronize()
-        e2e[which].append(time.perf_counter() - t0)
-    for which, secs in e2e.items():
-        fps = ", ".join(f"{V * S * CLIPS / t:.1f}" for t in secs)
-        print(f"main path end to end, K2 {which} (clip building, serving, postprocess to "
-              f"540x960 uint8), FPS over {V * S * CLIPS} frames, 5 runs: {fps}; median "
-              f"{V * S * CLIPS / float(np.median(secs)):.1f}")
+        for how in ("eager", "graphed"):
+            step = paths[which, how]
+            times[which, how].append(cuda_ms(lambda: step(clip, state), 10))
+    for (which, how), (first, second) in times.items():
+        print(f"serving step, K2 {which}, {how} (bf16, V={V}, S={S}, 360x640, uint8 clip on "
+              f"the card): {first:.3f} and {second:.3f} ms per clip, "
+              f"{V * S / first * 1e3:.1f} and {V * S / second * 1e3:.1f} FPS")
+    time_host_issue(torch, paths, clip, state)
+    time_runner(torch, paths, {"off": model16, "on": model16k}, video, native)
     write_profile(torch, step16, clip, state, "chip_smoke_profile.txt")
     write_profile(torch, step16k, clip, state, "chip_smoke_profile_k2.txt")
 
@@ -841,6 +896,104 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def time_host_issue(torch, paths, clip, state, calls: int = 21) -> None:
+    """The host's time to issue one step, eager against graphed: perf_counter
+    around the call alone, no synchronize inside; the queue is drained
+    before each call so that no call waits on the card. Median of `calls`
+    per path, the paths in turns."""
+    secs = {key: [] for key in paths}
+    for rep in range(calls):
+        for key in (list(paths) if rep % 2 == 0 else list(paths)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[key](clip, state)
+            secs[key].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    for (which, how), ts in secs.items():
+        print(f"host issue time of one step, K2 {which}, {how}: median "
+              f"{float(np.median(ts)) * 1e3:.3f} ms, fastest {min(ts) * 1e3:.3f} ms over {calls} "
+              f"calls")
+
+
+def time_runner(torch, paths, models, video, native) -> None:
+    """End to end through the pipelined `predict_videos` (clip building on
+    the host, pinned copies, serving, postprocess to 540x960 uint8 and the
+    copy back), graphed and eager, K2 off and on: host clock from the call
+    to its last map on the host, ending in `synchronize()`. The four paths
+    in turns (the order reversed every other round), `E2E_RUNS` rounds, over
+    the 3 clips of the main path and over `LONG_CLIPS` clips (the same
+    frames repeated), whose steady state the short video does not show."""
+    from iip_uavsal_saliency_tpu_torch.runners.infer import predict_videos
+
+    long_video = np.concatenate([video] * -(-LONG_CLIPS * S // len(video)))[:LONG_CLIPS * S]
+    for vid in (video, long_video):
+        secs = {key: [] for key in paths}
+        for rep in range(E2E_RUNS):
+            for key in (list(paths) if rep % 2 == 0 else list(paths)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                predict_videos(paths[key], models[key[0]], [vid], native, batch_size=4)
+                torch.cuda.synchronize()
+                secs[key].append(time.perf_counter() - t0)
+        n = len(vid)
+        for (which, how), ts in secs.items():
+            fps = ", ".join(f"{n / t:.1f}" for t in ts)
+            print(f"runner end to end, K2 {which}, {how}: FPS over {n} frames ({n // S} clips), "
+                  f"{E2E_RUNS} runs in turns: {fps}; median {n / float(np.median(ts)):.1f}")
+    runner_costs(torch, paths[("on", "graphed")], models["on"], long_video, native)
+
+
+def runner_costs(torch, graphed, model, video, native) -> None:
+    """Where the runner's time goes beside the step. (1) The runner alone:
+    `predict_videos` with a step that returns a saliency made beforehand
+    and does no work, so what is left is building and shipping the clips,
+    the postprocess on the card and the copy back, per clip, median of
+    `E2E_RUNS`. (2) One graphed K2-on run over the video under the
+    profiler: wall time beside the time the serving stream is busy (the
+    sum of its kernels and device-to-device copies; the copies to and from
+    the host run on streams of their own, beside it, and are counted
+    apart); the table goes to build/chip_smoke_profile_runner.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from iip_uavsal_saliency_tpu_torch.runners.infer import predict_videos
+
+    made = torch.rand((V, S, OUT_H, OUT_W, 1), device="cuda")
+
+    def no_work(x, state):
+        return made, state
+
+    secs = []
+    for _ in range(E2E_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_videos(no_work, model, [video], native, batch_size=4)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    clips = len(video) // S
+    print(f"runner alone (a step that does no work), {clips} clips: "
+          + ", ".join(f"{t / clips * 1e3:.3f}" for t in secs)
+          + f" ms per clip; median {float(np.median(secs)) / clips * 1e3:.3f}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_videos(graphed, model, [video], native, batch_size=4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    h2d = sum(e.self_device_time_total for e in device if "HtoD" in e.key) / 1e3
+    d2h = sum(e.self_device_time_total for e in device if "DtoH" in e.key) / 1e3
+    busy = sum(e.self_device_time_total for e in device) / 1e3 - h2d - d2h
+    print(f"runner under the profiler, K2 on, graphed, {clips} clips: wall {wall * 1e3:.3f} ms, "
+          f"the serving stream busy {busy:.3f} ms ({busy / (wall * 1e3):.1%}; idle "
+          f"{1 - busy / (wall * 1e3):.1%}); copies to the card {h2d:.3f} ms and back "
+          f"{d2h:.3f} ms, each on a stream of its own")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke_profile_runner.txt"), "w") as f:
+        f.write(table)
 
 
 def write_profile(torch, step, clip, state, filename: str) -> None:

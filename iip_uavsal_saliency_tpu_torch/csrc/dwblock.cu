@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int NT = 512;            // threads per block
@@ -905,8 +907,7 @@ int launch_f32(const void* x, const void* w1, const void* b1, const void* wd,
   const int smem = L::smem_bytes(C);
   if (smem > SMEM_LIMIT || (residual && C != Co))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(
-      dwblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t rc = allow_smem(dwblock_kernel<T>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int tiles_x, tiles_y;
   dim3 grid;
@@ -927,8 +928,7 @@ int launch_bf16(const void* x, const void* w1p, const void* w2p, const void* b2,
   const int smem = L::smem_bytes(C);
   if (L::ring(C) < 2 || smem > SMEM_LIMIT || (residual && C != Co))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = cudaFuncSetAttribute(
-      dwblock_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t rc = allow_smem(dwblock_bf16_kernel, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int tiles_x, tiles_y;
   dim3 grid;

@@ -69,6 +69,12 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
+#include "smem.cuh"
+
 namespace {
 
 constexpr int BM = 64;   // output pixels per block
@@ -660,32 +666,63 @@ int clip_tile_rows(int H, int W, int C) {
   return 0;
 }
 
+// The blocks of the persistent kernel that are resident at once on the
+// current device with `smem` bytes of dynamic shared memory each. The host
+// queries behind it (the shared-memory attribute, the SM count, the
+// occupancy) run once per device and size, at the first launch, so that a
+// launch captured into a CUDA graph (serving/steps.py::graph_step, whose
+// warm-up makes that first launch) is the launch alone.
+cudaError_t clip_resident_blocks(int smem, int* resident) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> known;  // (device, smem) -> blocks
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find({device, smem});
+  if (it != known.end()) {
+    *resident = it->second;
+    return cudaSuccess;
+  }
+  if ((err = allow_smem(twa_clip_kernel, smem)) != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, twa_clip_kernel,
+                                                           NTHREAD, smem)) != cudaSuccess)
+    return err;
+  *resident = known[{device, smem}] = per_sm * sms;
+  return cudaSuccess;
+}
+
 int launch_clip(const void* x, const void* gx, const void* h0, const void* w,
                 void* ys, void* done, int V, int S, int H, int W, int C,
                 void* stream) {
-  auto kernel = twa_clip_kernel;
   int TR = clip_tile_rows(H, W, C);
   if (TR < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = clip_smem_bytes(TR, W, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int resident = 0;
+  cudaError_t err = clip_resident_blocks(smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREAD,
-                                                           smem)) != cudaSuccess)
-    return static_cast<int>(err);
   // every block must be resident: its waits are on other blocks' progress
   const int nslice = C / PN, total = V * ((H + TR - 1) / TR);
-  const int groups = min(total, per_sm * sms / nslice);
+  const int groups = min(total, resident / nslice);
   if (groups < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* args[] = {&x, &gx, &h0, &w, &ys, &done, &V, &S, &H, &W, &C, &TR};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(groups * nslice), dim3(NTHREAD), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  // a cooperative launch through the launch-attribute API, which a stream
+  // capture records as a cooperative kernel node
+  cudaLaunchAttribute cooperative[1];
+  cooperative[0].id = cudaLaunchAttributeCooperative;
+  cooperative[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(groups * nslice);
+  config.blockDim = dim3(NTHREAD);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = cooperative;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(twa_clip_kernel), args);
   return static_cast<int>(err);
 }
 

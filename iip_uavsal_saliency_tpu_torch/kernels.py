@@ -11,7 +11,11 @@ loaded. Nothing is compiled or loaded when this module is imported.
 (`twa_scan.cu` holds two: `twa_scan`, the persistent kernel, one launch per
 clip, and `twa_step`, one launch per frame); a run resets it with
 `reset_launches()` and reads it afterwards to show which kernels a path
-went through.
+went through. The wrappers count where they launch, and nowhere else: a
+launch recorded into a CUDA graph counts once, at its capture, and the
+graph's replays (`serving/steps.py::GraphedStep`) run without the wrappers
+and count nothing here. `traced_launches` counts, from a profiler trace,
+the launches that ran on the card, replays included.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +34,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("twa_scan", "dwblock")
 KERNELS = ("twa_scan", "twa_step", "dwblock")
+# the device functions behind each count, by the names a profiler gives them
+SYMBOLS = {"twa_scan": ("twa_clip_kernel",), "twa_step": ("twa_step_kernel",),
+           "dwblock": ("dwblock_kernel", "dwblock_bf16_kernel")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +52,23 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def traced_launches(prof) -> Dict[str, int]:
+    """Per kernel, the launches of its device functions that ran on the card
+    under `prof`, a finished `torch.profiler.profile` that traced CUDA: the
+    count of its device events named after them, kernels replayed from a
+    CUDA graph included."""
+    from torch.autograd import DeviceType
+
+    pattern = re.compile(r"\b(%s)\b" % "|".join(s for syms in SYMBOLS.values() for s in syms))
+    owner = {sym: name for name, syms in SYMBOLS.items() for sym in syms}
+    counts = {name: 0 for name in KERNELS}
+    for event in prof.key_averages():
+        found = pattern.search(event.key)
+        if found and event.device_type == DeviceType.CUDA:
+            counts[owner[found.group(1)]] += event.count
+    return counts
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -56,7 +81,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and the headers it may include from csrc/
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,5 +1,6 @@
 """Serving steps (counterparts of `iip_uavsal_saliency_tpu/parallel/steps.py`:
-`_build_infer_fn` and `make_baked_infer_step`).
+`_build_infer_fn` and `make_baked_infer_step`, and in `graph_step` of the
+compiled, state-donating program the JAX runner serves through).
 
 uint8 frames go to the device as they are and are normalized there
 (/255, ImageNet mean/std, in f32), then cast to the compute dtype with the
@@ -9,11 +10,12 @@ carried state and the priors; the model runs in eval form under
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .. import kernels
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import DWBlock
 
@@ -77,3 +79,91 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
         return inner(x, gauss, ob, state)
 
     return step
+
+
+# Warm-up calls before a capture: the first builds and loads the kernels
+# (`kernels.load` runs nvcc, which must never happen inside a capture) and
+# fills the host-side caches (interpolation matrices, the split TWA weight,
+# each kernel's launch attributes); the others let cuDNN settle, as the
+# documented `torch.cuda.graph` pattern does.
+WARMUP_CALLS = 3
+
+
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor          # static input, state and outputs of the graph
+    state: torch.Tensor
+    saliency: torch.Tensor
+    new_state: torch.Tensor
+    launches: Dict[str, int]  # kernel launches the capture recorded into the graph
+
+
+class GraphedStep:
+    """`step(x, state) -> (saliency, new_state)` served by CUDA-graph replay.
+
+    On a CUDA tensor, the first call for each (x shape, x dtype, state
+    shape, state dtype, device) runs the step `WARMUP_CALLS` times on a side
+    stream and then captures one call of it into a graph with static input,
+    state and output buffers. Every call copies `x` and `state` into the
+    static buffers and replays the graph on the current stream, so the host
+    issues a few copies and one graph launch instead of every kernel of the
+    model. A failed capture raises; nothing falls back to the eager step.
+
+    The returned saliency and state are the graph's static outputs: the next
+    replay of the same graph overwrites them, as the JAX runner's step
+    donates its state buffer. Use them (or order work that reads them on
+    the current stream) before the next call; clone what must outlive it.
+    Passing the returned state back in as `state` is the intended use.
+
+    `kernels.launches` counts where the wrappers launch: the warm-up calls
+    and the capture count there, a replay runs without the wrappers and
+    counts nothing. `replayed` tallies, per kernel, the launches the replays
+    ran as their captures recorded them; it is a convenience, and a
+    profiler trace (`kernels.traced_launches`) is what shows that they ran.
+
+    On a CPU tensor the step runs eagerly as it is: the CPU is an explicit
+    request (`device="cpu"`), and there is nothing to capture."""
+
+    def __init__(self, step: Step):
+        self.step = step
+        self._graphs: Dict[tuple, _Captured] = {}
+        self.replayed: Dict[str, int] = {name: 0 for name in kernels.KERNELS}
+
+    def __call__(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if x.device.type == "cpu":
+            return self.step(x, state)
+        if x.device.type != "cuda" or state.device != x.device:
+            raise ValueError(f"a graphed step runs on one CUDA device, got x on {x.device} "
+                             f"and state on {state.device}")
+        key = (tuple(x.shape), x.dtype, tuple(state.shape), state.dtype, x.device)
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured = self._graphs[key] = self._capture(x, state)
+        captured.x.copy_(x)
+        captured.state.copy_(state)
+        captured.graph.replay()
+        for name, n in captured.launches.items():
+            self.replayed[name] += n
+        return captured.saliency, captured.new_state
+
+    def _capture(self, x: torch.Tensor, state: torch.Tensor) -> _Captured:
+        static_x, static_state = x.clone(), state.clone()
+        current = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                self.step(static_x, static_state)
+        current.wait_stream(side)
+        before = dict(kernels.launches)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(x.device), torch.cuda.graph(graph):
+            saliency, new_state = self.step(static_x, static_state)
+        made = {name: kernels.launches[name] - before[name] for name in kernels.launches}
+        return _Captured(graph, static_x, static_state, saliency, new_state, made)
+
+
+def graph_step(step: Step) -> GraphedStep:
+    """`step` served by CUDA-graph replay (`GraphedStep`); a step that is
+    already graphed is returned as it is, so that its captures are kept."""
+    return step if isinstance(step, GraphedStep) else GraphedStep(step)

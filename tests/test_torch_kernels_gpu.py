@@ -13,6 +13,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from iip_uavsal_saliency_tpu_torch import kernels
 from iip_uavsal_saliency_tpu_torch.ops import dwblock as dw
@@ -20,6 +21,11 @@ from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwbloc
                                                        fused_dwblock_kernel, pack_dwblock_weights)
 from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_takes,
                                                     kernel_route, twa_scan, twa_scan_ref)
+from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
+from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
+from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference, predict_videos
+from iip_uavsal_saliency_tpu_torch.serving.steps import WARMUP_CALLS, graph_step, make_baked_infer_step
 
 pytestmark = pytest.mark.gpu
 
@@ -277,3 +283,117 @@ def test_kernel_forward_gradients_match_plain_versions(card):
     for got, want in zip(grads(twa_scan, tw), grads(twa_scan_ref, tw)):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     assert kernels.launches == {"twa_scan": 0, "twa_step": 3, "dwblock": 1}  # f32: per frame
+
+
+# ---------------------------------------------------------------------------
+# The serving step replayed from a CUDA graph (serving/steps.py::graph_step)
+
+@pytest.fixture(scope="module")
+def seeded_variables():
+    """A seeded JAX-layout variables tree of the flagship UAVSal: conv
+    kernels with std sqrt(1 / fan_in), BatchNorm statistics of order 1."""
+    rng = np.random.RandomState(11)
+    sd = {}
+    for key, ref in UAVSal().state_dict().items():
+        if key.endswith("running_var") or (ref.dim() == 1 and key.endswith("weight")):
+            a = rng.uniform(0.5, 1.5, ref.shape)
+        elif ref.dim() == 1:
+            a = rng.normal(0.0, 0.1, ref.shape)
+        else:
+            a = rng.normal(0.0, np.sqrt(1.0 / np.prod(ref.shape[1:])), ref.shape)
+        sd[key] = torch.tensor(a, dtype=torch.float32)
+    return to_jax_variables(sd)
+
+
+def _served(variables, hw, dtype, k2):
+    model = load_model_for_inference(variables, device="cuda", fused_dwblock=k2)
+    ho, wo = hw[0] // 8, hw[1] // 8
+    rng = np.random.RandomState(12)
+    step = make_baked_infer_step(model, get_gauss_priors(ho, wo, 8),
+                                 rng.rand(ho, wo, 20).astype(np.float32), compute_dtype=dtype)
+    return model, step
+
+
+def _clips(hw, n, s=20, v=1):
+    rng = np.random.RandomState(13)
+    return [torch.from_numpy(rng.randint(0, 256, (v, s) + hw + (3,)).astype(np.uint8)).cuda()
+            for _ in range(n)]
+
+
+SERVING_CASES = [(hw, dtype, k2) for hw in ((64, 128), (360, 640))
+                 for dtype in (torch.bfloat16, torch.float32) for k2 in (False, True)]
+
+
+@pytest.mark.parametrize("hw,dtype,k2", SERVING_CASES,
+                         ids=[f"{h}x{w}-{str(d)[6:]}-k2{'on' if k else 'off'}"
+                              for (h, w), d, k in SERVING_CASES])
+def test_graph_step_equals_eager_step(card, seeded_variables, hw, dtype, k2):
+    """Three carried clips: the replayed step gives the eager step's bits,
+    saliency and state (the kernels, cuDNN's choices and the inputs are the
+    same; only the issue differs). A replay of the same input twice gives
+    the same bits, and N replays run N times one eager step's launches:
+    counted from a profiler trace, while the wrappers count none."""
+    model, step = _served(seeded_variables, hw, dtype, k2)
+    graphed = graph_step(step)
+    eager_state = graphed_state = model.init_state(*hw, 1, dtype=dtype, device=card)
+    clips = _clips(hw, 3)
+    for k, x in enumerate(clips):
+        want, eager_state = step(x, eager_state)
+        got, graphed_state = graphed(x, graphed_state)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"clip {k}: saliency differs"
+        assert torch.equal(graphed_state, eager_state), f"clip {k}: state differs"
+        assert torch.isfinite(got).all() and got.std() > 0
+    first = [t.clone() for t in graphed(clips[0], eager_state)]
+    again = graphed(clips[0], eager_state)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+    kernels.reset_launches()
+    step(clips[0], eager_state)
+    one = dict(kernels.launches)
+    assert one["twa_scan" if dtype == torch.bfloat16 else "twa_step"] > 0
+    assert (one["dwblock"] > 0) == k2
+    kernels.reset_launches()
+    tally = dict(graphed.replayed)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            graphed(clips[0], eager_state)
+        torch.cuda.synchronize()
+    assert kernels.traced_launches(prof) == {name: 4 * n for name, n in one.items()}
+    assert not any(kernels.launches.values())
+    assert {k: n - tally[k] for k, n in graphed.replayed.items()} == {
+        name: 4 * n for name, n in one.items()}
+
+
+def test_graph_step_counts_warmup_and_capture_launches_and_not_the_replay(card,
+                                                                           seeded_variables):
+    """The wrappers count the warm-up calls' launches and those the capture
+    records into the graph; the replay runs without them."""
+    model, step = _served(seeded_variables, (64, 128), torch.bfloat16, True)
+    state = model.init_state(64, 128, 1, dtype=torch.bfloat16, device=card)
+    x = _clips((64, 128), 1)[0]
+    kernels.reset_launches()
+    step(x, state)
+    one = dict(kernels.launches)
+    kernels.reset_launches()
+    graphed = graph_step(step)
+    graphed(x, state)  # warm-up calls, the capture, one replay
+    assert kernels.launches == {name: (WARMUP_CALLS + 1) * n for name, n in one.items()}
+    assert graphed.replayed == one
+
+
+@pytest.mark.parametrize("k2", [False, True])
+def test_pipelined_runner_graphed_equals_eager(card, seeded_variables, k2):
+    """`predict_videos` with the graphed step and with the eager one: equal
+    maps, V=2 in lock-step with a ragged tail and an exhausted video."""
+    model, step = _served(seeded_variables, (64, 128), torch.bfloat16, k2)
+    rng = np.random.RandomState(14)
+    videos = [rng.randint(0, 256, (n, 64, 128, 3)).astype(np.uint8) for n in (45, 15, 30)]
+    sizes = [(72, 96), (100, 60), (64, 128)]
+    graphed = graph_step(step)
+    runs = [predict_videos(s, model, videos, sizes, videos_per_batch=2)
+            for s in (step, graphed, graphed)]
+    for maps in runs[1:]:
+        for got, want in zip(maps, runs[0]):
+            assert got.shape == want.shape and got.dtype == np.uint8
+            np.testing.assert_array_equal(got, want)

@@ -119,6 +119,31 @@ def test_cpu_scan_does_not_count_launches():
     assert kernels.launches == {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
 
 
+def test_cpu_scan_traces_no_kernel_launches():
+    """`traced_launches` reads a profiler trace; on the CPU it holds host
+    events only, and none of them counts as a kernel's launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arrays = [torch.from_numpy(a) for a in _case(v=1, s=3, h=5, w=4, c=8)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        twa_scan(*arrays)
+    assert kernels.traced_launches(prof) == {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
+
+
+def test_kernel_symbols_are_the_sources_device_functions():
+    """The names `traced_launches` looks for are the `__global__` functions
+    of the kernel sources, each counted for one kernel."""
+    import re
+
+    kernel = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    names = set()
+    for source in kernels.SOURCES:
+        names |= set(kernel.findall((kernels.CSRC / f"{source}.cu").read_text()))
+    symbols = [sym for syms in kernels.SYMBOLS.values() for sym in syms]
+    assert sorted(symbols) == sorted(names)
+    assert set(kernels.SYMBOLS) == set(kernels.KERNELS)
+
+
 # Which kernel a CUDA tensor of this shape and dtype launches: the persistent
 # one takes bf16 with C a multiple of 32 when a tile of rows with its halo
 # fits in shared memory beside the W_h slice; the per-frame one the rest.

@@ -69,8 +69,24 @@
    that block's own input beside the block as three cuDNN convs and its
    bound; and writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
+5. Trains at full width (360x640, S=10 = batch_size 2 x time_dims 5, V=1)
+   on seeded weights from `init_uavsal`: one f32 train step on the card
+   against the same step on the CPU (TF32 off); the bf16 mixed and the f32
+   step with K1 (forward) and its gradient (`_TWAScan`, backward recomputed
+   through the plain scan) against the same step with `ConvTWA.scan =
+   twa_scan_ref`; the launches of one train step, exactly bf16
+   {twa_scan 1, twa_step 0, dwblock 0} and f32 {0, 10, 0}, with the fused
+   dwBlock off and on (K2 is refused in train mode); TBPTT over 3 carried
+   clips and the loss falling over 10 steps on one clip, f32 and bf16; the
+   trainer's own loop (2 epochs over in-memory videos), its `_final.ckpt`
+   read back through `load_model_for_inference` and served to the trained
+   model's maps; then ms per train step f32 and bf16 in turns, frames/s,
+   peak memory, the eval step, the TWA backward's recompute timed alone and
+   a profile of one bf16 step (`build/chip_smoke_profile_train.txt`).
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (with
+`train_step_launches`, its launches counted in one train step of the dtype
+it serves, K2's with the fused dwBlock on); the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -80,6 +96,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -126,6 +143,43 @@ TOL_F32_PATHS = 1e-4
 # gradients through the kernel forward against autograd through the plain
 # version: the backward is the same recompute, fed the kernel's f32 output
 TOL_GRAD = 2e-4
+
+# training: train-mode step against the port on the CPU (f32, TF32 off), and
+# K1's path against the plain scan. Each f32 run drifts from the exact answer
+# through ~100 train-mode BatchNorms (tests/test_torch_train_step.py: at
+# 64x128 the CPU's f32 loss 1e-5 relative from f64, its gradient 2.5-3.4%
+# relative L2, up to 9.6% on a leaf, BN stats 4e-5, the state 1.6e-3); these
+# bounds are those of that test. Gradients are read relative L2, each leaf's
+# norm floored at 1e-4 of the whole gradient's (a BatchNorm bias before
+# another BatchNorm has an exact gradient of 0, and its f32 value is noise).
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 0.1
+TOL_TRAIN_GRAD_LEAF = 0.25
+TOL_TRAIN_BN = 1e-4    # relative to the stat's scale (`bn_scale`)
+TOL_TRAIN_STATE = 5e-3
+# K1 against the plain scan in the same step on the card. f32: the two sum
+# each frame's 9*C products in other orders (TOL_F32 of K1 alone) and the
+# rest of the step is the same code on the same card; an H100 read the loss
+# equal, the gradient 7.5e-5, the worst leaf 2.6e-3, BN stats 6.4e-8, the
+# state 1.55e-5. The leaf bound holds every leaf, ConvTWA's among them.
+TOL_TRAIN_K1_LOSS = 1e-6
+TOL_TRAIN_K1_GRAD = TOL_GRAD
+TOL_TRAIN_K1_LEAF = 1e-2
+TOL_TRAIN_K1_BN = 1e-6
+TOL_TRAIN_K1_STATE = 1e-4
+# bf16 mixed: K1 keeps conv and gate in f32 where the plain scan rounds both
+# to bf16 every frame, about two bf16 ulps of h (TOL_BF16) that the head, the
+# loss and the backward carry on; an H100 read loss 6.4e-5, gradient 0.076,
+# BN stats 9.9e-5, state 0.094 (values up to 8), each bound a few times that.
+# A leaf is not held here: a BatchNorm bias before another BatchNorm has an
+# exact gradient of 0, and in bf16 its value is noise of either step.
+TOL_TRAIN_BF16_LOSS = 3e-4
+TOL_TRAIN_BF16_GRAD = 0.2
+TOL_TRAIN_BF16_BN = 3e-4
+TOL_TRAIN_BF16_STATE = 0.3
+TRAIN_S = 10        # batch_size 2 x time_dims 5, as the trainer's clips
+TRAIN_REPEATS = 10  # steps on one repeated clip, over which the loss must fall
+TRAIN_LR, TRAIN_WD = 1e-4, 5e-5  # the trainer's defaults
 
 V, S, CLIPS = 1, 20, 3
 LONG_CLIPS = 20  # the runner's steady state is timed over a video of this many clips
@@ -622,6 +676,320 @@ def check_k1_served(torch, twa, name, taken):
                  f"in f32, {diff} vs the per-frame kernel")
 
 
+# ---------------------------------------------------------------------------
+# 5. Training at full width (360x640, S=10, V=1)
+
+
+def train_video(rng, n):
+    """n frames for training: `synthetic_video`'s moving disk (uint8
+    (n, 360, 640, 3)) and its ground truth at 45x80, (n, 45, 80, 2) f32: a
+    fixation at the disk's centre and one at random per frame (channel 1)
+    and their blurred map, peak 1 (channel 0)."""
+    frames = synthetic_video(rng, n)
+    yy, xx = np.mgrid[0:OUT_H, 0:OUT_W]
+    gaze = np.zeros((n, OUT_H, OUT_W, 2), np.float32)
+    for t in range(n):
+        cy, cx = IN_H / 2 + 80 * np.sin(t / 7.0), 60 + t * 8  # the disk, as drawn
+        points = [(min(int(cy // 8), OUT_H - 1), min(int(cx // 8), OUT_W - 1)),
+                  (int(rng.integers(OUT_H)), int(rng.integers(OUT_W)))]
+        blur = np.zeros((OUT_H, OUT_W))
+        for py, px in points:
+            gaze[t, py, px, 1] = 1.0
+            blur += np.exp(-((yy - py) ** 2 + (xx - px) ** 2) / (2 * 3.0 ** 2))
+        gaze[t, :, :, 0] = blur / blur.max()
+    return frames, gaze
+
+
+def train_model(torch, start, device, fused=False, scan=None):
+    """The flagship with the weights `start`, channels-last on `device`;
+    `scan` is ConvTWA's scan (None: K1 on the card)."""
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
+
+    model = UAVSal(fused_dwblock=fused)
+    model.load_state_dict(start, strict=True)
+    model.rnn.scan = scan
+    return model.to(device, memory_format=torch.channels_last)
+
+
+def one_train_step(torch, kernels, start, batch, device, dtype=None, fused=False, scan=None):
+    """One train step (Adam, every parameter trained) from the weights
+    `start` on `batch` = (x, y, gauss, ob, state): (loss, {name: gradient},
+    {name: buffer after}, new state, its launches), all on the host in f64."""
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
+
+    model = train_model(torch, start, device, fused, scan)
+    step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
+                           compute_dtype=dtype)
+    x, y, gauss, ob, state = (t.to(device) for t in batch)
+    kernels.reset_launches()
+    loss, new_state = step(x, gauss, ob, state, y)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if new_state.grad_fn is not None or new_state.dtype != torch.float32:
+        fail(f"the train step's carried state has grad_fn {new_state.grad_fn}, dtype "
+             f"{new_state.dtype}")
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    bufs = {n: b.detach().double().cpu() for n, b in model.named_buffers()}
+    return float(loss), grads, bufs, new_state.double().cpu(), launches
+
+
+def bn_scale(bufs, name):
+    """What an error of a running stat is read against: the largest
+    variance, or for a mean the largest mean plus the largest std."""
+    if name.endswith("running_var"):
+        return bufs[name].abs().max().item()
+    return bufs[name].abs().max().item() + bufs[name[:-4] + "var"].max().sqrt().item()
+
+
+def train_diffs(a, b):
+    """Step b against step a: the loss (relative), the whole gradient, its
+    worst leaf (the leaf's norm floored) and ConvTWA's leaves together
+    (relative L2), the worst leaf's
+    largest error over its largest entry, the BN stats (relative to
+    `bn_scale`) and the carried state (absolute)."""
+    la, ga, ba, sa, _ = a
+    lb, gb, bb, sb, _ = b
+    total = np.sqrt(sum((g ** 2).sum().item() for g in ga.values()))
+    top = max(g.abs().max().item() for g in ga.values())
+    grad = np.sqrt(sum(((gb[n] - ga[n]) ** 2).sum().item() for n in ga)) / total
+    leaf, leaf_name = max(((gb[n] - ga[n]).norm().item() / max(ga[n].norm().item(), 1e-4 * total),
+                           n) for n in ga)
+    entry = max((gb[n] - ga[n]).abs().max().item() / max(ga[n].abs().max().item(), 1e-4 * top)
+                for n in ga)
+    bn, bn_name = max(((bb[n] - ba[n]).abs().max().item() / bn_scale(ba, n), n)
+                      for n in ba if "running" in n)
+    rnn = [n for n in ga if n.startswith("rnn.")]
+    rnn_err = np.sqrt(sum(((gb[n] - ga[n]) ** 2).sum().item() for n in rnn)
+                      / sum((ga[n] ** 2).sum().item() for n in rnn))
+    return {"loss": abs(lb - la) / abs(la), "grad": grad, "leaf": leaf, "leaf_name": leaf_name,
+            "rnn": rnn_err, "entry": entry, "bn": bn, "bn_name": bn_name,
+            "state": (sb - sa).abs().max().item()}
+
+
+def held_train(name, d, tol_loss, tol_grad, tol_leaf, tol_bn, tol_state):
+    """Print step b's differences from step a (`train_diffs`) and fail
+    unless each lies within its tolerance (`tol_leaf` None: not held)."""
+    print(f"{name}: loss {d['loss']:.3g} (tolerance {tol_loss}), gradient {d['grad']:.3g} "
+          f"(tolerance {tol_grad}), worst leaf {d['leaf']:.3g} ({d['leaf_name']}"
+          + (f", tolerance {tol_leaf}" if tol_leaf else ", not held") + "), ConvTWA's "
+          f"leaves {d['rnn']:.3g}, worst leaf's largest error {d['entry']:.3g} of its largest "
+          f"entry, BN stats {d['bn']:.3g} ({d['bn_name']}, tolerance {tol_bn}), state "
+          f"{d['state']:.3g} (tolerance {tol_state})")
+    if not (d["loss"] <= tol_loss and d["grad"] <= tol_grad
+            and (tol_leaf is None or d["leaf"] <= tol_leaf)
+            and d["bn"] <= tol_bn and d["state"] <= tol_state):
+        fail(f"{name}: outside its tolerances")
+
+
+def train_phase(torch, kernels, twa):
+    """Training at 360x640, S=10, V=1 on seeded random weights from
+    `init_uavsal`: (1) one f32 train step on the card against the same step
+    on the CPU; (2) the bf16 mixed and the f32 step with K1 against the same
+    step with the plain scan (`ConvTWA.scan = twa_scan_ref`); (3) the launches
+    of one step, with the fused dwBlock off and on; (4) TBPTT over 3 carried
+    clips, and the loss over repeated steps on one clip; (5) the trainer's own
+    loop over in-memory videos, its `_final.ckpt` read back and served;
+    (6) the numbers. Returns the launches counted in one train step, by
+    dtype ("bf16", "f32") and with the fused dwBlock on ("bf16 fused",
+    "f32 fused")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference
+    from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (_maybe_normalize,
+                                                             create_train_state, make_eval_step,
+                                                             make_train_step)
+    from iip_uavsal_saliency_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng(SEED + 7)  # its own: the serving phases' draws stay as they were
+    start = init_uavsal(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    gauss = torch.from_numpy(get_gauss_priors(OUT_H, OUT_W, 8))
+    ob = torch.from_numpy(rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32))
+    frames, gaze = train_video(rng, 3 * TRAIN_S)
+    clips = [(torch.from_numpy(frames[None, k:k + TRAIN_S]),
+              torch.from_numpy(gaze[None, k:k + TRAIN_S])) for k in range(0, 3 * TRAIN_S, TRAIN_S)]
+    carried = torch.from_numpy(rng.normal(0.0, 0.5, (1, OUT_H, OUT_W, 256)).astype(np.float32))
+    batch = (*clips[0], gauss, ob, carried)
+    want = {torch.bfloat16: {"twa_scan": 1, "twa_step": 0, "dwblock": 0},
+            None: {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}}
+
+    # (1) the card against the port on the CPU, f32
+    t0 = time.perf_counter()
+    on_cpu = one_train_step(torch, kernels, start, batch, cpu)
+    cpu_s = time.perf_counter() - t0
+    on_card = one_train_step(torch, kernels, start, batch, cuda)
+    print(f"train step f32 on the CPU took {cpu_s:.1f} s; loss CPU {on_cpu[0]:.6f}, card "
+          f"{on_card[0]:.6f}")
+    d = train_diffs(on_cpu, on_card)
+    held_train("train step f32, card vs CPU", d, TOL_TRAIN_LOSS, TOL_TRAIN_GRAD,
+               TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+    del on_cpu
+
+    # (2) K1 and its gradient against the plain scan, in the same step
+    launches = {}
+    for dtype, tols in ((torch.bfloat16, (TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD, None,
+                                          TOL_TRAIN_BF16_BN, TOL_TRAIN_BF16_STATE)),
+                        (None, (TOL_TRAIN_K1_LOSS, TOL_TRAIN_K1_GRAD, TOL_TRAIN_K1_LEAF,
+                                TOL_TRAIN_K1_BN, TOL_TRAIN_K1_STATE))):
+        name = "bf16 mixed" if dtype else "f32"
+        k1 = one_train_step(torch, kernels, start, batch, cuda, dtype) if dtype else on_card
+        plain = one_train_step(torch, kernels, start, batch, cuda, dtype, scan=twa.twa_scan_ref)
+        if k1[4] != want[dtype] or any(plain[4].values()):
+            fail(f"train step {name}: K1 path launched {k1[4]} (expected {want[dtype]}), plain "
+                 f"path {plain[4]} (expected none)")
+        held_train(f"train step {name}, K1 vs the plain scan", train_diffs(plain, k1), *tols)
+        # (3) the fused dwBlock is refused in train mode
+        fused = one_train_step(torch, kernels, start, batch, cuda, dtype, fused=True)
+        print(f"train step {name}: launches {k1[4]}, with the fused dwBlock on {fused[4]}")
+        if fused[4] != want[dtype]:
+            fail(f"train step {name} with the fused dwBlock on launched {fused[4]}, "
+                 f"expected {want[dtype]}")
+        launches["bf16" if dtype else "f32"] = k1[4]
+        launches[("bf16" if dtype else "f32") + " fused"] = fused[4]
+    del on_card, k1, plain, fused
+
+    # (4) TBPTT over 3 carried clips; the loss over repeated steps on one clip
+    g, o = gauss.to(cuda), ob.to(cuda)
+    falls = {}
+    for dtype in (None, torch.bfloat16):
+        name = "bf16 mixed" if dtype else "f32"
+        model = train_model(torch, start, cuda)
+        state = create_train_state(model, make_optimizer(model, 1e-3, TRAIN_WD))
+        step = make_train_step(state, compute_dtype=dtype)
+        rnn = model.init_state(IN_H, IN_W, device=cuda)
+        for k, (x, y) in enumerate(clips):
+            loss, new = step(x.to(cuda), g, o, rnn, y.to(cuda))
+            if new.grad_fn is not None or new.requires_grad or torch.equal(new, rnn):
+                fail(f"TBPTT {name}, clip {k}: the carried state is not new detached data")
+            rnn = new
+        x, y = (t.to(cuda) for t in clips[0])
+        losses = [float(step(x, g, o, model.init_state(IN_H, IN_W, device=cuda), y)[0])
+                  for _ in range(TRAIN_REPEATS)]
+        falls[name] = losses
+        print(f"TBPTT {name}: 3 carried clips, state detached; {TRAIN_REPEATS} steps on one clip "
+              f"(Adam lr 1e-3): loss " + ", ".join(f"{v:.4f}" for v in losses))
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"TBPTT {name}: the loss did not fall over {TRAIN_REPEATS} steps")
+    del model, state, step
+
+    # (5) the trainer's own clip loop on in-memory videos, 2 epochs
+    save_dir = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    val_frames, val_gaze = train_video(rng, TRAIN_S)
+
+    def array_video(name, f, gz):
+        return (name, f, (gz[..., :1] * 255).astype(np.uint8), gz[..., 1:].astype(np.uint8))
+
+    cfg = TrainConfig(method_name="ChipSmoke", iosize=(IN_H, IN_W, OUT_H, OUT_W), epochs=2)
+    trainer = Trainer(cfg, "", "synthetic", save_dir, device="cuda", ob_prior=ob.numpy(),
+                      videos={"train": [array_video("train", frames[:2 * TRAIN_S],
+                                                    gaze[:2 * TRAIN_S])],
+                              "val": [array_video("val", val_frames, val_gaze)]})
+    t0 = time.perf_counter()
+    trainer.train()
+    train_s = time.perf_counter() - t0
+    final = os.path.join(save_dir, "ChipSmoke", "ChipSmoke_final.ckpt")
+    with open(os.path.join(save_dir, "ChipSmoke", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    epochs = {r["tag"] + str(r["step"]): round(r["value"], 4) for r in logged
+              if r["tag"].endswith("mean_loss")}
+    if trainer.state.step != 4 or not os.path.exists(final):
+        fail(f"the trainer took {trainer.state.step} steps (expected 4) or wrote no {final}")
+    served = load_model_for_inference(final, fold_bn=False, device="cuda")
+    serve = make_baked_infer_step(served, gauss.numpy(), ob.numpy())
+    x = torch.from_numpy(val_frames[None]).to(cuda)
+    zero = served.init_state(IN_H, IN_W, device=cuda)
+    maps, _ = serve(x, zero)
+    trainer.model.eval()
+    with torch.no_grad():
+        mine, _ = trainer.model(_maybe_normalize(x), g, o, zero)
+    same = torch.equal(maps, mine)
+    print(f"trainer: 2 epochs of 2 train clips and 1 val clip in {train_s:.1f} s, epoch mean "
+          f"losses {epochs}; {final} read back and served: maps of shape {tuple(maps.shape)} "
+          f"equal to the trained model's in eval mode: {same} (max abs diff "
+          f"{(maps - mine).abs().max().item():.3g})")
+    if not same or not torch.isfinite(maps).all():
+        fail("the served _final.ckpt does not give the trained model's maps")
+    del trainer, served, serve
+
+    # (6) numbers: step times in turns, peak memory, the eval step, a profile
+    x, y = (t.to(cuda) for t in clips[0])
+    steps, models = {}, {}
+    for dtype in (None, torch.bfloat16):
+        model = train_model(torch, start, cuda)
+        st = create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD))
+        steps[dtype], models[dtype] = make_train_step(st, compute_dtype=dtype), model
+    zero = models[None].init_state(IN_H, IN_W, device=cuda)
+    windows = {None: [], torch.bfloat16: []}
+    for dtype in (None, torch.bfloat16, torch.bfloat16, None):
+        windows[dtype] += cuda_windows(lambda: steps[dtype](x, g, o, zero, y), 3)
+    peak = {}
+    for dtype, step in steps.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(x, g, o, zero, y)
+        torch.cuda.synchronize()
+        peak[dtype] = (before, torch.cuda.max_memory_allocated())
+    eval_ms = cuda_ms(lambda: make_eval_step(models[None])(x, g, o, zero, y), 5)
+    for dtype, ws in windows.items():
+        ms = float(np.median(ws))
+        name = "bf16 mixed" if dtype else "f32"
+        print(f"train step {name} (V=1, S={TRAIN_S}, 360x640, uint8 clip on the card): median "
+              f"{ms:.3f} ms over {len(ws)} windows of 3 steps (turns f32, bf16, bf16, f32), "
+              f"fastest {min(ws):.3f}; {TRAIN_S / ms * 1e3:.1f} training frames/s; memory "
+              f"allocated {peak[dtype][0] / 2**30:.3f} GiB before the step, peak "
+              f"{peak[dtype][1] / 2**30:.3f} GiB in it")
+    print(f"eval step f32 (V=1, S={TRAIN_S}, 360x640): {eval_ms:.3f} ms")
+
+    # the TWA backward's recompute at this step's shape, timed alone
+    shape = (1, TRAIN_S, OUT_H, OUT_W, 256)
+    xs, gx, w_h, h0 = k1_case(torch, np.random.default_rng(SEED + 8), shape, torch.bfloat16)
+    grads_out = [torch.randn_like(xs), torch.randn_like(h0)]
+
+    def recompute():
+        args = [xs.requires_grad_(), gx.requires_grad_(), w_h.requires_grad_(), h0]
+        with torch.enable_grad():
+            outs = twa.twa_scan_ref(*args)
+        torch.autograd.grad(outs, args[:3], grads_out)
+
+    recompute_ms = cuda_ms(recompute, 5)
+    k1_fwd_ms = cuda_ms(lambda: twa.twa_scan(xs.detach(), gx.detach(), w_h.detach(), h0), 10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps[torch.bfloat16](x, g, o, zero, y)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    # device events, without the annotations (the optimizer's step) that
+    # repeat the time of the kernels launched inside them
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    annotations = [e for e in events if getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in events if e not in annotations) / 1e3
+    k1_dev = sum(e.self_device_time_total for e in events if "twa_clip_kernel" in e.key) / 1e3
+    adam = sum(e.self_device_time_total for e in annotations if "Optimizer.step" in e.key) / 1e3
+    bf16_ms = float(np.median(windows[torch.bfloat16]))
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke_profile_train.txt"), "w") as f:
+        f.write(table)
+    print(f"profile of one bf16 train step: build/chip_smoke_profile_train.txt; device time "
+          f"{total:.3f} ms ({total / bf16_ms:.1%} of the step's median), Adam's step "
+          f"{adam:.3f} ms, K1 (twa_clip_kernel) {k1_dev:.3f} ms ({k1_dev / total:.1%}); K1's "
+          f"forward alone {k1_fwd_ms:.3f} ms, the TWA backward's recompute through twa_scan_ref "
+          f"alone (bf16, {shape}) {recompute_ms:.3f} ms, {recompute_ms / bf16_ms:.1%} of the "
+          f"bf16 step's {bf16_ms:.3f} ms")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -855,6 +1223,9 @@ def main() -> None:
 
     k1_f32 = time_k1_f32(torch, F, twa, rng)
 
+    # 5. training
+    train_launches = train_phase(torch, kernels, twa)
+
     print(smi)
     k1 = {"route": "cuda", "source": "iip_uavsal_saliency_tpu_torch/csrc/twa_scan.cu",
           "replaces": "iip_uavsal_saliency_tpu/ops/pallas_twa.py:147"}
@@ -869,6 +1240,7 @@ def main() -> None:
         "bound_by": k1_bound_by,
         "library_ms": k1_times["library"][0],
         "frames_per_launch": S,
+        "train_step_launches": train_launches["bf16"]["twa_scan"],
     }, {
         # the per-frame kernel as the f32 paths launch it: one frame of 1x45x80x256 f32
         "name": "twa_step", **k1,
@@ -880,6 +1252,7 @@ def main() -> None:
         "bound_by": k1_f32["bound_by"],
         "library_ms": k1_f32["library"],
         "frames_per_launch": 1,
+        "train_step_launches": train_launches["f32"]["twa_step"],
     }, {
         "name": "dwblock",
         "route": "cuda",
@@ -892,6 +1265,7 @@ def main() -> None:
         "bound_ms": k2_bound_ms,
         "bound_by": k2_bound_by,
         "library_ms": k2_library_ms,
+        "train_step_launches": train_launches["bf16 fused"]["dwblock"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,15 @@
 """Command line of the port (counterpart of `iip_uavsal_saliency_tpu/cli.py`).
 
+    python -m iip_uavsal_saliency_tpu_torch.cli train [--config cfg.json]
+        [--model-path ckpt] [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli test [--config cfg.json]
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
+
+`train` trains the flagship on `<data_dir>/<train_dataset>` (its txt
+splits, videos and ground truth in the reference's layout) as the JAX
+package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
+checkpoints, `_best.ckpt` and `_final.ckpt`; `--model-path` is a video-model
+`.ckpt` to start from (warm start), else the weights are drawn from seed 0.
 
 `test` serves every video of `<data_dir>/<test_dataset>/Videos` to `.mat`
 files under `<...>/Results/Results_<method_name>/Saliency/<method_name>`,
@@ -60,11 +68,35 @@ def _check_supported(cfg: Config) -> None:
         value = getattr(cfg, key)
         if (tuple(value) if isinstance(value, (list, tuple)) else value) != flagship:
             raise NotImplementedError(
-                f"{key}={value!r}: the port serves the flagship UAVSal only ({key}="
+                f"{key}={value!r}: the port runs the flagship UAVSal only ({key}="
                 f"{flagship!r}); the zoo and the other backbones are ROADMAP A.10")
     if cfg.dp_devices > 1:
-        raise NotImplementedError(f"dp_devices={cfg.dp_devices}: multi-GPU serving is "
-                                  "ROADMAP A.11")
+        raise NotImplementedError(f"dp_devices={cfg.dp_devices}: multi-GPU serving and "
+                                  "training are ROADMAP A.11")
+
+
+def cmd_train(cfg: Config, device: Optional[str] = None):
+    from .training.checkpoint import load_checkpoint
+    from .training.trainer import TrainConfig, Trainer
+
+    _check_supported(cfg)
+    names = ("method_name", "model_name", "cnn_type", "iosize", "time_dims", "num_stblock",
+             "st_type", "bias_type", "batch_size", "epochs", "learning_rate", "weight_decay",
+             "is_early_stop", "max_patience", "is_best_only", "shuffle_train",
+             "videos_per_step", "resume", "mixed_precision", "remat", "prefetch_decode")
+    tc = TrainConfig(**{name: getattr(cfg, name) for name in names})
+    pre_vars = None
+    if cfg.pre_model_path:
+        ckpt = load_checkpoint(cfg.pre_model_path)
+        if "params" not in ckpt or "trunk" not in ckpt["params"]:
+            raise NotImplementedError(
+                f"{cfg.pre_model_path} is not a video-model checkpoint; warm starts from the "
+                "image stage (train-img) are ROADMAP A.9b")
+        pre_vars = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
+    trainer = Trainer(tc, cfg.train_data_dir, cfg.train_dataset, cfg.save_model_dir,
+                      ext=cfg.ext, pre_variables=pre_vars,
+                      priors_cache_dir=cfg.priors_cache_dir, device=device)
+    return trainer.train()
 
 
 def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
@@ -92,17 +124,20 @@ def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
     )
 
 
+COMMANDS = {"train": cmd_train, "test": cmd_test}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd != "test":
+    if cmd not in COMMANDS:
         print(f"unknown command: {cmd}\n{__doc__}")
         return 2
     cfg_path, device, rest = _split_cli(rest)
-    cmd_test(load_config(cfg_path, rest), device)
+    COMMANDS[cmd](load_config(cfg_path, rest), device)
     return 0
 
 

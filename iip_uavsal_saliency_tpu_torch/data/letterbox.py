@@ -1,6 +1,6 @@
 """The letterbox and its inverse (counterparts of `iip_uavsal_saliency_tpu/
-data/letterbox.py`: IMAGENET_MEAN/STD, `padding`, `im2uint8`,
-`postprocess_prediction`).
+data/letterbox.py`: IMAGENET_MEAN/STD, `padding`, `resize_fixation`,
+`padding_fixation`, `im2uint8`, `postprocess_prediction`).
 
 `padding` letterboxes a decoded frame or map on the host with cv2, as the
 JAX package does; cv2 is imported when it is called, and a machine without
@@ -52,6 +52,41 @@ def padding(img: np.ndarray, shape_r: int = 480, shape_c: int = 640,
         new_rows = min(new_rows, shape_r)
         off = (shape_r - new_rows) // 2
         img_padded[off:off + new_rows, :] = img[:new_rows]
+    return img_padded
+
+
+def resize_fixation(img: np.ndarray, rows: int = 480, cols: int = 640) -> np.ndarray:
+    """Resize a binary fixation map by remapping the points' coordinates,
+    not by interpolation."""
+    out = np.zeros((rows, cols), np.uint8)
+    coords = np.argwhere(img)
+    if coords.size:
+        r = np.minimum(np.round(coords[:, 0] * (rows / img.shape[0])).astype(int), rows - 1)
+        c = np.minimum(np.round(coords[:, 1] * (cols / img.shape[1])).astype(int), cols - 1)
+        out[r, c] = 1
+    return out
+
+
+def padding_fixation(img: np.ndarray, shape_r: int = 480, shape_c: int = 640) -> np.ndarray:
+    """Letterbox a binary fixation map by coordinate remap. As in the
+    reference, a map already of the target size is returned unchanged (not
+    binarized, not copied)."""
+    if img.shape[0] == shape_r and img.shape[1] == shape_c:
+        return img
+    img_padded = np.zeros((shape_r, shape_c), np.uint8)
+    rows, cols = img.shape[:2]
+    if rows / shape_r > cols / shape_c:
+        new_cols = (cols * shape_r) // rows
+        rs = resize_fixation(img, rows=shape_r, cols=new_cols)
+        new_cols = min(new_cols, shape_c)
+        off = (shape_c - new_cols) // 2
+        img_padded[:, off:off + new_cols] = rs[:, :new_cols]
+    else:
+        new_rows = (rows * shape_c) // cols
+        rs = resize_fixation(img, rows=new_rows, cols=shape_c)
+        new_rows = min(new_rows, shape_r)
+        off = (shape_r - new_rows) // 2
+        img_padded[off:off + new_rows, :] = rs[:new_rows]
     return img_padded
 
 

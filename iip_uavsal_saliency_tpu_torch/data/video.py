@@ -1,10 +1,12 @@
-"""Video decode and the host-side letterbox of its frames (own copy of
-`iip_uavsal_saliency_tpu/data/video.py`: `_read_frames`, `decode_video`,
-`preprocess_videos`).
+"""Video decode and the host-side letterbox of its frames and ground truth
+(own copy of `iip_uavsal_saliency_tpu/data/video.py`: `_read_frames`,
+`decode_video`, `probe_nframes`, `preprocess_videos`, `preprocess_vidmaps`,
+`preprocess_vidfixs`).
 
 Frames stay uint8 through the letterbox: the clips go to the card as uint8
-and are normalized there (serving/steps.py). cv2 is imported when a
-function is called; without it they raise RuntimeError.
+and are normalized there (serving/steps.py). cv2 (and h5py, for the
+v7.3 ground-truth files) is imported when a function is called; without it
+they raise RuntimeError.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from .letterbox import IMAGENET_MEAN, IMAGENET_STD, padding, require_cv2
+from .letterbox import IMAGENET_MEAN, IMAGENET_STD, padding, padding_fixation, require_cv2
+from .matio import loadmat
 
 # the first buffer is sized from the header's frame count, but never past
 # this many bytes: a corrupt header must not drive the allocation
@@ -101,3 +104,37 @@ def preprocess_videos(path: str, shape_r: int, shape_c: int, frames: float = flo
     if normalize:
         ims = (ims.astype(np.float32) / 255.0 - mean) / std
     return ims, nframes, height, width
+
+
+def probe_nframes(path: str) -> int:
+    """The frame count of the container's header, without decoding."""
+    cv2 = require_cv2()
+    cap = cv2.VideoCapture(path)
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
+def preprocess_vidmaps(path: str, shape_r: int, shape_c: int,
+                       frames: float = float("inf")) -> np.ndarray:
+    """Blurred ground-truth maps `fixMap` (H, W, 1, T) -> letterboxed
+    (T, shape_r, shape_c, 1) uint8."""
+    fixmaps = loadmat(path, "fixMap")
+    nframes = int(min(fixmaps.shape[3], frames))
+    ims = np.zeros((nframes, shape_r, shape_c, 1), np.uint8)
+    for i in range(nframes):
+        ims[i, :, :, 0] = padding(fixmaps[:, :, :, i], shape_r, shape_c, 1)
+    return ims
+
+
+def preprocess_vidfixs(path: str, shape_r: int, shape_c: int,
+                       frames: float = float("inf")) -> np.ndarray:
+    """Binary fixation points `fixLoc` (H, W, 1, T) -> letterboxed by
+    coordinate remap to (T, shape_r, shape_c, 1) uint8."""
+    fixmaps = loadmat(path, "fixLoc")
+    nframes = int(min(fixmaps.shape[3], frames))
+    ims = np.zeros((nframes, shape_r, shape_c, 1), np.uint8)
+    for i in range(nframes):
+        ims[i, :, :, 0] = padding_fixation(fixmaps[:, :, 0, i], shape_r, shape_c)
+    return ims

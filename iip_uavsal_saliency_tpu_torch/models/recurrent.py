@@ -12,7 +12,7 @@ card) runs only the hidden half and the gate.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +36,8 @@ class ConvTWA(nn.Module):
     its hidden half permuted into the HWIO layout the kernel reads. For
     serving (no gradient wanted) the split is made once and again only when
     the weight changes; when a gradient is wanted it is made on the fly, so
-    that it reaches `rnn_conv.weight`."""
+    that it reaches `rnn_conv.weight` (on the card the scan's backward
+    recomputes it through `twa_scan_ref`)."""
 
     def __init__(self, hidden_dim: int = 256):
         super().__init__()
@@ -44,6 +45,10 @@ class ConvTWA(nn.Module):
         self.cell_list = nn.ModuleList([_TWACell(hidden_dim)])
         self._split: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._split_key = None
+        # the scan to run; None is `ops/twa.py::twa_scan` (K1 on the card).
+        # A check that holds K1's path against the plain one sets it to
+        # `twa_scan_ref` on a model of its own
+        self.scan: Optional[Callable] = None
 
     def init_state(self, height: int, width: int, n_videos: int = 1,
                    dtype=torch.float32, device=None) -> torch.Tensor:
@@ -70,4 +75,5 @@ class ConvTWA(nn.Module):
         frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
         gx = F.conv2d(frames, w_x, padding=1).permute(0, 2, 3, 1)
         gx = gx.contiguous().reshape(v, s, h, w, c)
-        return twa_scan(x.contiguous(), gx, w_h, state)
+        scan = twa_scan if self.scan is None else self.scan
+        return scan(x.contiguous(), gx, w_h, state)

@@ -1,5 +1,6 @@
-"""UAVSal, the full stateful video saliency model, in eval form (counterpart
-of `iip_uavsal_saliency_tpu/models/uavsal.py::UAVSal`).
+"""UAVSal, the full stateful video saliency model (counterpart of
+`iip_uavsal_saliency_tpu/models/uavsal.py::UAVSal`), and `init_uavsal`, its
+initialization from scratch.
 
 trunk (SRF-Net -> STBlocks -> fuse DWBlock) -> MultiPriors -> ConvTWA ->
 1-channel DWBlock head -> sigmoid. This is the flagship configuration:
@@ -20,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.layers import DWBlock, laid_out_as
+from ..ops.initializers import kaiming_normal_
+from ..ops.layers import BatchNorm, DWBlock, laid_out_as
 from ..ops.resize import resize_bilinear_align_corners
 from .recurrent import ConvTWA
 from .srfnet import SRFNet
@@ -31,6 +33,10 @@ NUM_STBLOCK = 2
 NB_GAUSSIAN = 8
 NB_OB = 20
 CB_OUPLANES = (64, 64, 64)
+# the modules whose conv kernels the JAX package draws with kaiming fan_in;
+# every other conv of the flagship takes fan_out (its `_FAN_OUT`)
+FAN_IN_PREFIXES = ("sfnet.features.", "gauss_cb_layer.", "ob_cb_layer.", "cxt_cb_prior.",
+                   "fucb_layer.", "fucbst_layer.")
 
 
 def _prior_nchw(prior: torch.Tensor) -> torch.Tensor:
@@ -40,6 +46,10 @@ def _prior_nchw(prior: torch.Tensor) -> torch.Tensor:
 
 class UAVSal(nn.Module):
     """forward(x, gauss_prior, ob_prior, state) -> (saliency, new_state)
+
+    The module's `training` flag is the JAX model's `train`: BatchNorm takes
+    batch statistics and moves its running stats, and MultiPriors runs its
+    train form.
 
     x           : (V, S, H, W, 3) normalized frames, S % time_dims == 0
     gauss_prior : (H/8, W/8, 8)
@@ -92,29 +102,43 @@ class UAVSal(nn.Module):
 
     def multi_priors(self, x: torch.Tensor, gauss_prior: torch.Tensor,
                      ob_prior: torch.Tensor, compat_cxt_tile: bool) -> torch.Tensor:
-        """MP-Net prior fusion, eval form: the prior streams run once and are
-        broadcast, and `fucb` runs on the G = S / time_dims distinct rows.
-        `compat_cxt_tile` repeats those rows t-major, as the reference does;
-        it holds for one video only, since with V > 1 it would mix context
-        across videos."""
+        """MP-Net prior fusion over (S, C, Ho, Wo) trunk features.
+
+        Eval form: the prior streams run once and are broadcast, and `fucb`
+        runs on the G = S / time_dims distinct rows. Train form (as the JAX
+        module's `train=True`): the prior streams run on S copies of their
+        map, the context stream is tiled to S rows after its convs, and
+        `fucb` runs on all S rows, because the running-var EMA's n/(n-1)
+        factor depends on the batch size. `compat_cxt_tile` tiles the
+        context t-major, as the reference does; it holds for one video
+        only, since with V > 1 it would mix context across videos."""
         s, c, ho, wo = x.shape
         t = self.time_dims
-        g = _prior_nchw(gauss_prior)
-        for layer in self.gauss_cb_layer:
-            g = layer(g)
-        o = _prior_nchw(ob_prior)
-        for layer in self.ob_cb_layer:
-            o = layer(o)
+
+        def stream(prior, layers):
+            p = _prior_nchw(prior)  # (1, C, Ho, Wo) in channels-last memory
+            if self.training:
+                p = p.expand(s, -1, -1, -1).contiguous(memory_format=torch.channels_last)
+            for layer in layers:
+                p = layer(p)
+            return p
+
+        def tile(p):
+            return p.repeat(t, 1, 1, 1) if compat_cxt_tile else p.repeat_interleave(t, dim=0)
+
+        g = stream(gauss_prior, self.gauss_cb_layer)
+        o = stream(ob_prior, self.ob_cb_layer)
         cxt = x.reshape(s // t, t, c, ho, wo).sum(dim=1)
         for layer in self.cxt_cb_prior:
             cxt = layer(cxt)
-        streams = [g, o, resize_bilinear_align_corners(cxt, ho, wo)]
-        cb = torch.cat([p.expand(s // t, *p.shape[1:]) for p in streams], dim=1)
+        cxt = resize_bilinear_align_corners(cxt, ho, wo)
+        if self.training:
+            cxt = tile(cxt)
+        streams = [g, o, cxt]
+        cb = torch.cat([p.expand(cxt.shape[0], *p.shape[1:]) for p in streams], dim=1)
         x_cb = self.fucb_layer(laid_out_as(cb, x))
-        if compat_cxt_tile:
-            x_cb = x_cb.repeat(t, 1, 1, 1)  # the reference's t-major tile
-        else:
-            x_cb = x_cb.repeat_interleave(t, dim=0)
+        if not self.training:
+            x_cb = tile(x_cb)
         return self.fucbst_layer(torch.cat([x, laid_out_as(x_cb, x)], dim=1))
 
     def forward(self, x: torch.Tensor, gauss_prior: torch.Tensor, ob_prior: torch.Tensor,
@@ -131,3 +155,25 @@ class UAVSal(nn.Module):
         ys, new_state = self.rnn(seq, state)
         out = self.conv_out_st(ys.reshape(v * s, ho, wo, PLANES).permute(0, 3, 1, 2))
         return torch.sigmoid(out).permute(0, 2, 3, 1).reshape(v, s, ho, wo, 1), new_state
+
+
+def init_uavsal(model: UAVSal, generator: torch.Generator) -> UAVSal:
+    """Initialize `model` from scratch, in place, as the JAX package's
+    `init_variables` does layer by layer: every conv kernel kaiming-normal
+    with fan_in in the MobileNetV2 pyramid and the prior streams and fan_out
+    elsewhere (the SRF-Net neck, the STBlocks, the fuse block, the TWA gate
+    and the head); BatchNorm scale 1, bias 0, running mean 0 and var 1.
+    The draws come from `generator` (a CPU generator for a model on the
+    CPU), in the order of `named_parameters`."""
+    for name, p in model.named_parameters():
+        if p.dim() == 4:
+            mode = "fan_in" if name.startswith(FAN_IN_PREFIXES) else "fan_out"
+            kaiming_normal_(p, mode=mode, generator=generator)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model

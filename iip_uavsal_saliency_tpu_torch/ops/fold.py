@@ -7,6 +7,7 @@ affine, so it folds into the preceding conv:
 - `fold_conv_bn(model)`: the fold the serving path uses, in place on the
   port's modules. Each conv gains a bias and its BatchNorm becomes an
   identity, so a step runs one pass per conv.
+- `looks_folded(state_dict)`: whether weights carry that fold's signature.
 - `fold_batchnorm(variables)`: own copy of the JAX package's
   `ops/fold.py::fold_batchnorm` on the numpy variable tree, for trees
   handed to other tools. Every Conv+BN pair (`{conv: {kernel}, bn: ...}` and a DWBlock's
@@ -81,6 +82,21 @@ def fold_batchnorm(variables: Dict[str, Any], eps: float = BN_EPS) -> Dict[str, 
     """`variables` ({'params', 'batch_stats'}) with every Conv+BN pair folded."""
     p2, s2 = _walk(variables.get("params", {}), variables.get("batch_stats", {}), float(eps))
     return {**variables, "params": p2, "batch_stats": s2}
+
+
+def looks_folded(state_dict, eps: float = BN_EPS) -> bool:
+    """Whether a state_dict carries `fold_batchnorm`'s signature: some
+    BatchNorm whose weight is sqrt(1 + eps) on every channel (a fresh init
+    has 1.0) with running stats exactly mean 0, var 1. Training on such
+    weights would count the absorbed BN scale twice."""
+    marker = np.sqrt(np.float32(1.0) + np.float32(eps))
+    for key, mean in state_dict.items():
+        if key.endswith(".running_mean"):
+            bn = key[:-len("running_mean")]
+            if (torch.all(state_dict[bn + "weight"] == torch.tensor(marker))
+                    and torch.all(mean == 0) and torch.all(state_dict[bn + "running_var"] == 1)):
+                return True
+    return False
 
 
 @torch.no_grad()

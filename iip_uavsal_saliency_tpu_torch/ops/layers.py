@@ -1,18 +1,19 @@
-"""Conv building blocks in eval form (NCHW modules, channels_last on the card).
+"""Conv building blocks (NCHW modules, channels_last on the card).
 
 Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
 
-- `BatchNorm`: eval-mode BatchNorm2d, `y = x * s + b` with the per-channel
-  affine computed in f32 and applied in the activation dtype.
+- `BatchNorm` == TorchBatchNorm: in eval mode `y = x * s + b` with the
+  per-channel affine computed in f32 and applied in the activation dtype; in
+  train mode batch statistics and the running-stat EMA.
 - `ConvBNAct` == BasicConv2d: Conv(bias=False) -> BatchNorm -> ReLU6 with
   symmetric `dilation * (k - 1) // 2` padding. The JAX package computes the
   ASPP rate-18 depthwise conv as an exact pad-add sum; here it is the same
   dilated depthwise conv.
 - `DWBlock` == dwBlock: [1x1 expand] -> depthwise kxk -> 1x1 project + BN,
   with an identity residual when stride == 1 and in == out channels (which
-  `res_connect=False` turns off). With `use_kernel=True` a block that
-  `ops/dwblock.py::supports_fused_dwblock` admits runs as one call of
-  `fused_dwblock` (kernel K2 on the card).
+  `res_connect=False` turns off). With `use_kernel=True` a block in eval
+  mode that `ops/dwblock.py::supports_fused_dwblock` admits runs as one
+  call of `fused_dwblock` (kernel K2 on the card).
 
 Module names follow the reference's state_dict keys (`<conv>.0/.1`,
 `<block>.conv.{0..3}`), so a state_dict from `models/convert.py` loads
@@ -24,11 +25,13 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .dwblock import fused_dwblock, pack_dwblock_weights, supports_fused_dwblock
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention, new = m * old + (1 - m) * batch (torch's 0.1)
 
 
 def laid_out_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -41,8 +44,22 @@ def laid_out_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d over dim 1 with the torch key layout
-    (`weight`, `bias`, `running_mean`, `running_var`)."""
+    """BatchNorm2d over dim 1 with the torch key layout (`weight`, `bias`,
+    `running_mean`, `running_var`); the module's `training` flag picks the
+    mode.
+
+    Train mode (the JAX package's TorchBatchNorm): the statistics come from
+    the batch over N*H*W in at least f32 (bf16 activations are not widened
+    in memory: torch's mixed-type batch norm reduces them in f32), the
+    activation is normalized with the biased variance, and the f32 running
+    stats move by an EMA with momentum `BN_MOMENTUM` in flax's convention
+    whose variance term carries the unbiased n/(n-1) factor. That is
+    `F.batch_norm(training=True, momentum=1 - BN_MOMENTUM)`, whose variance
+    is a two-pass (or Welford) one, not E[x^2] - E[x]^2, which cancels badly
+    after ReLU6 (mean >> std). Parameters of another dtype than f32 (the
+    bf16 copies of a mixed-precision step) are widened to f32 for it, as
+    the JAX module widens them to its stat dtype; the output keeps the
+    activation dtype."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -53,13 +70,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(s, b) in f32 (f64 for f64 params)."""
+        """(s, b) of the eval mode in f32 (f64 for f64 params)."""
         dt = torch.promote_types(self.weight.dtype, torch.float32)
         s = self.weight.to(dt) * torch.rsqrt(self.running_var.to(dt) + self.eps)
         b = self.bias.to(dt) - self.running_mean.to(dt) * s
         return s, b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dt = self.running_mean.dtype
+            cpu_channels_last = x.device.type == "cpu" and not x.is_contiguous()
+            if cpu_channels_last:
+                # torch's CPU kernel sums a channels-last batch's statistics
+                # in f32, row after row: at 360x640 (576,000 samples per
+                # channel in the first blocks) a train step's TWA state
+                # drifted 2% from the card's; the contiguous kernel
+                # accumulates in f64
+                x = x.contiguous()
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight.to(dt),
+                             self.bias.to(dt), True, 1.0 - BN_MOMENTUM, self.eps)
+            return y.contiguous(memory_format=torch.channels_last) if cpu_channels_last else y
         s, b = self.affine()
         return torch.addcmul(b.to(x.dtype).view(1, -1, 1, 1), x, s.to(x.dtype).view(1, -1, 1, 1))
 
@@ -103,11 +133,11 @@ class DWBlock(nn.Module):
     depthwise, `conv.1` project, `conv.2` BatchNorm.
 
     `use_kernel=True` (counterpart of the JAX block's `use_pallas`, off by
-    default as there): where `supports_fused_dwblock` admits the block and
-    the input's dtype, the whole block is one call of `fused_dwblock` on
+    default as there): in eval mode, where `supports_fused_dwblock` admits
+    the block and the input's dtype, the whole block is one call of `fused_dwblock` on
     BN-folded weights packed into the kernel's layouts; otherwise the three
-    convs. The gate reads only the block's own static facts and the input's
-    shape and dtype. The state_dict is the same on both paths. On the card
+    convs. The gate reads only the block's own static facts, its mode and
+    the input's shape and dtype. The state_dict is the same on both paths. On the card
     the input must lie in channels-last memory."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
@@ -135,8 +165,10 @@ class DWBlock(nn.Module):
         self._blobs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def takes_kernel(self, x_shape, dtype: torch.dtype) -> bool:
-        """Whether an (N, C, H, W) input of `dtype` goes through the kernel."""
-        if not self.use_kernel or len(x_shape) != 4:
+        """Whether an (N, C, H, W) input of `dtype` goes through the kernel.
+        Never in train mode: the kernel folds BatchNorm from the running
+        stats, as the JAX block's `_fused_path` refuses training too."""
+        if self.training or not self.use_kernel or len(x_shape) != 4:
             return False
         n, c, h, w = x_shape
         return supports_fused_dwblock((n, h, w, c), dtype, *self.geometry,

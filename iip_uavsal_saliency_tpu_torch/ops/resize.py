@@ -54,7 +54,10 @@ def interp_matrix_half_pixel(n_in: int, n_out: int) -> np.ndarray:
 def _matrix(kind: str, n_in: int, n_out: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
     build = interp_matrix_align_corners if kind == "align_corners" else interp_matrix_half_pixel
-    return torch.from_numpy(build(n_in, n_out)).to(device=device, dtype=dtype)
+    # a normal tensor even when first made by a serving step under
+    # inference_mode: the cache hands the same one to a train step later
+    with torch.inference_mode(False):
+        return torch.from_numpy(build(n_in, n_out)).to(device=device, dtype=dtype)
 
 
 def _resize(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:

@@ -84,6 +84,13 @@ class Config:
     def test_output_path(self) -> str:
         return os.path.join(self.test_result_path, "Saliency")
 
+    @property
+    def ext(self) -> str:
+        """The video container of the train dataset."""
+        from ..data.lists import dataset_ext
+
+        return dataset_ext(self.train_dataset)
+
 
 def _parse(field: dataclasses.Field, raw: str):
     ftype = str(field.type)

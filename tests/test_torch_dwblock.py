@@ -315,8 +315,8 @@ def test_kernel_shared_memory_fits_the_flagship_blocks():
 
 def test_flagship_model_admits_its_stride8_blocks():
     """`UAVSal(fused_dwblock=True)` at 360x640, S=20: which blocks the gate
-    admits, from their static facts and input shapes alone."""
-    model = UAVSal(fused_dwblock=True)
+    admits in eval mode, from their static facts and input shapes alone."""
+    model = UAVSal(fused_dwblock=True).eval()
     blocks = {name: m for name, m in model.named_modules() if isinstance(m, tl.DWBlock)}
     assert all(m.use_kernel for m in blocks.values())
     assert not any(m.use_kernel for m in UAVSal().modules() if isinstance(m, tl.DWBlock))

@@ -58,3 +58,29 @@ def test_source_has_no_jax_import(path):
             if _forbidden(node.module):
                 found.append(node.module)
     assert not found, f"{os.path.relpath(path, ROOT)} imports {found}"
+
+
+_LAZY_PROBE = """
+import importlib, pkgutil, sys
+import iip_uavsal_saliency_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("msgpack", "cv2", "h5py")))
+"""
+
+
+def test_port_needs_no_msgpack_and_loads_cv2_and_h5py_lazily():
+    """The card's machine has none of msgpack, cv2 and h5py: importing the
+    port loads none of them, and no module of it imports msgpack at all
+    (checkpoints go through the port's own codec)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _LAZY_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for path in _sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        assert not any(name.split(".")[0] == "msgpack" for name in names), path

@@ -397,3 +397,84 @@ def test_pipelined_runner_graphed_equals_eager(card, seeded_variables, k2):
         for got, want in zip(maps, runs[0]):
             assert got.shape == want.shape and got.dtype == np.uint8
             np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Training: K1 and its gradient under autograd, and the train step's launches
+
+# relative L2 of each gradient against autograd through the plain version:
+# f32 differs by the kernel's own summation order; bf16 by K1 keeping the
+# conv and gate in f32 where the plain version rounds them to bf16 every
+# frame (the backward is the same recompute, fed grad_ys = 2 ys)
+TRAIN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 10, 45, 80, 256), (2, 5, 13, 7, 24)],
+                         ids=["flagship", "ragged"])
+def test_twa_scan_under_autograd_matches_ref(card, shape, dtype):
+    """`twa_scan` as a train step runs it (kernel forward on the route its
+    gate picks, backward recomputed through `twa_scan_ref`) against autograd
+    through `twa_scan_ref`, for a sum of squares of ys and h_last; h0 is
+    carried data and takes no gradient."""
+    arrays = _case(*shape, seed=21)
+
+    def grads(fn):
+        args = [torch.tensor(a, dtype=torch.float32, device=card).to(dtype) for a in arrays]
+        for a in args[:3]:
+            a.requires_grad_()
+        ys, h_last = fn(*args)
+        ((ys.float() ** 2).sum() + (h_last.float() ** 2).sum()).backward()
+        assert args[3].grad is None
+        return [a.grad.float() for a in args[:3]]
+
+    route = kernel_route(shape, dtype)
+    assert route == ("twa_scan" if dtype == torch.bfloat16 and shape[-1] == 256 else "twa_step")
+    kernels.reset_launches()
+    got = grads(twa_scan)
+    assert kernels.launches == _launches(route, shape[1])
+    want = grads(twa_scan_ref)
+    for name, g, w in zip(("x", "gx", "w_h"), got, want):
+        err = ((g - w).norm() / w.norm()).item()
+        assert err <= TRAIN_GRAD_TOL[dtype], (name, err)
+
+
+def _train_batch(card, h=64, w=128, s=10, seed=31):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, 256, (1, s, h, w, 3)).astype(np.uint8)).to(card)
+    y = (rng.rand(1, s, h // 8, w // 8, 2) > 0.7).astype(np.float32)
+    y[:, :, 1, 1] = 1.0
+    gauss = torch.from_numpy(get_gauss_priors(h // 8, w // 8, 8)).to(card)
+    ob = torch.from_numpy(rng.rand(h // 8, w // 8, 20).astype(np.float32)).to(card)
+    return x, gauss, ob, torch.from_numpy(y).to(card)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["k2_off", "k2_on"])
+def test_train_step_launches(card, fused):
+    """One train step launches K1 once (bf16 mixed: the persistent kernel)
+    or once per frame (f32), and K2 never, even on a model built with the
+    fused dwBlock on: the kernel is refused in train mode. The eval step of
+    that model, in eval mode, does take K2."""
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_uavsal
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state,
+                                                             make_eval_step, make_train_step)
+
+    x, gauss, ob, y = _train_batch(card)
+    for dtype, want in ((torch.bfloat16, {"twa_scan": 1, "twa_step": 0, "dwblock": 0}),
+                        (None, {"twa_scan": 0, "twa_step": 10, "dwblock": 0})):
+        model = init_uavsal(UAVSal(fused_dwblock=fused), torch.Generator().manual_seed(0))
+        model.to(card, memory_format=torch.channels_last)
+        state = create_train_state(model, make_optimizer(model))
+        step = make_train_step(state, compute_dtype=dtype)
+        rnn = model.init_state(64, 128, device=card)
+        for _ in range(2):
+            kernels.reset_launches()
+            loss, rnn = step(x, gauss, ob, rnn, y)
+            torch.cuda.synchronize()
+            assert kernels.launches == want, (dtype, kernels.launches)
+            assert torch.isfinite(loss) and rnn.dtype == torch.float32 and rnn.grad_fn is None
+    kernels.reset_launches()
+    make_eval_step(model)(x, gauss, ob, rnn, y)
+    torch.cuda.synchronize()
+    assert kernels.launches["twa_step"] == 10 and (kernels.launches["dwblock"] > 0) == fused

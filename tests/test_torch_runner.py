@@ -340,7 +340,10 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value):
 
 
 def test_cli_only_registers_test():
-    assert cli.main(["train"]) == 2
+    """`test` and, since the training slice, `train`; the JAX CLI's other
+    subcommands are refused."""
+    assert set(cli.COMMANDS) == {"train", "test"}
+    assert cli.main(["eval"]) == 2
     assert cli.main(["--help"]) == 0
 
 

@@ -83,6 +83,20 @@
    model's maps; then ms per train step f32 and bf16 in turns, frames/s,
    peak memory, the eval step, the TWA backward's recompute timed alone and
    a profile of one bf16 step (`build/chip_smoke_profile_train.txt`).
+   Phase 4 also times K2's f32 kernel at the flagship block beside its
+   three cuDNN convs (TF32 off), its plain version and its bound.
+6. Evaluates (`evaluation/scorer.py::_score_video`, all seven metrics; no
+   kernel of ours): phase 3's graphed K2-off maps (540x960, 60 frames)
+   against seeded synthetic ground truth with one frame without fixations,
+   on the card and on the CPU from one RandomState seed (RandomState equal
+   after, six metrics within 1e-5 per frame, the jittered AUC-Judd within
+   the most a tie order can move it, NaN rows in the same place), and the
+   host path's AUC means within a Monte-Carlo bound; then at UAV2-TE's
+   720x1280 over 300 frames of tied uint8 saliency in batches of 32:
+   frames/s (median of 3 runs), the device time of one batch by part, the
+   host's sampling per batch, the card's busy share under the profiler
+   (`build/chip_smoke_profile_eval.txt`), peak memory, the host path's
+   frames/s, and `device_dispatch_ms` with the image drivers' choice.
 
 The line before the last is a JSON object with one entry per kernel (with
 `train_step_launches`, its launches counted in one train step of the dtype
@@ -521,16 +535,20 @@ def check_gradients(torch, kernels, dwblock, twa, rng):
             fail(f"gradients of {name} disagree with the plain version: {err}")
 
 
-def time_k2(torch, F, dwblock, rng):
-    """K2 time per launch at the flagship shape in bf16 (20x45x80, C=256,
-    E=1536, residual), beside its plain version, the library yardstick (the
-    folded block as three cuDNN convs with bias and ReLU6, `cudnn.benchmark`
-    on) and the bound. All in ms per launch."""
+def time_k2(torch, F, dwblock, rng, dtype=None):
+    """K2 time per launch at the flagship shape (20x45x80, C=256, E=1536,
+    residual), bf16 (`dtype` None) or f32, beside its plain version, the
+    library yardstick (the folded block as three cuDNN convs with bias and
+    ReLU6, `cudnn.benchmark` on; TF32 off, as phase 3 leaves it) and the
+    bound (f32: at the f32 rate outside the tensor cores, as the f32 kernel
+    runs plain FMA). All in ms per launch."""
+    dtype = dtype or torch.bfloat16
     n, h, w, c, e, co = K2_FLAGSHIP
-    args = [torch.tensor(a, dtype=torch.float32).to("cuda", torch.bfloat16)
+    args = [torch.tensor(a, dtype=torch.float32).to("cuda", dtype)
             for a in dw_case(rng, *K2_FLAGSHIP)]
     x, w1, b1, wd, bd, w2, b2 = args
-    blobs = dwblock.pack_dwblock_weights(w1, b1, wd, bd, w2)  # packed once, as served
+    # bf16: packed once, as served; the f32 kernel reads the plain weights
+    blobs = dwblock.pack_dwblock_weights(w1, b1, wd, bd, w2) if dtype == torch.bfloat16 else None
     kernel_ms = cuda_ms(lambda: dwblock.fused_dwblock_kernel(*args, True, blobs), 10)
     plain_ms = cuda_ms(lambda: dwblock.dwblock_ref(*args, True), 3)
 
@@ -548,7 +566,10 @@ def time_k2(torch, F, dwblock, rng):
     torch.backends.cudnn.benchmark = True
     library_ms = cuda_ms(library_block, 10)
     torch.backends.cudnn.benchmark = False
-    bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
+    if dtype == torch.bfloat16:
+        bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
+    else:
+        bound_ms, bound_by = k2_bound(n, h, w, c, e, co, 4, PEAK_F32_FLOPS)
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -990,6 +1011,255 @@ def train_phase(torch, kernels, twa):
     return launches
 
 
+EVAL_H, EVAL_W = 720, 1280  # UAV2-TE's ground truth, the size users evaluate at
+EVAL_FRAMES = 300
+EVAL_BATCH = 32      # eval_batch_size's default
+EVAL_RUNS = 3
+EVAL_HOST_FRAMES = 32
+# the card against the CPU: f32 sums over 518,400 pixels in other orders
+TOL_EVAL = 1e-5
+# the card's device path against the host path (device_auc=False): other
+# draws of the negatives, means over the frames within the JAX package's
+# Monte-Carlo bound (tests/test_losses_metrics.py)
+TOL_EVAL_MC = 0.05
+
+
+def eval_ground_truth(rng, t, h, w, empty=None):
+    """(fixmap, fixpts), uint8 (h, w, 1, t) as `.mat` files hold them: 40
+    fixations per frame scattered around a centre that moves over the
+    frames, and their blurred map (Gaussians of sigma h/30 summed, peak
+    255); frame `empty` has none."""
+    fixmap = np.zeros((t, h, w), np.uint8)
+    fixpts = np.zeros((t, h, w), np.uint8)
+    ys, xs = np.arange(h), np.arange(w)
+    two_var = 2 * (h / 30) ** 2
+    for i in range(t):
+        if i == empty:
+            continue
+        cy, cx = h * (0.5 + 0.25 * np.sin(i / 9.0)), w * (0.5 + 0.3 * np.cos(i / 13.0))
+        py = np.clip(rng.normal(cy, h / 10, 40), 0, h - 1).astype(int)
+        px = np.clip(rng.normal(cx, w / 10, 40), 0, w - 1).astype(int)
+        fixpts[i, py, px] = 1
+        blur = (np.exp(-(ys[None] - py[:, None]) ** 2 / two_var).T
+                @ np.exp(-(xs[None] - px[:, None]) ** 2 / two_var))
+        fixmap[i] = np.round(blur / blur.max() * 255)
+    return fixmap.transpose(1, 2, 0)[:, :, None], fixpts.transpose(1, 2, 0)[:, :, None]
+
+
+def fixation_pool(fixpts):
+    """Per frame the normalized fixation coordinates, as
+    `scorer.collect_all_fixations` pools a dataset's."""
+    h, w = fixpts.shape[:2]
+    pool = []
+    for i in range(fixpts.shape[3]):
+        fy, fx = np.where(fixpts[:, :, 0, i])
+        pool.append(np.stack([fy / h, fx / w], axis=1))
+    return pool
+
+
+def judd_tie_bound(sal, pts):
+    """Per frame, the most AUC-Judd can move between two orders of its tied
+    pixels: a group of equal saliency values holding k fixations and m other
+    pixels moves it by at most k*m / (n_fix * n_nonfix). (T, H, W) inputs."""
+    out = []
+    for s_, p_ in zip(sal, pts):
+        fix = p_.ravel() > 0.5
+        _, group = np.unique(s_.ravel(), return_inverse=True)
+        k = np.bincount(group, weights=fix)
+        m = np.bincount(group, weights=~fix)
+        n = fix.sum()
+        out.append((k * m).sum() / (max(n, 1) * max(fix.size - n, 1)))
+    return np.asarray(out)
+
+
+def eval_saliency(rng, t, h, w):
+    """(t, h, w) uint8 saliency with ties: a broad blob following the
+    fixations' centre, plus noise, quantized to 32 levels."""
+    ys, xs = np.arange(h)[:, None] / h, np.arange(w)[None, :] / w
+    noise = rng.uniform(0.0, 0.4, (4, h, w)).astype(np.float32)
+    sal = np.empty((t, h, w), np.uint8)
+    for i in range(t):
+        cy, cx = 0.5 + 0.25 * np.sin(i / 9.0), 0.5 + 0.3 * np.cos(i / 13.0)
+        blob = (np.exp(-((ys - cy) / 0.25) ** 2) * np.exp(-((xs - cx) / 0.25) ** 2)).astype(
+            np.float32)
+        sal[i] = np.floor((blob + noise[i % 4]) / 1.4 * 31.999) * 8
+    return sal
+
+
+def eval_phase(torch, maps):
+    """6. Evaluation on the card. (1) The uint8 maps of phase 3's graphed
+    K2-off run (3 clips of 20 frames at 540x960) against seeded synthetic
+    ground truth, all seven metrics, `_score_video` on the card and on the
+    CPU from one seed: the RandomState ends equal, KLD, CC, NSS, SIM,
+    AUC-Borji and AUC-shuffled agree within TOL_EVAL on every valid frame,
+    the jittered AUC-Judd within the most a tie order can move it, the
+    frame without fixations is an all-NaN row in both; then the host path
+    (device_auc=False), its AUC means within TOL_EVAL_MC. (2) Times at
+    720x1280 (UAV2-TE) over 300 frames of tied uint8 saliency in batches
+    of 32: frames/s (median of 3 runs, host clock ending on the returned
+    array), the device time of one batch by part (CUDA events), the card's
+    busy share over one run under the profiler, peak memory, the host's
+    sampling per batch alone, and frames/s of the host path over 32
+    frames. (3) `device_dispatch_ms` and the image drivers' choice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from iip_uavsal_saliency_tpu_torch.evaluation import scorer
+    from iip_uavsal_saliency_tpu_torch.evaluation.metrics_torch import (eval_auc_judd,
+                                                                        eval_auc_sweep)
+
+    keys = scorer.KEYS_ORDER
+    judd = keys.index("AUC_Judd")
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 10)
+
+    # (1) the main path's maps, the card against the CPU and the host path
+    t = maps.shape[3]
+    empty = 7
+    fixmap, fixpts = eval_ground_truth(rng, t, NATIVE_H, NATIVE_W, empty=empty)
+    pool = fixation_pool(fixpts)
+    runs = {}
+    for name, device, device_auc in (("card", cuda, True), ("cpu", "cpu", True),
+                                     ("host path", cuda, False)):
+        state = np.random.RandomState(SEED)
+        t0 = time.perf_counter()
+        runs[name] = (scorer._score_video(maps, fixmap, fixpts, pool, keys, EVAL_BATCH, state,
+                                          device_auc=device_auc, device=device), state)
+        print(f"eval of the main path's maps ({t} frames, {NATIVE_H}x{NATIVE_W}), {name}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    (card, card_rng), (cpu, cpu_rng), (host, _) = runs["card"], runs["cpu"], runs["host path"]
+    same_rng = all(np.array_equal(a, b) for a, b in zip(card_rng.get_state(), cpu_rng.get_state()))
+    nan_rows = np.isnan(card).all(axis=1)
+    valid = ~np.isnan(card).any(axis=1)
+    other = [k for k in range(len(keys)) if k != judd]
+    err = np.abs(card[valid][:, other] - cpu[valid][:, other]).max(axis=0)
+    bound = judd_tie_bound(maps[:, :, 0, :].transpose(2, 0, 1), fixpts[:, :, 0, :].transpose(2, 0, 1))
+    judd_err = np.abs(card[valid, judd] - cpu[valid, judd])
+    print("eval, card vs CPU per valid frame: max abs error "
+          + ", ".join(f"{keys[k]} {e:.3g}" for k, e in zip(other, err))
+          + f" (tolerance {TOL_EVAL}); AUC_Judd (jittered) {judd_err.max():.3g}, its tie bound "
+          f"{bound[valid].min():.3g} to {bound[valid].max():.3g} per frame; RandomState equal: "
+          f"{same_rng}; NaN rows {np.flatnonzero(nan_rows).tolist()} (CPU "
+          f"{np.flatnonzero(np.isnan(cpu).all(axis=1)).tolist()})")
+    if not (same_rng and valid.sum() == t - 1 and nan_rows[empty] and nan_rows.sum() == 1
+            and np.array_equal(np.isnan(card), np.isnan(cpu)) and np.isfinite(card[valid]).all()
+            and (err <= TOL_EVAL).all() and (judd_err <= bound[valid] + 1e-6).all()):
+        fail("evaluation on the card disagrees with the CPU")
+    means = {name: np.nanmean(scores, axis=0) for name, scores in (("card", card), ("host", host))}
+    print("eval means, card (device_auc) / host path: " + ", ".join(
+        f"{key} {means['card'][k]:.4f} / {means['host'][k]:.4f}" for k, key in enumerate(keys)))
+    for key in ("AUC_Borji", "AUC_shuffled", "AUC_Judd"):
+        k = keys.index(key)
+        if not abs(means["card"][k] - means["host"][k]) <= TOL_EVAL_MC:
+            fail(f"eval: {key} mean on the card {means['card'][k]} vs the host path "
+                 f"{means['host'][k]}")
+
+    # (2) times at 720x1280
+    t0 = time.perf_counter()
+    sal = eval_saliency(rng, EVAL_FRAMES, EVAL_H, EVAL_W)
+    gmap, gpts = eval_ground_truth(rng, EVAL_FRAMES, EVAL_H, EVAL_W)
+    pool = fixation_pool(gpts[:, :, :, :60])
+    gmap = np.ascontiguousarray(gmap[:, :, 0].transpose(2, 0, 1))
+    gpts = np.ascontiguousarray(gpts[:, :, 0].transpose(2, 0, 1))
+    print(f"eval at {EVAL_H}x{EVAL_W}: {EVAL_FRAMES} frames made in "
+          f"{time.perf_counter() - t0:.1f} s; saliency has {len(np.unique(sal[0]))} levels")
+
+    def score(n, device_auc=True, device=cuda):
+        return scorer._score_video(None, None, None, pool, keys, EVAL_BATCH,
+                                   np.random.RandomState(SEED), device_auc=device_auc,
+                                   prepped=(sal[:n], gmap[:n], gpts[:n], n), device=device)
+
+    score(2 * EVAL_BATCH)  # warm-up
+    secs = []
+    for _ in range(EVAL_RUNS):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = score(EVAL_FRAMES)
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (EVAL_FRAMES, len(keys)) or not np.isfinite(out).all():
+        fail(f"eval at {EVAL_H}x{EVAL_W}: scores of shape {out.shape} are not all finite")
+    print(f"eval at {EVAL_H}x{EVAL_W}, device_auc, batch {EVAL_BATCH}: "
+          + ", ".join(f"{EVAL_FRAMES / x:.1f}" for x in secs)
+          + f" frames/s over {EVAL_FRAMES} frames; median {EVAL_FRAMES / np.median(secs):.1f}; "
+          f"peak memory {peak / 2**30:.3f} GiB; means "
+          + ", ".join(f"{key} {v:.4f}" for key, v in zip(keys, out.mean(axis=0))))
+
+    # one batch on the card: device time by part
+    b = slice(0, EVAL_BATCH)
+    p = torch.from_numpy(sal[b]).to(cuda).float()[..., None]
+    tr = torch.stack([torch.from_numpy(g[b]).to(cuda).float() for g in (gmap, gpts)], dim=-1)
+    draws = np.random.RandomState(SEED)
+    borji = [torch.from_numpy(a).to(cuda)
+             for a in scorer._borji_neg_idx(gpts[b], EVAL_H * EVAL_W, 100, draws)]
+    inds = [np.flatnonzero(scorer.sample_shufmap(pool, size=(EVAL_H, EVAL_W), rng=draws))
+            for _ in range(EVAL_BATCH)]
+    shuf = [torch.from_numpy(a).to(cuda)
+            for a in scorer._shuffled_neg_idx(gpts[b], inds, 100, draws)]
+    gen = torch.Generator(device=cuda)
+    parts = {
+        "the five device metrics": lambda: scorer._device_metrics(p, tr, gen.manual_seed(1)),
+        "AUC-Judd (jitter, sort, gather, cumsum)": lambda: eval_auc_judd(
+            p, tr, generator=gen.manual_seed(1)),
+        "AUC-Borji sweep": lambda: eval_auc_sweep(p, tr, *borji),
+        "AUC-shuffled sweep": lambda: eval_auc_sweep(p, tr, *shuf),
+    }
+    part_ms = {name: cuda_ms(fn, 5) for name, fn in parts.items()}
+    batch_ms = part_ms["the five device metrics"] + part_ms["AUC-Borji sweep"] + part_ms[
+        "AUC-shuffled sweep"]
+    print(f"eval, one batch of {EVAL_BATCH} at {EVAL_H}x{EVAL_W} on the card (CUDA events): "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in part_ms.items())
+          + f"; the batch {batch_ms:.3f} ms ({EVAL_BATCH / batch_ms * 1e3:.1f} frames/s of "
+          f"device work)")
+
+    # the host's own work per batch: the draws, and shipping (pinned copies)
+    draws = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    scorer._borji_neg_idx(gpts[b], EVAL_H * EVAL_W, 100, draws)
+    t1 = time.perf_counter()
+    inds = [np.flatnonzero(scorer.sample_shufmap(pool, size=(EVAL_H, EVAL_W), rng=draws))
+            for _ in range(EVAL_BATCH)]
+    scorer._shuffled_neg_idx(gpts[b], inds, 100, draws)
+    t2 = time.perf_counter()
+    for a in (sal[b], gmap[b], gpts[b]):
+        scorer._to_device(a, cuda)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"eval, the host's work per batch of {EVAL_BATCH}: Borji draws {(t1 - t0) * 1e3:.3f} ms, "
+          f"{EVAL_BATCH} shufmaps and their draws {(t2 - t1) * 1e3:.3f} ms, pinning and copying "
+          f"the batch {(t3 - t2) * 1e3:.3f} ms")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        score(EVAL_FRAMES)
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    copies = sum(e.self_device_time_total for e in device if "Memcpy" in e.key) / 1e3
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    print(f"eval under the profiler, {EVAL_FRAMES} frames: wall {wall:.3f} ms, the card busy "
+          f"{busy:.3f} ms ({busy / wall:.1%}; kernels {busy - copies:.3f} ms, copies "
+          f"{copies:.3f} ms), idle {1 - busy / wall:.1%}")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke_profile_eval.txt"), "w") as f:
+        f.write(table)
+
+    t0 = time.perf_counter()
+    host_out = score(EVAL_HOST_FRAMES, device_auc=False)
+    host_s = time.perf_counter() - t0
+    if not np.isfinite(host_out).all():
+        fail("eval, host path: scores are not all finite")
+    print(f"eval at {EVAL_H}x{EVAL_W}, host path (device_auc=False), {EVAL_HOST_FRAMES} frames: "
+          f"{EVAL_HOST_FRAMES / host_s:.2f} frames/s ({host_s:.2f} s)")
+
+    # (3) the image drivers' choice on this card
+    ms = scorer.device_dispatch_ms(cuda)
+    print(f"eval, device_dispatch_ms on the card {ms:.4f} ms; _resolve_img_device_auc(None) "
+          f"picks the {'device-batched' if scorer._resolve_img_device_auc(None, cuda) else 'host'}"
+          f" path")
+
+
 def main() -> None:
     import torch
 
@@ -1098,8 +1368,9 @@ def main() -> None:
             fail(f"{name}: ConvTWA called K1 {len(taken)} times in {CLIPS} clips")
         if bf16:
             check_k1_served(torch, twa, name, taken)
-        graphed = drive_graphed(name, model, step, want, seen, maps)
-        return launches, graphed, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double()
+        graphed, graphed_maps = drive_graphed(name, model, step, want, seen, maps)
+        return (launches, graphed, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double(),
+                graphed_maps)
 
     def drive_graphed(name, model, step, want, seen, maps):
         """The main path as a user runs it: `predict_videos` with the step
@@ -1147,7 +1418,7 @@ def main() -> None:
               f"{state_diff:.3g}; uint8 maps equal: {same_maps}")
         if len(replayed) != CLIPS or sal_diff != 0 or state_diff != 0 or not same_maps:
             fail(f"{name}: the graphed path does not give the eager step's bits")
-        return graphed
+        return graphed, graphed_maps
 
     def compare(name, a, b):
         cc = frame_cc(torch, a, b)
@@ -1170,20 +1441,20 @@ def main() -> None:
         fail(f"the flagship blocks {sorted(needed)} are not all admitted")
 
     model16, step16, spy16, seen16 = serve(torch.bfloat16, False)
-    launches_off, graphed16, sal16 = drive("main path, K2 off (bf16)", model16, step16, spy16,
-                                           seen16, True, 0)
-    launches_on, graphed16k, sal16k = drive("main path, K2 on (bf16)", model16k, step16k,
-                                            spy16k, seen16k, True, len(admitted) * CLIPS)
+    launches_off, graphed16, sal16, maps16 = drive("main path, K2 off (bf16)", model16, step16,
+                                                   spy16, seen16, True, 0)
+    launches_on, graphed16k, sal16k, _ = drive("main path, K2 on (bf16)", model16k, step16k,
+                                               spy16k, seen16k, True, len(admitted) * CLIPS)
     model32, step32, spy32, seen32 = serve(None, False)
-    launches_f32, _, sal32 = drive("main path, K2 off (f32)", model32, step32, spy32, seen32,
-                                   False, 0)
+    launches_f32, _, sal32, _ = drive("main path, K2 off (f32)", model32, step32, spy32, seen32,
+                                      False, 0)
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
     if check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k, first_clip,
                          model32k.init_state(IN_H, IN_W, V, device="cuda"))[0] != admitted:
         fail("the gate admits other blocks in f32 than in bf16")
-    _, _, sal32k = drive("main path, K2 on (f32)", model32k, step32k, spy32k, seen32k,
-                         False, len(admitted) * CLIPS)
+    launches_f32k, _, sal32k, _ = drive("main path, K2 on (f32)", model32k, step32k, spy32k,
+                                        seen32k, False, len(admitted) * CLIPS)
     del model32, model32k, step32, step32k, spy32, spy32k
     print(f"f32 map mean {sal32.mean().item():.4g} std {sal32.std().item():.4g}")
     compare("bf16 vs f32 saliency, K2 off", sal16, sal32)
@@ -1220,11 +1491,22 @@ def main() -> None:
           f"plain {k2_plain_ms * 1e3:.2f}, library (three cuDNN convs) {k2_library_ms * 1e3:.2f}, "
           f"bound {k2_bound_ms * 1e3:.2f} ({k2_bound_by})")
     time_k2_admitted(torch, dwblock, taken16k)
+    # the f32 kernel as the f32 K2-on path launches it, on inputs of its own
+    # (the main generator's draws stay as they were)
+    k2_f32 = time_k2(torch, F, dwblock, np.random.default_rng(SEED + 9), torch.float32)
+    print(f"K2 f32 at N,H,W,C,E,Co={K2_FLAGSHIP}, residual: kernel {k2_f32[0] * 1e3:.2f} us/launch, "
+          f"plain {k2_f32[1] * 1e3:.2f}, library (three cuDNN convs, TF32 off) "
+          f"{k2_f32[2] * 1e3:.2f}, bound {k2_f32[3] * 1e3:.2f} ({k2_f32[4]}, at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s); launches on the f32 K2-on path "
+          f"{launches_f32k['dwblock']} per {CLIPS} clips")
 
     k1_f32 = time_k1_f32(torch, F, twa, rng)
 
     # 5. training
     train_launches = train_phase(torch, kernels, twa)
+
+    # 6. evaluation
+    eval_phase(torch, maps16)
 
     print(smi)
     k1 = {"route": "cuda", "source": "iip_uavsal_saliency_tpu_torch/csrc/twa_scan.cu",

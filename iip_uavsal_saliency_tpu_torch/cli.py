@@ -4,6 +4,10 @@
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli test [--config cfg.json]
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli eval [--config cfg.json]
+        [--methods A,B] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli eval-img [--config cfg.json]
+        [--methods A,B] [--device cuda|cpu] [--key value ...]
 
 `train` trains the flagship on `<data_dir>/<train_dataset>` (its txt
 splits, videos and ground truth in the reference's layout) as the JAX
@@ -17,8 +21,20 @@ as the JAX package's `test` does: the checkpoint is `--model-path`, else
 `<save_model_dir>/<method_name>/<method_name>_final.ckpt`; `serve_bf16`
 selects bf16; the device is CUDA unless `--device cpu` is given. The
 configuration is the JAX package's (utils/config.py); values the port does
-not implement yet raise NotImplementedError naming their ROADMAP item. The
-other subcommands of the JAX CLI are ROADMAP A.8-A.11.
+not implement yet raise NotImplementedError naming their ROADMAP item.
+
+`eval` scores the `.mat` files of each method (`--methods`, else
+`method_name`) under `<data_dir>/<test_dataset>/Results/Results_<method_name>/
+Saliency/<method>` against the dataset's ground truth with the seven
+metrics, as the JAX package's `eval` does: `Scores/<method>/Score_<vid>.mat`
+per video, then `Scores/MeanScores.{mat,json}`, the means logged. The
+batch is `eval_batch_size`; AUC-Borji and AUC-shuffled run on the device
+unless `device_auc` is false. `eval-img` scores the PNGs of
+`<data_dir>/salicon-15/val/Results/Results_<method_name>/Saliency/<method>`
+(`Scores/Score_<method>.mat`, means logged; `device_auc` unset picks the
+path by the device's round trip). The other subcommands of the JAX CLI
+(`train-img`, `vis`, `convert`, `export`, `test-aot`, `modelsize`,
+`pipeline`) are ROADMAP A.9b and A.11.
 """
 
 from __future__ import annotations
@@ -28,33 +44,39 @@ import sys
 from typing import List, Optional, Sequence, Tuple
 
 from .utils.config import Config, load_config
+from .utils.logging import get_logger
+
+log = get_logger("cli")
 
 # what the port's UAVSal is (models/uavsal.py), and the JAX Config's value for it
 FLAGSHIP = {"cnn_type": "mobilenet_v2", "model_name": "uavsal", "num_stblock": 2,
             "bias_type": (1, 1, 1), "st_type": "st", "s2d_stem": False}
 
 
-def _split_cli(argv: Sequence[str]) -> Tuple[Optional[str], Optional[str], List[str]]:
-    """(--config path, --device, the rest with --model-path as
-    --pre_model_path) for `load_config`."""
-    cfg_path, device, rest = None, None, []
+def _split_cli(argv: Sequence[str]
+               ) -> Tuple[Optional[str], Optional[str], Optional[List[str]], List[str]]:
+    """(--config path, --device, --methods split at commas, the rest with
+    --model-path as --pre_model_path) for `load_config`."""
+    cfg_path, device, methods, rest = None, None, None, []
     argv = list(argv)
     i = 0
     while i < len(argv):
-        if argv[i] in ("--config", "--model-path", "--device"):
+        if argv[i] in ("--config", "--model-path", "--device", "--methods"):
             if i + 1 >= len(argv):
                 raise SystemExit(f"flag {argv[i]} needs a value")
             if argv[i] == "--config":
                 cfg_path = argv[i + 1]
             elif argv[i] == "--device":
                 device = argv[i + 1]
+            elif argv[i] == "--methods":
+                methods = argv[i + 1].split(",")
             else:
                 rest += ["--pre_model_path", argv[i + 1]]
             i += 2
         else:
             rest.append(argv[i])
             i += 1
-    return cfg_path, device, rest
+    return cfg_path, device, methods, rest
 
 
 def _final_ckpt(cfg: Config) -> str:
@@ -124,7 +146,45 @@ def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
     )
 
 
-COMMANDS = {"train": cmd_train, "test": cmd_test}
+def cmd_eval(cfg: Config, device: Optional[str] = None,
+             methods: Optional[Sequence[str]] = None):
+    from .evaluation.scorer import evalscores_vid, mean_scores
+
+    methods = methods or [cfg.method_name]
+    evalscores_vid(
+        cfg.test_data_dir,
+        cfg.test_result_path,
+        cfg.test_dataset,
+        methods,
+        batch_size=cfg.eval_batch_size,
+        # only an explicit False takes the host path
+        device_auc=cfg.device_auc if cfg.device_auc is not None else True,
+        device=device,
+    )
+    means = mean_scores(cfg.test_result_path, methods)
+    for m, scores in means.items():
+        log.info("%s mean scores: %s", m, {k: round(v, 4) for k, v in scores.items()})
+    return means
+
+
+def cmd_eval_img(cfg: Config, device: Optional[str] = None,
+                 methods: Optional[Sequence[str]] = None):
+    from .evaluation.scorer import evalscores_img, mean_scores_img
+
+    methods = methods or [cfg.method_name]
+    data_dir = os.path.join(cfg.data_dir, "salicon-15", "val")
+    res_dir = os.path.join(data_dir, "Results", f"Results_{cfg.method_name}")
+    evalscores_img(data_dir, res_dir, "SALICON", methods, device_auc=cfg.device_auc,
+                   batch_size=cfg.eval_batch_size, device=device)
+    return mean_scores_img(res_dir, methods)
+
+
+COMMANDS = {"train": cmd_train, "test": cmd_test, "eval": cmd_eval, "eval-img": cmd_eval_img}
+# the commands that take --methods
+SCORING = ("eval", "eval-img")
+# the JAX CLI's commands the port does not have yet, and their ROADMAP items
+NOT_PORTED = {"train-img": "A.9b", "vis": "A.11", "convert": "A.11", "export": "A.11",
+              "test-aot": "A.11", "modelsize": "A.11", "pipeline": "A.11"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -133,11 +193,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
+    if cmd in NOT_PORTED:
+        print(f"{cmd}: not in the port yet (ROADMAP {NOT_PORTED[cmd]})")
+        return 2
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}\n{__doc__}")
         return 2
-    cfg_path, device, rest = _split_cli(rest)
-    COMMANDS[cmd](load_config(cfg_path, rest), device)
+    cfg_path, device, methods, rest = _split_cli(rest)
+    if methods is not None and cmd not in SCORING:
+        raise SystemExit(f"flag --methods is only valid for {' and '.join(SCORING)}")
+    cfg = load_config(cfg_path, rest)
+    if cmd in SCORING:
+        COMMANDS[cmd](cfg, device, methods)
+    else:
+        COMMANDS[cmd](cfg, device)
     return 0
 
 

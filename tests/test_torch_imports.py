@@ -84,3 +84,36 @@ def test_port_needs_no_msgpack_and_loads_cv2_and_h5py_lazily():
         names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
         assert not any(name.split(".")[0] == "msgpack" for name in names), path
+
+
+_SCORE_PROBE = """
+import sys
+import numpy as np
+from iip_uavsal_saliency_tpu_torch.evaluation import scorer
+rng = np.random.RandomState(0)
+sal = rng.randint(0, 255, (24, 32, 1, 5)).astype(np.uint8)
+pts = (rng.rand(24, 32, 1, 5) > 0.9).astype(np.uint8)
+pool = [np.stack([rng.rand(9), rng.rand(9)], 1) for _ in range(4)]
+for device_auc in (True, False):
+    out = scorer._score_video(sal, pts * 255, pts, pool, scorer.KEYS_ORDER, 2, rng,
+                              device_auc=device_auc, device="cpu")
+    assert out.shape == (5, 7) and np.isfinite(out).all(), out
+print(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r}))
+"""
+
+
+def test_scoring_arrays_needs_no_cv2_h5py_or_jax():
+    """The evaluation modules are among those walked above; scoring a video
+    given as arrays whose saliency has the ground truth's size (as
+    chip_smoke.py scores on the card's machine, which has neither cv2 nor
+    h5py) loads neither, nor JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    probe = _SCORE_PROBE.format(forbidden=FORBIDDEN + ("cv2", "h5py"))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    sources = [os.path.relpath(p, ROOT) for p in _sources()]
+    for name in ("__init__", "metrics_np", "metrics_torch", "scorer"):
+        assert os.path.join("iip_uavsal_saliency_tpu_torch", "evaluation", name + ".py") in sources

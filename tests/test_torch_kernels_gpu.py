@@ -478,3 +478,100 @@ def test_train_step_launches(card, fused):
     make_eval_step(model)(x, gauss, ob, rnn, y)
     torch.cuda.synchronize()
     assert kernels.launches["twa_step"] == 10 and (kernels.launches["dwblock"] > 0) == fused
+
+
+# Evaluation on the card (no kernel of ours: ATen's sort, cumsum, gathers
+# and reductions), held to the same functions on the CPU at the size users
+# evaluate, 720x1280, N=8.
+EVAL_N, EVAL_H, EVAL_W = 8, 720, 1280
+
+
+def _eval_frames(seed, levels=None):
+    """(pred (N, H, W, 1), true (N, H, W, 2)) f32: a smooth blob plus noise,
+    ~40 fixations around its centre and their blurred map; `levels`
+    quantizes the saliency to that many uint8 values (ties)."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.arange(EVAL_H)[:, None] / EVAL_H, np.arange(EVAL_W)[None, :] / EVAL_W
+    pred = np.empty((EVAL_N, EVAL_H, EVAL_W, 1), np.float32)
+    true = np.zeros((EVAL_N, EVAL_H, EVAL_W, 2), np.float32)
+    for i in range(EVAL_N):
+        cy, cx = rng.uniform(0.3, 0.7, 2)
+        blob = np.exp(-((ys - cy) / 0.2) ** 2) * np.exp(-((xs - cx) / 0.2) ** 2)
+        p = blob + 0.3 * rng.rand(EVAL_H, EVAL_W)
+        if levels:
+            p = np.floor(p / p.max() * (levels - 0.001)) * (255 // levels)
+        pred[i, ..., 0] = p
+        py = np.clip(rng.normal(cy, 0.1, 40) * EVAL_H, 0, EVAL_H - 1).astype(int)
+        px = np.clip(rng.normal(cx, 0.1, 40) * EVAL_W, 0, EVAL_W - 1).astype(int)
+        true[i, py, px, 1] = 1.0
+        true[i, ..., 0] = np.exp(-((ys - cy) / 0.1) ** 2) * np.exp(-((xs - cx) / 0.1) ** 2)
+    return pred, true
+
+
+def test_eval_metrics_card_equals_cpu(card):
+    """KLD, CC, NSS, SIM, the unjittered AUC-Judd and both sweeps (Borji's
+    uniform negatives and a shuffled-like set with fewer valid rows) on the
+    card against the CPU on the same inputs, within 1e-5 (f32 sums in other
+    orders)."""
+    from iip_uavsal_saliency_tpu_torch.evaluation import metrics_torch as mt
+    from iip_uavsal_saliency_tpu_torch.evaluation.scorer import _device_metrics
+
+    pred, true = _eval_frames(0)
+    rng = np.random.RandomState(1)
+    n_fix = (true[..., 1] > 0.5).reshape(EVAL_N, -1).sum(1).astype(np.int32)
+    sweeps = [(rng.randint(0, EVAL_H * EVAL_W, (EVAL_N, 256, 100)).astype(np.int32), n_fix),
+              (rng.randint(0, EVAL_H * EVAL_W, (EVAL_N, 256, 100)).astype(np.int32),
+               np.minimum(n_fix, 17).astype(np.int32))]
+    results = {}
+    for dev in ("cpu", card):
+        p, t = torch.from_numpy(pred).to(dev), torch.from_numpy(true).to(dev)
+        rows = [_device_metrics(p, t, None)]
+        rows += [mt.eval_auc_sweep(p, t, torch.from_numpy(i).to(dev),
+                                   torch.from_numpy(v).to(dev))[None] for i, v in sweeps]
+        results[str(dev)] = torch.cat(rows).cpu().numpy()
+    got, want = results[str(card)], results["cpu"]
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_eval_jittered_auc_judd_on_tied_uint8_matches_numpy(card):
+    """AUC-Judd with the card's random tie order on a 16-level 720x1280 map
+    against `auc_judd_np`'s 1e-7 jitter in f64: the means over 24 seeds
+    agree within noise, as the CPU test holds the CPU's."""
+    from iip_uavsal_saliency_tpu_torch.evaluation.metrics_np import auc_judd_np
+    from iip_uavsal_saliency_tpu_torch.evaluation.metrics_torch import eval_auc_judd
+
+    pred, true = _eval_frames(2, levels=16)
+    p, t = torch.from_numpy(pred[:1]).to(card), torch.from_numpy(true[:1]).to(card)
+    n_seeds = 24
+    dev = np.array([eval_auc_judd(p, t, generator=torch.Generator(device=card).manual_seed(s))
+                    .item() for s in range(n_seeds)])
+    ref = np.array([auc_judd_np(pred[0, ..., 0], true[0, ..., 1], jitter=True,
+                                rng=np.random.RandomState(100 + s)) for s in range(n_seeds)])
+    assert dev.std() > 0, "the jitter had no effect"
+    np.testing.assert_allclose(dev.mean(), ref.mean(),
+                               atol=3 * ref.std() / np.sqrt(n_seeds) + 1e-3)
+
+
+def test_eval_score_video_on_the_card_draws_as_on_the_cpu(card):
+    """`_score_video` on the card and on the CPU from the same seed: the
+    RandomState ends in the same state, and every column but the jittered
+    AUC-Judd agrees within 1e-5 (20 frames in batches of 8, the last
+    padded)."""
+    from iip_uavsal_saliency_tpu_torch.evaluation.scorer import KEYS_ORDER, _score_video
+
+    pred, true = _eval_frames(3, levels=32)
+    sal = np.concatenate([pred, pred, pred[:4]]).astype(np.uint8)
+    gt = np.concatenate([true, true, true[:4]])
+    salmap = sal.transpose(1, 2, 3, 0)
+    fixmap = (gt[..., :1] * 255).round().astype(np.uint8).transpose(1, 2, 3, 0)
+    fixpts = gt[..., 1:].astype(np.uint8).transpose(1, 2, 3, 0)
+    rng = np.random.RandomState(4)
+    fix_pool = [np.stack([rng.rand(40), rng.rand(40)], 1) for _ in range(30)]
+    rngs = np.random.RandomState(5), np.random.RandomState(5)
+    on_card = _score_video(salmap, fixmap, fixpts, fix_pool, KEYS_ORDER, 8, rngs[0], device=card)
+    on_cpu = _score_video(salmap, fixmap, fixpts, fix_pool, KEYS_ORDER, 8, rngs[1], device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(rngs[0].get_state(), rngs[1].get_state()))
+    other = [k for k, key in enumerate(KEYS_ORDER) if key != "AUC_Judd"]
+    assert np.isfinite(on_card).all()
+    np.testing.assert_allclose(on_card[:, other], on_cpu[:, other], rtol=0, atol=1e-5)

@@ -340,10 +340,10 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value):
 
 
 def test_cli_only_registers_test():
-    """`test` and, since the training slice, `train`; the JAX CLI's other
-    subcommands are refused."""
-    assert set(cli.COMMANDS) == {"train", "test"}
-    assert cli.main(["eval"]) == 2
+    """`test`, `train` (the training slice) and `eval`, `eval-img` (the
+    evaluation slice); the JAX CLI's other subcommands are refused."""
+    assert set(cli.COMMANDS) == {"train", "test", "eval", "eval-img"}
+    assert cli.main(["vis"]) == 2
     assert cli.main(["--help"]) == 0
 
 

@@ -65,9 +65,10 @@
    persistent, library, library, persistent, per-frame) at V=1 and V=4 in
    bf16, with the fastest window beside each median, and the per-frame
    kernel in f32, as the f32 paths launch it, beside its own f32 yardstick,
-   plain version and bound; K2 at each admitted block of the bf16 path on
-   that block's own input beside the block as three cuDNN convs and its
-   bound; and writes a profiler table of one clip of each path to
+   plain version and bound; K2 at each admitted block of the bf16 path and
+   of the f32 path on that block's own input beside the block as three
+   cuDNN convs (f32: TF32 off) and its bound, with the sums per step; and
+   writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
 5. Trains at full width (360x640, S=10 = batch_size 2 x time_dims 5, V=1)
    on seeded weights from `init_uavsal`: one f32 train step on the card
@@ -83,8 +84,9 @@
    model's maps; then ms per train step f32 and bf16 in turns, frames/s,
    peak memory, the eval step, the TWA backward's recompute timed alone and
    a profile of one bf16 step (`build/chip_smoke_profile_train.txt`).
-   Phase 4 also times K2's f32 kernel at the flagship block beside its
-   three cuDNN convs (TF32 off), its plain version and its bound.
+   Phase 4 also times K2's f32 kernel (3xTF32) at the flagship block beside
+   its three cuDNN convs (TF32 off), its plain version and its bound (3xTF32,
+   with the plain-FMA bound beside it).
 6. Evaluates (`evaluation/scorer.py::_score_video`, all seven metrics; no
    kernel of ours): phase 3's graphed K2-off maps (540x960, 60 frames)
    against seeded synthetic ground truth with one frame without fixations,
@@ -98,9 +100,10 @@
    (`build/chip_smoke_profile_eval.txt`), peak memory, the host path's
    frames/s, and `device_dispatch_ms` with the image drivers' choice.
 
-The line before the last is a JSON object with one entry per kernel (with
-`train_step_launches`, its launches counted in one train step of the dtype
-it serves, K2's with the fused dwBlock on); the
+The line before the last is a JSON object with one entry per kernel
+(`twa_scan`, `twa_step`, `dwblock` for K2 in bf16 and `dwblock_f32` for K2
+in f32, each with `train_step_launches`, its launches counted in one train
+step of the dtype it serves, K2's with the fused dwBlock on); the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -122,6 +125,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K1's f32 route is plain FMA
+PEAK_TF32_FLOPS = 495e12  # K2's f32 route: 3xTF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 # K1 tolerances, max abs error against twa_scan_ref on the same inputs.
@@ -140,8 +144,9 @@ TOL_K1_KERNELS = 2.0 ** -6
 REPEATS = 20   # further runs of the persistent kernel that must give the first run's bits
 CC_MIN = 0.99  # bf16 vs f32 saliency, Pearson CC per frame
 # K2 tolerances, max abs error against dwblock_ref on the same inputs.
-# f32: the kernel's FMA chains and the plain version's matmuls sum the C and
-# E products in other orders (outputs of order 1 to 10).
+# f32: the kernel's 3xTF32 products (each within about 2^-21 of the f32
+# product) and the plain version's matmuls summed in other orders (outputs
+# of order 1 to 10).
 # bf16: both round e, d and the output to bf16 at the same points, so they
 # differ only where f32 sums that differ in their last bits round to the
 # other neighbour: one bf16 ulp of the output, 2^-5 for the outputs below 8
@@ -379,8 +384,8 @@ K2_FLAGSHIP = (V * S, OUT_H, OUT_W, 256, 1536, 256)
 
 
 def check_k2(torch, dwblock, rng):
-    """Phase 2: K2 against dwblock_ref. Returns the flagship bf16 error."""
-    flagship_err = None
+    """Phase 2: K2 against dwblock_ref. Returns the flagship errors by dtype."""
+    flagship_err = {}
     for shape, residual in [(K2_FLAGSHIP, True), ((V * S, OUT_H, OUT_W, 320, 1920, 256), False),
                             ((2, 13, 7, 24, 144, 16), False)]:
         arrays = dw_case(rng, *shape)
@@ -396,8 +401,8 @@ def check_k2(torch, dwblock, rng):
                   f"max |ref| {top:.3g}, tolerance {tol}")
             if out.shape != ref.shape or not err <= tol or not top < 8:
                 fail(f"K2 disagrees with dwblock_ref in {name} at {shape}: {err}")
-            if (shape, dtype) == (K2_FLAGSHIP, torch.bfloat16):
-                flagship_err = err
+            if shape == K2_FLAGSHIP:
+                flagship_err[dtype] = err
     return flagship_err
 
 
@@ -443,12 +448,22 @@ def check_k2_admitted(torch, dwblock, DWBlock, model, step, clip, state):
     return [(name, tuple(x.shape)) for name, _, x in taken], taken
 
 
-def k2_bound(n, h, w, c, e, co, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
+def k2_bound(n, h, w, c, e, co, route="bf16"):
     """(ms, bound_by) the card needs at least for one block: x, the weights
-    and the output moved once, or the three convs' operations."""
-    flops = 2.0 * n * h * w * (c * e + 9 * e + e * co)
+    and the output moved once, or the three convs' operations at the rate of
+    `route`: "bf16" all at the bf16 tensor-core peak; "3xtf32" (the f32
+    kernel) the two GEMMs three times at the TF32 peak and the depthwise at
+    the FMA peak; "fma" all at the FMA peak (f32 without the tensor cores)."""
+    gemm, depthwise = 2.0 * n * h * w * (c * e + e * co), 2.0 * n * h * w * 9 * e
+    if route == "bf16":
+        flops_s = (gemm + depthwise) / PEAK_BF16_FLOPS
+    elif route == "3xtf32":
+        flops_s = 3 * gemm / PEAK_TF32_FLOPS + depthwise / PEAK_F32_FLOPS
+    else:
+        flops_s = (gemm + depthwise) / PEAK_F32_FLOPS
+    itemsize = 2 if route == "bf16" else 4
     bytes_moved = (n * h * w * (c + co) + c * e + 11 * e + e * co + co) * itemsize
-    flops_ms, bytes_ms = flops / peak_flops * 1e3, bytes_moved / PEAK_BYTES * 1e3
+    flops_ms, bytes_ms = flops_s * 1e3, bytes_moved / PEAK_BYTES * 1e3
     return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
 
 
@@ -471,17 +486,21 @@ def graph_ms(torch, fn, reps: int = 10) -> float:
 
 
 def time_k2_admitted(torch, dwblock, taken):
-    """K2 at each admitted block of the bf16 path, on that block's own input
-    and packed weights, beside the same block as its three cuDNN convs (the
-    module with the kernel off, as the K2-off path serves it: conv, bias,
-    ReLU6, residual; `cudnn.benchmark` on) and its bound; device us per
-    launch, each captured in a CUDA graph so that the host's issue time of a
-    small block does not stand in for the card's; one line per block, then
-    the sums."""
+    """K2 at each admitted block of one path (bf16 or f32, the dtype of the
+    inputs in `taken`), on that block's own input and packed weights, beside
+    the same block as its three cuDNN convs (the module with the kernel off,
+    as the K2-off path serves it: conv, bias, ReLU6, residual;
+    `cudnn.benchmark` on; in f32 with TF32 off, as phase 3 leaves it) and its
+    bound (f32: 3xTF32); device us per launch, each captured in a CUDA graph
+    so that the host's issue time of a small block does not stand in for the
+    card's; one line per block, then the sums per serving step. Returns the
+    sums (kernel, convs, bound) in ms."""
     torch.backends.cudnn.benchmark = True
     sums = np.zeros(3)
-    print("K2 bf16 per admitted block (device us per launch, CUDA graphs): kernel, three cuDNN "
-          "convs, bound")
+    dtype = "bf16" if taken[0][2].dtype == torch.bfloat16 else "f32"
+    route = "bf16" if dtype == "bf16" else "3xtf32"
+    print(f"K2 {dtype} per admitted block (device us per launch, CUDA graphs): kernel, three "
+          f"cuDNN convs, bound ({route})")
     for name, m, x in taken:
         weights, blobs = m.kernel_weights(x.dtype)
         xn = x.permute(0, 2, 3, 1)
@@ -495,14 +514,16 @@ def time_k2_admitted(torch, dwblock, taken):
             m.use_kernel = True
         n, c, h, w = x.shape
         e, co = weights[0].shape[1], weights[4].shape[1]
-        bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
+        bound_ms, bound_by = k2_bound(n, h, w, c, e, co, route)
         sums += (kernel_ms, convs_ms, bound_ms)
         print(f"  {name} N,H,W,C,E,Co={(n, h, w, c, e, co)}: kernel {kernel_ms * 1e3:.2f}, "
               f"convs {convs_ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} ({bound_by}); "
               f"kernel/convs {kernel_ms / convs_ms:.3f}, kernel/bound {kernel_ms / bound_ms:.2f}")
     torch.backends.cudnn.benchmark = False
-    print(f"K2 bf16 over the {len(taken)} admitted blocks: kernel {sums[0] * 1e3:.2f} us, "
-          f"convs {sums[1] * 1e3:.2f} us, bound {sums[2] * 1e3:.2f} us per step")
+    print(f"K2 {dtype} over the {len(taken)} admitted blocks: kernel {sums[0] * 1e3:.2f} us, "
+          f"convs {sums[1] * 1e3:.2f} us, bound {sums[2] * 1e3:.2f} us per step; "
+          f"kernel/convs {sums[0] / sums[1]:.3f}")
+    return sums
 
 
 def check_gradients(torch, kernels, dwblock, twa, rng):
@@ -540,15 +561,14 @@ def time_k2(torch, F, dwblock, rng, dtype=None):
     residual), bf16 (`dtype` None) or f32, beside its plain version, the
     library yardstick (the folded block as three cuDNN convs with bias and
     ReLU6, `cudnn.benchmark` on; TF32 off, as phase 3 leaves it) and the
-    bound (f32: at the f32 rate outside the tensor cores, as the f32 kernel
-    runs plain FMA). All in ms per launch."""
+    bound (f32: 3xTF32, the kernel's route; the FMA bound is printed
+    beside it). All in ms per launch."""
     dtype = dtype or torch.bfloat16
     n, h, w, c, e, co = K2_FLAGSHIP
     args = [torch.tensor(a, dtype=torch.float32).to("cuda", dtype)
             for a in dw_case(rng, *K2_FLAGSHIP)]
     x, w1, b1, wd, bd, w2, b2 = args
-    # bf16: packed once, as served; the f32 kernel reads the plain weights
-    blobs = dwblock.pack_dwblock_weights(w1, b1, wd, bd, w2) if dtype == torch.bfloat16 else None
+    blobs = dwblock.pack_dwblock_weights(w1, b1, wd, bd, w2)  # packed once, as served
     kernel_ms = cuda_ms(lambda: dwblock.fused_dwblock_kernel(*args, True, blobs), 10)
     plain_ms = cuda_ms(lambda: dwblock.dwblock_ref(*args, True), 3)
 
@@ -566,10 +586,8 @@ def time_k2(torch, F, dwblock, rng, dtype=None):
     torch.backends.cudnn.benchmark = True
     library_ms = cuda_ms(library_block, 10)
     torch.backends.cudnn.benchmark = False
-    if dtype == torch.bfloat16:
-        bound_ms, bound_by = k2_bound(n, h, w, c, e, co)
-    else:
-        bound_ms, bound_by = k2_bound(n, h, w, c, e, co, 4, PEAK_F32_FLOPS)
+    bound_ms, bound_by = k2_bound(n, h, w, c, e, co,
+                                  "bf16" if dtype == torch.bfloat16 else "3xtf32")
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -1291,13 +1309,13 @@ def main() -> None:
           f"(per source: {json.dumps({k: round(v, 2) for k, v in build_s.items()})})")
     for name, log in kernels.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain versions, and the gradient wrappers
     rng = np.random.default_rng(SEED)
     k1_err = check_k1(torch, kernels, twa, rng)
-    k2_err = check_k2(torch, dwblock, rng)
+    k2_errs = check_k2(torch, dwblock, rng)
     check_gradients(torch, kernels, dwblock, twa, rng)
 
     # 3. the main paths at full width
@@ -1450,8 +1468,10 @@ def main() -> None:
                                       False, 0)
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
-    if check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k, first_clip,
-                         model32k.init_state(IN_H, IN_W, V, device="cuda"))[0] != admitted:
+    admitted32, taken32k = check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k,
+                                             first_clip,
+                                             model32k.init_state(IN_H, IN_W, V, device="cuda"))
+    if admitted32 != admitted:
         fail("the gate admits other blocks in f32 than in bf16")
     launches_f32k, _, sal32k, _ = drive("main path, K2 on (f32)", model32k, step32k, spy32k,
                                         seen32k, False, len(admitted) * CLIPS)
@@ -1494,11 +1514,15 @@ def main() -> None:
     # the f32 kernel as the f32 K2-on path launches it, on inputs of its own
     # (the main generator's draws stay as they were)
     k2_f32 = time_k2(torch, F, dwblock, np.random.default_rng(SEED + 9), torch.float32)
+    fma_ms = k2_bound(*K2_FLAGSHIP, "fma")[0]
     print(f"K2 f32 at N,H,W,C,E,Co={K2_FLAGSHIP}, residual: kernel {k2_f32[0] * 1e3:.2f} us/launch, "
           f"plain {k2_f32[1] * 1e3:.2f}, library (three cuDNN convs, TF32 off) "
-          f"{k2_f32[2] * 1e3:.2f}, bound {k2_f32[3] * 1e3:.2f} ({k2_f32[4]}, at "
-          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s); launches on the f32 K2-on path "
-          f"{launches_f32k['dwblock']} per {CLIPS} clips")
+          f"{k2_f32[2] * 1e3:.2f}, bound {k2_f32[3] * 1e3:.2f} ({k2_f32[4]}, 3xTF32 at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; {fma_ms * 1e3:.2f} on FMA at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f}); kernel/library {k2_f32[0] / k2_f32[2]:.3f}; launches "
+          f"on the f32 K2-on path {launches_f32k['dwblock']} per {CLIPS} clips")
+    k2_f32_sums = time_k2_admitted(torch, dwblock, taken32k)
+    del taken32k
 
     k1_f32 = time_k1_f32(torch, F, twa, rng)
 
@@ -1541,13 +1565,30 @@ def main() -> None:
         "source": "iip_uavsal_saliency_tpu_torch/csrc/dwblock.cu",
         "replaces": "iip_uavsal_saliency_tpu/ops/pallas_dwblock.py:162",
         "launches": launches_on["dwblock"],
-        "max_abs_err": k2_err,
+        "max_abs_err": k2_errs[torch.bfloat16],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms,
         "bound_by": k2_bound_by,
         "library_ms": k2_library_ms,
         "train_step_launches": train_launches["bf16 fused"]["dwblock"],
+    }, {
+        # the same kernel source in f32 (3xTF32), as the f32 K2-on path launches it
+        "name": "dwblock_f32",
+        "route": "cuda",
+        "source": "iip_uavsal_saliency_tpu_torch/csrc/dwblock.cu",
+        "replaces": "iip_uavsal_saliency_tpu/ops/pallas_dwblock.py:162",
+        "launches": launches_f32k["dwblock"],
+        "max_abs_err": k2_errs[torch.float32],
+        "ms": k2_f32[0],
+        "plain_ms": k2_f32[1],
+        "bound_ms": k2_f32[3],
+        "bound_by": k2_f32[4],
+        "bound_route": "3xTF32 at 495 TFLOP/s, depthwise at 67",
+        "library_ms": k2_f32[2],
+        "admitted_blocks_ms": k2_f32_sums[0],
+        "admitted_blocks_library_ms": k2_f32_sums[1],
+        "train_step_launches": train_launches["f32 fused"]["dwblock"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

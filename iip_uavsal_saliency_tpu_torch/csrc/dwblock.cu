@@ -20,7 +20,7 @@
 // 221 MB expanded maps through device memory several times; keeping them
 // in shared memory is the point of the kernel.
 //
-// Design. One block of 512 threads (four warpgroups) per tile of 8 x 16
+// Design (bf16). One block of 512 threads (four warpgroups) per tile of 8 x 16
 // output pixels of one frame and per 256 output channels. The block stages
 // the tile's x with a 1-pixel halo (10 x 18 = 180 pixels, 192 GEMM rows) in
 // shared memory once, then walks E in chunks of 64:
@@ -60,13 +60,54 @@
 // a cluster, warp-specialised overlap of the phases and a narrow variant
 // for small Co are later work.
 //
-// f32 runs plain FMA (no TF32) on a smaller tile, so the f32 check is tight
-// enough to show an indexing error; it stages its weights with cp.async from
-// the plain (C, E), (E, Co) tensors.
+// f32 runs both GEMMs on the tensor cores as 3xTF32: each f32 operand v is
+// split into a TF32 part big = rna(v) and a TF32 residual small =
+// rna(v - big), |v - big - small| <= 2^-22 |v|, and a product is
+// accumulated in f32 as small.big + big.small + big.big (the dropped
+// small.small term is about 2^-22 of it). At the flagship block that is
+// 3 x 113 GFLOP at the 495 TFLOP/s TF32 peak plus the depthwise's 2 GFLOP at
+// the 67 TFLOP/s FMA peak: about 720 us, against 1719.95 us for the whole
+// block on plain FMA. Same tile, warpgroups and chunk loop as bf16, with
+// what f32 changes:
+//   - x (192 x C x 4 bytes) no longer fits beside the rest, so it is not
+//     staged whole: slices of 8 channels of the tile's 180 halo pixels ride
+//     through the ring beside the matching 8 rows of W1 (one k8 step per
+//     slot), and each E chunk reads x's tile again, from L2. Warpgroup 3,
+//     idle during the expand, loads them: 16-byte cp.async per pixel half
+//     (zeros outside the image), completing on the slot's mbarrier with
+//     `cp.async.mbarrier.arrive.noinc`; W1's slice comes by one bulk copy.
+//     (One warp alone issues them too slowly to keep the ring full.)
+//     C is then bounded by the bf16 layout alone.
+//   - A (x for the expand, d for the project) is read from shared memory
+//     in f32 and split in registers; wgmma takes it from registers. B (W1,
+//     W2) is split at load by `ops/dwblock.py::pack_dwblock_weights`,
+//     big and small planes side by side (planes of 4 channels, k8 steps).
+//     Within each k8 step the pack orders the 8 rows as channels
+//     0 2 4 6 | 1 3 5 7, so that a thread's two A values of a row (MMA k = t
+//     and t + 4) are channels 2t and 2t + 1: one 8-byte load.
+//   - E chunks of 64 with the chunk's W2 piece resident (128 KB for big and
+//     small at 256 columns); d is written over e once the depthwise has
+//     read it (in registers), which leaves room for a ring of 4 slices.
+//   - The project's width per warpgroup follows Co (16, 32, 64 or 128
+//     columns, a template), so a narrow block does not pay for 256.
+//   - The residual reads x from device memory.
+//   - The tensor cores' f32 sums are not IEEE round-to-nearest: their
+//     error grows with the length of the sum, and with all of K in one
+//     accumulator the flagship block fell outside the f32 check. So the
+//     tensor cores sum at most K = 128 of the expand (16 slices) and K = 64
+//     of the project (one chunk) into a partial that is then added in f32:
+//     to e in shared memory for the expand, to the project's register
+//     accumulator for the project.
+//   - A register operand may not be rewritten while a wgmma that reads it
+//     is in flight: the expand waits for each slice's wgmma group before
+//     loading the next slice's A. (Two register sets, one group in
+//     flight, read slower on an H100: the registers are short.)
+// The f32 check (2e-5 on outputs of order 1 to 8) still shows an indexing
+// error: a slip of one TF32 rounding is 2^-11.
 //
 // Requirements (checked by the Python wrapper): C, E, Co multiples of 8,
-// all pointers 16-byte aligned, contiguous tensors, and a staged tile that
-// fits the 227 KB of shared memory: C <= MAX_C.
+// all pointers 16-byte aligned, contiguous tensors, and (for the bf16
+// kernel's staged x tile) C <= MAX_C, the same gate for both dtypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,9 +121,9 @@ constexpr int NT = 512;            // threads per block
 constexpr int NWARP = NT / 32;     // 16 warps
 constexpr int NP = 256;            // output channels per block
 constexpr int SMEM_LIMIT = 232448; // 227 KB, the most a Hopper block can use
-constexpr int MAX_C = 352;         // widest x that fits; ops/dwblock.py gates on it
+constexpr int MAX_C = 352;         // widest x the bf16 tile takes; ops/dwblock.py gates on it
 
-// Timing-only builds (tools/k2_probe.py) compile parts of the bf16 kernel
+// Timing-only builds (tools/k2_probe.py) compile parts of either kernel
 // out with -DDWBLOCK_SKIP=<bit mask over Part>; their results are wrong by
 // design.
 #ifndef DWBLOCK_SKIP
@@ -138,68 +179,62 @@ static_assert(BLay::W2_BYTES % 128 == 0 && BLay::ES_BYTES % 128 == 0 &&
               "every buffer starts 128-byte aligned");
 static_assert(BLay::MP >= BLay::HP && BLay::TW == NWARP, "tiling");
 
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<float> {
-  static constexpr int TH = 4, TW = 16, EC = 32;
-};
-
-// The f32 kernel's shared-memory layout. Row strides carry VEC elements of
-// padding, which keeps rows 16-byte aligned.
-template <typename T>
-struct Lay {
-  static constexpr int TH = Cfg<T>::TH, TW = Cfg<T>::TW;
-  static constexpr int EC = Cfg<T>::EC;
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int HW2 = TW + 2;              // halo tile width
-  static constexpr int HP = (TH + 2) * HW2;       // halo pixels
-  static constexpr int MP = round_up(HP, 16);     // rows of the expand GEMM
-  static constexpr int TP = TH * TW;              // output pixels
-  static constexpr int LDE = EC + VEC;            // e, d, W1 slice rows
-  static constexpr int LDW2 = NP + VEC;
-  static constexpr int ES_BYTES = round_up(MP * LDE * sizeof(T), 128);
-  static constexpr int DS_BYTES = round_up(TP * LDE * sizeof(T), 128);
-  static constexpr int W2_BYTES = round_up(EC * LDW2 * sizeof(T), 128);
-  static constexpr int VEC_BYTES = round_up(11 * EC * sizeof(T), 128);
-  __host__ __device__ static constexpr int ldx(int C) {
-    return round_up(C, 16) + VEC;
+// The f32 kernel's shared memory (bytes unless named *_ELEMS), in this
+// order: mbarriers, the W2 piece (big planes, small planes, then b1, bd and
+// nine rows of taps), e (d is later written over it), and the ring, whose
+// slot holds an x slice (pixel-major, 8 channels) and its W1 slice (big
+// planes, small planes).
+struct FLay {
+  static constexpr int TH = 8, TW = 16, EC = 64;
+  static constexpr int PLANE = 4;                   // f32 channels per core-matrix row
+  static constexpr int CORE = 8 * 16;               // bytes of a core matrix: 8 rows of 16
+  static constexpr int KS = 8;                      // channels of x per slice: one k8 step
+  static constexpr int GROUP = 16;                  // expand k8 steps the tensor cores sum at a time
+  static constexpr int HW2 = TW + 2;                // halo tile width
+  static constexpr int HP = (TH + 2) * HW2;         // halo pixels
+  static constexpr int TP = TH * TW;                // output pixels: 2 x m64
+  static constexpr int LDE = EC + 8;                // row of e and d: 288 bytes, conflict-free
+  static constexpr int VEC_ELEMS = 11 * EC;         // b1, bd, nine rows of taps
+  static constexpr int MAX_RING = 12;
+  static constexpr int BAR_BYTES = 256;             // 2 * MAX_RING + 1 mbarriers
+  static constexpr int XS_BYTES = HP * KS * 4;
+  static constexpr int W1S_ELEMS = 2 * KS * EC;     // big and small
+  static constexpr int RING_SLOT = XS_BYTES + W1S_ELEMS * 4;
+  static constexpr int ED_BYTES = HP * LDE * 4;
+  // The W2 piece holds the columns of the widest column block,
+  // wcols = min(Co, NP); the ring takes what is left, at most MAX_RING.
+  __host__ __device__ static constexpr int w2_bytes(int wcols) {
+    return round_up((2 * EC * wcols + VEC_ELEMS) * 4, 128);
   }
-  __host__ __device__ static constexpr int xs_bytes(int C) {
-    return round_up(MP * ldx(C) * static_cast<int>(sizeof(T)), 128);
+  __host__ __device__ static constexpr int fixed_bytes(int wcols) {
+    return BAR_BYTES + w2_bytes(wcols) + ED_BYTES;
   }
-  __host__ __device__ static constexpr int fixed_bytes(int C) {
-    return xs_bytes(C) + ES_BYTES + DS_BYTES + W2_BYTES + VEC_BYTES;
+  __host__ __device__ static constexpr int ring(int wcols) {
+    return (SMEM_LIMIT - fixed_bytes(wcols)) / RING_SLOT < MAX_RING
+               ? (SMEM_LIMIT - fixed_bytes(wcols)) / RING_SLOT
+               : MAX_RING;
   }
-  // Rows of W1 in one staged slice: the most of 128, 64, 32 whose two
-  // buffers fit beside the rest. Every slice costs the block a barrier, so
-  // longer slices are faster.
-  __host__ __device__ static constexpr int w1_bytes(int ks) {
-    return round_up(ks * LDE * static_cast<int>(sizeof(T)), 128);
-  }
-  __host__ __device__ static constexpr int ks(int C) {
-    int k = 128;
-    while (k > 32 && fixed_bytes(C) + 2 * w1_bytes(k) > SMEM_LIMIT) k /= 2;
-    return k;
-  }
-  __host__ __device__ static constexpr int smem_bytes(int C) {
-    return fixed_bytes(C) + 2 * w1_bytes(ks(C));
+  __host__ __device__ static constexpr int smem_bytes(int wcols) {
+    return fixed_bytes(wcols) + ring(wcols) * RING_SLOT;
   }
 };
-
+static_assert(FLay::XS_BYTES % 128 == 0 && FLay::ED_BYTES % 128 == 0 &&
+                  FLay::RING_SLOT % 128 == 0 && 8 * (2 * FLay::MAX_RING + 1) <= FLay::BAR_BYTES,
+              "every f32 buffer starts 128-byte aligned");
+static_assert(FLay::ring(NP) >= 2 && FLay::smem_bytes(NP) <= SMEM_LIMIT &&
+                  FLay::TP <= FLay::HP && FLay::HP <= 3 * 64 && FLay::TW == NWARP,
+              "f32 tiling");
+// x is staged whole only by the bf16 kernel, whose ring then keeps two
+// slots up to MAX_C and not one channel group more.
 static_assert(BLay::smem_bytes(MAX_C) <= SMEM_LIMIT && BLay::ring(MAX_C) >= 2 &&
-                  Lay<float>::smem_bytes(MAX_C) <= SMEM_LIMIT &&
-                  Lay<float>::smem_bytes(MAX_C + 8) > SMEM_LIMIT,
+                  BLay::ring(MAX_C + 8) < 2,
               "MAX_C is the widest x tile that fits shared memory");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
@@ -375,6 +410,90 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// 3xTF32. The TF32 value nearest v (ties away from zero), as wgmma reads it.
+__device__ __forceinline__ unsigned tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// A thread's four f32 A values of one k8 step, split: a0 (row g, k = t),
+// a1 (row g + 8, k = t), a2 (row g, k = t + 4), a3 (row g + 8, k = t + 4),
+// from the two channels 2t, 2t + 1 of rows g and g + 8 (see the pack's
+// row order).
+struct Split {
+  unsigned big[4], small[4];
+  __device__ __forceinline__ Split(float2 row_g, float2 row_g8) {
+    const float v[4] = {row_g.x, row_g8.x, row_g.y, row_g8.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      big[i] = tf32(v[i]);
+      small[i] = tf32(v[i] - __uint_as_float(big[i]));
+    }
+  }
+};
+
+// d (64 x N, f32) += A (64 x 8, tf32, registers as `Split` holds them) .
+// B (8 x N, tf32, K-major in shared memory). d's layout is wgmma_m64n64's.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// d += a . (big + small) in three products, the small ones first.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2], const Split& a, uint64_t b_big,
+                                     uint64_t b_small) {
+  wgmma_tf32<N>(d, a.small, b_big);
+  wgmma_tf32<N>(d, a.big, b_small);
+  wgmma_tf32<N>(d, a.big, b_big);
+}
+// Arrives on `bar` once this thread's cp.async copies so far have landed
+// (an arrival the barrier's count includes).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // bf16 on wgmma. w1p and w2p are the packed weights of
@@ -624,268 +743,307 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// f32 on plain FMA. Expand: thread t < MP * EC / 8 owns row t / (EC/8) and
-// 8 columns. Project: thread t owns 8 columns (t % 32) and PI rows. `each_e`
-// / `each_p` hand the accumulators to f(row, col, v) in runs of 8 columns.
-template <typename T>
-struct Mma;
-template <>
-struct Mma<float> {
-  using T = float;
-  using L = Lay<T>;
-  static constexpr int EG = L::EC / 8;          // column groups of the expand
-  static constexpr int PG = NP / 8;             // column groups of the project
-  static constexpr int PI = L::TP * PG / NT;    // rows per thread
-  static_assert(L::MP * EG <= NT, "expand tiling");
-  static_assert(L::TP * PG % NT == 0 && NT % PG == 0, "project tiling");
-  float acc_e[8];
-  float acc_p[PI][8];
-
-  __device__ void zero_e() {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc_e[e] = 0.0f;
-  }
-  __device__ void zero_p() {
-#pragma unroll
-    for (int i = 0; i < PI; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc_p[i][e] = 0.0f;
-  }
-
-  __device__ void expand(const T* xs, int ldx, int k0, int kn, const T* w1s) {
-    if (threadIdx.x >= L::MP * EG) return;
-    const int row = threadIdx.x / EG, col = (threadIdx.x % EG) * 8;
-    for (int k = 0; k < kn; ++k) {
-      const float a = xs[row * ldx + k0 + k];
-      float b[8];
-      load_run<T, 8>(w1s + k * L::LDE + col, b);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc_e[e] = fmaf(a, b[e], acc_e[e]);
+// A place in a ring of mbarrier-guarded slots: the slot and the parity of
+// the phase its current use completes.
+struct Cursor {
+  int slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int slots) {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
     }
-  }
-
-  template <typename F>
-  __device__ void each_e(F f) {
-    if (threadIdx.x >= L::MP * EG) return;
-    f(threadIdx.x / EG, (threadIdx.x % EG) * 8, acc_e);
-  }
-
-  __device__ void project(const T* ds, const T* w2s, int ncol) {
-    const int col = (threadIdx.x % PG) * 8, r0 = threadIdx.x / PG;
-    if (col >= ncol) return;
-#pragma unroll 4
-    for (int k = 0; k < L::EC; ++k) {
-      float b[8];
-      load_run<T, 8>(w2s + k * L::LDW2 + col, b);
-#pragma unroll
-      for (int i = 0; i < PI; ++i) {
-        const float a = ds[(r0 + (NT / PG) * i) * L::LDE + k];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc_p[i][e] = fmaf(a, b[e], acc_p[i][e]);
-      }
-    }
-  }
-
-  template <typename F>
-  __device__ void each_p(int ncol, F f) {
-    const int col = (threadIdx.x % PG) * 8, r0 = threadIdx.x / PG;
-    if (col >= ncol) return;
-#pragma unroll
-    for (int i = 0; i < PI; ++i) f(r0 + (NT / PG) * i, col, acc_p[i]);
   }
 };
 
-// The f32 kernel: W1 (C, E), Wd (3, 3, E), W2 (E, Co) as they are, staged
-// by cp.async. grid = (N * tiles_y * tiles_x, ceil(Co / NP)).
-template <typename T>
+// f32 as 3xTF32 on wgmma. w1p and w2p are the packed weights of
+// ops/dwblock.py::pack_dwblock_weights (f32 form). NW: output channels per
+// project warpgroup. grid = (N * tiles_y * tiles_x, ceil(Co / NP)).
+template <int NW>
 __global__ void __launch_bounds__(NT, 1)
-    dwblock_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                   const T* __restrict__ b1, const T* __restrict__ wd,
-                   const T* __restrict__ bd, const T* __restrict__ w2,
-                   const T* __restrict__ b2, T* __restrict__ out, int H, int W,
-                   int C, int E, int Co, int tiles_x, int tiles_y, int ks,
-                   int residual) {
-  using L = Lay<T>;
-  constexpr int VEC = L::VEC;
+    dwblock_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1p,
+                       const float* __restrict__ w2p, const float* __restrict__ b2,
+                       float* __restrict__ out, int H, int W, int C, int E, int Co, int tiles_x,
+                       int tiles_y, int residual) {
+  using L = FLay;
+  const int wcols = Co < NP ? Co : NP;
+  const int R = L::ring(wcols);
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = L::ldx(C);
-  const int cpad = round_up(C, 16);
-  unsigned char* sp = smem;
-  T* xs = reinterpret_cast<T*>(sp);
-  sp += L::xs_bytes(C);
-  T* es = reinterpret_cast<T*>(sp);
-  sp += L::ES_BYTES;
-  T* ds = reinterpret_cast<T*>(sp);
-  sp += L::DS_BYTES;
-  T* w2s = reinterpret_cast<T*>(sp);
-  sp += L::W2_BYTES;
-  T* b1s = reinterpret_cast<T*>(sp);
-  T* bds = b1s + L::EC;
-  T* wds = bds + L::EC;  // [9][EC]
-  sp += L::VEC_BYTES;
-  T* w1s = reinterpret_cast<T*>(sp);  // two buffers of one slice of W1 each
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [R]: a slice landed
+  uint64_t* empty = full + L::MAX_RING;                // [R]: all expand warps read it
+  uint64_t* w2full = empty + L::MAX_RING;              // the chunk's W2 piece landed
+  float* w2s = reinterpret_cast<float*>(smem + L::BAR_BYTES);  // [2][16 planes][ncol][4], vectors
+  float* es = reinterpret_cast<float*>(smem + L::BAR_BYTES + L::w2_bytes(wcols));  // e, then d
+  unsigned char* ring = smem + L::fixed_bytes(wcols);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int tiles = tiles_x * tiles_y;
   const int tile = blockIdx.x % tiles;
   const long long n = blockIdx.x / tiles;
   const int ty0 = (tile / tiles_x) * L::TH, tx0 = (tile % tiles_x) * L::TW;
   const int co0 = blockIdx.y * NP;
-  const int ncol = Co - co0 < NP ? Co - co0 : NP;
-  const int ncol16 = round_up(ncol, 16);
+  const int ncol = Co - co0 < NP ? Co - co0 : NP;  // rows of this block's W2 piece
+  const float* b1s = w2s + 2 * L::EC * ncol;
+  const float* bds = b1s + L::EC;
+  const float* wds = bds + L::EC;  // [9][EC]
   x += n * H * W * C;
   out += n * H * W * Co;
 
-  // Every staging copy is a 16-byte cp.async, zero-filled where the source
-  // does not exist (outside the image, past C, E or Co).
-  auto stage_x = [&]() {
-    const int groups = cpad / VEC;
-    for (int i = tid; i < L::MP * groups; i += NT) {
-      const int hp = i / groups, c = (i % groups) * VEC;
-      const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
-      const bool ok = hp < L::HP && c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp_async16(xs + hp * ldx + c,
-                 ok ? x + (static_cast<long long>(gy) * W + gx) * C + c : x, ok);
-    }
-  };
-  // The chunk's rows of W2, and its b1, bd and nine rows of depthwise taps.
-  auto stage_chunk = [&](int e0) {
-    const int groups = ncol16 / VEC;
-    for (int i = tid; i < L::EC * groups; i += NT) {
-      const int r = i / groups, c = (i % groups) * VEC;
-      const bool ok = e0 + r < E && c < ncol;
-      cp_async16(w2s + r * L::LDW2 + c,
-                 ok ? w2 + static_cast<long long>(e0 + r) * Co + co0 + c : w2, ok);
-    }
-    constexpr int vgroups = L::EC / VEC;
-    for (int i = tid; i < 11 * vgroups; i += NT) {
-      const int r = i / vgroups, c = (i % vgroups) * VEC;
-      const T* row = r == 0 ? b1 : r == 1 ? bd : wd + static_cast<long long>(r - 2) * E;
-      const bool ok = e0 + c < E;
-      cp_async16(b1s + r * L::EC + c, ok ? row + e0 + c : row, ok);
-    }
-  };
-  // Slice q of the flat (chunk, K slice) sequence of W1, into buffer q % 2;
-  // nothing past the last slice.
-  const int nslices = (cpad + ks - 1) / ks;
   const int nchunks = (E + L::EC - 1) / L::EC;
-  const int w1_elems = L::w1_bytes(ks) / static_cast<int>(sizeof(T));
-  auto stage_w1 = [&](int q) {
-    if (q >= nchunks * nslices) return;
-    const int e0 = (q / nslices) * L::EC, k0 = (q % nslices) * ks;
-    T* dst = w1s + (q % 2) * w1_elems;
-    constexpr int groups = L::EC / VEC;
-    const int rows = cpad - k0 < ks ? cpad - k0 : ks;
-    for (int i = tid; i < rows * groups; i += NT) {
-      const int k = i / groups, c = (i % groups) * VEC;
-      const bool ok = k0 + k < C && e0 + c < E;
-      cp_async16(dst + k * L::LDE + c,
-                 ok ? w1 + static_cast<long long>(k0 + k) * E + e0 + c : w1, ok);
-    }
+  const int nslices = C / L::KS;
+  const int total = nchunks * nslices;
+  constexpr int PRODUCER = 3 * 128;  // warpgroup 3 loads the ring; its first thread the bulk copies
+  auto slot_x = [&](int slot) { return reinterpret_cast<float*>(ring + slot * L::RING_SLOT); };
+  auto slot_w1 = [&](int slot) {
+    return reinterpret_cast<float*>(ring + slot * L::RING_SLOT + L::XS_BYTES);
   };
 
-  Mma<T> mma;
-  mma.zero_p();
-  stage_x();
-  stage_chunk(0);
-  stage_w1(0);
-  cp_async_commit();
-  int q = 0;
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
-    // A. expand GEMM over K slices of W1. Slice q + 1 (the next chunk's
-    // first, after this chunk's last) lands while slice q is multiplied;
-    // the first iteration also starts this chunk's W2 rows, biases and
-    // taps, which the previous chunk was still reading until now.
-    mma.zero_e();
-    for (int s = 0; s < nslices; ++s, ++q) {
-      cp_async_wait_all();
-      __syncthreads();  // slice q is there, and slice q - 1's buffer is free
-      if (s == 0 && chunk > 0) stage_chunk(chunk * L::EC);
-      stage_w1(q + 1);
-      cp_async_commit();
-      const int k0 = s * ks;
-      mma.expand(xs, ldx, k0, cpad - k0 < ks ? cpad - k0 : ks, w1s + (q % 2) * w1_elems);
-    }
-    if (nslices == 1) {  // then nothing above waited for the chunk's own copies
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    mma.each_e([&](int hp, int col, const auto& v) {
-      constexpr int RUN = sizeof(v) / sizeof(float);
-      const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
-      const bool inside =
-          hp < L::HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      float o[RUN];
+  // A thread of warpgroup 3 copies the same (up to) 3 of the 2 * HP
+  // 16-byte pieces of every x slice: piece i (pixel i / 2, half i % 2) goes
+  // to float 4i of the slot and comes from x at piece_src (channel 0; -1
+  // outside the image, which the copy fills with zeros).
+  constexpr int PIECES = (2 * L::HP + 127) / 128;
+  int piece_src[PIECES];
 #pragma unroll
-      for (int e = 0; e < RUN; ++e)
-        o[e] = inside ? relu6(v[e] + to_f(b1s[col + e])) : 0.0f;
-      store_run<T, RUN>(es + hp * L::LDE + col, o);
-    });
-    __syncthreads();
+  for (int j = 0; j < PIECES; ++j) {
+    const int i = tid - PRODUCER + 128 * j, hp = i / 2;
+    const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    piece_src[j] = ok ? (gy * W + gx) * C + 4 * (i % 2) : -1;
+  }
+  // Slice q (of the flat (chunk, 8 channels) sequence, channels c0..c0+7)
+  // into `slot`, by warpgroup 3: x's 8 channels of the halo pixels by
+  // cp.async (each thread's completion is one of the slot's arrivals) and
+  // the matching W1 slice by one bulk copy.
+  auto issue_slice = [&](int slot, int q, int c0) {
+    uint64_t* bar = &full[slot];
+    if constexpr (runs(COPIES)) {
+      float* xd = slot_x(slot);
+#pragma unroll
+      for (int j = 0; j < PIECES; ++j) {
+        const int i = tid - PRODUCER + 128 * j;
+        if (i < 2 * L::HP)
+          cp_async16(xd + 4 * i, piece_src[j] >= 0 ? x + piece_src[j] + c0 : x,
+                     piece_src[j] >= 0);
+      }
+      cp_async_arrive(bar);
+      if (tid == PRODUCER)
+        bulk_load(slot_w1(slot), w1p + static_cast<long long>(q) * L::W1S_ELEMS,
+                  L::W1S_ELEMS * 4, bar);
+    } else {
+      bar_arrive(bar);
+      if (tid == PRODUCER) bar_arrive(bar);
+    }
+  };
+  // Warpgroup 3's place in the slice sequence: the next slice to issue and
+  // its first channel, and the slice whose release it waits for next.
+  int next_q = 0, next_c0 = 0;
+  Cursor released;
+  auto issue_next = [&](int slot) {
+    issue_slice(slot, next_q, next_c0);
+    ++next_q;
+    next_c0 = next_c0 + L::KS == C ? 0 : next_c0 + L::KS;
+  };
+  // The chunk's W2 rows of this column block, big and small, then its b1,
+  // bd and taps.
+  auto issue_w2 = [&](int chunk) {
+    const long long at =
+        static_cast<long long>(chunk) * (2 * L::EC * Co + gridDim.y * L::VEC_ELEMS) +
+        blockIdx.y * (2 * L::EC * NP + L::VEC_ELEMS);
+    if constexpr (runs(COPIES))
+      bulk_load(w2s, w2p + at, (2 * L::EC * ncol + L::VEC_ELEMS) * 4, w2full);
+    else
+      bar_arrive(w2full);
+  };
 
-    // B. depthwise 3x3 over the staged e: a warp per output column, a lane
-    // per CPL channels; each staged e is read once and feeds the (up to)
-    // three output rows it touches, taps in dy, dx order.
-    {
-      constexpr int CPL = L::EC / 32;
-      static_assert(L::TW == NWARP && L::EC % 32 == 0, "depthwise tiling");
-      const int ox = tid / 32, c = (tid % 32) * CPL;
-      float wt[9][CPL], acc[L::TH][CPL];
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      bar_init(&full[i], 128 + 1);  // warpgroup 3's cp.async arrivals, the bulk copy's
+      bar_init(&empty[i], 12);      // the 12 warps of warpgroups 0-2
+    }
+    bar_init(w2full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 3) {
+    while (next_q < R && next_q < total) issue_next(next_q);
+    if (tid == PRODUCER) issue_w2(0);
+  }
+  Cursor taken;  // the expand warps' place in the ring
+
+  float acc_p[NW / 2];
 #pragma unroll
-      for (int t = 0; t < 9; ++t) load_run<T, CPL>(wds + t * L::EC + c, wt[t]);
+  for (int i = 0; i < NW / 2; ++i) acc_p[i] = 0.0f;
+  const int prow = (wg % 2) * 64, pcol = (wg / 2) * NW;  // this warpgroup's part of p
+  const float2 zero = make_float2(0.0f, 0.0f);
+
+  for (int chunk = 0; chunk < nchunks; ++chunk) {
+    // A. expand, warpgroup wg < 3 on halo rows 64 wg ..; each slice of the
+    // chunk is waited for on its slot's `full` and released on `empty` once
+    // the wgmma group that read it has completed. That group is waited for
+    // before the next slice's A values go into the registers it reads. The
+    // tensor cores' sum runs over GROUP slices at a time (K = 128) and is
+    // then added to e in f32.
+    if (wg < 3) {
+      float acc[32];
 #pragma unroll
-      for (int oy = 0; oy < L::TH; ++oy)
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      keep(acc);
+      const int r0 = wg * 64 + 16 * warp + g, r1 = r0 + 8;
+      for (int s = 0; s < nslices; ++s) {
+        bar_wait(&full[taken.slot], taken.phase);
+        __syncwarp();
+        const float* xs = slot_x(taken.slot);
+        const Split a(r0 < L::HP ? *reinterpret_cast<const float2*>(xs + r0 * L::KS + 2 * t) : zero,
+                      r1 < L::HP ? *reinterpret_cast<const float2*>(xs + r1 * L::KS + 2 * t) : zero);
+        const float* w1s = slot_w1(taken.slot);
+        wgmma_fence();
+        if constexpr (runs(EXPAND))
+          mma3<64>(acc, a, smem_desc(w1s, L::EC * 16, L::CORE),
+                   smem_desc(w1s + L::KS * L::EC, L::EC * 16, L::CORE));
+        wgmma_commit();
+        wgmma_wait<0>();
+        keep(acc);
+        if (lane == 0) bar_arrive(&empty[taken.slot]);
+        taken.next(R);
+        const bool last = s + 1 == nslices;
+        if (!last && (s + 1) % L::GROUP) continue;
+        // fold the group's sum into e; after the last group + b1, ReLU6,
+        // zero outside the image
+        if (last) bar_wait(w2full, chunk & 1);  // b1 rides with the chunk's W2 piece
+        if constexpr (runs(EXPAND_EPILOGUE)) {
 #pragma unroll
-        for (int e = 0; e < CPL; ++e) acc[oy][e] = 0.0f;
+          for (int j = 0; j < 8; ++j) {
+            const int col = 8 * j + 2 * t;
+            const float2 bb = *reinterpret_cast<const float2*>(b1s + col);
 #pragma unroll
-      for (int r = 0; r < L::TH + 2; ++r)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          float ev[CPL];
-          load_run<T, CPL>(es + (r * L::HW2 + ox + dx) * L::LDE + c, ev);
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const int oy = r - dy;
-            if (oy < 0 || oy >= L::TH) continue;
-#pragma unroll
-            for (int e = 0; e < CPL; ++e)
-              acc[oy][e] = fmaf(ev[e], wt[dy * 3 + dx][e], acc[oy][e]);
+            for (int h = 0; h < 2; ++h) {
+              const int hp = wg * 64 + 16 * warp + g + 8 * h;
+              if (hp >= L::HP) continue;
+              float2* e = reinterpret_cast<float2*>(es + hp * L::LDE + col);
+              float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+              if (s >= L::GROUP) {
+                const float2 before = *e;
+                v = make_float2(before.x + v.x, before.y + v.y);
+              }
+              if (last) {
+                const int gy = ty0 + hp / L::HW2 - 1, gx = tx0 + hp % L::HW2 - 1;
+                const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+                v = inside ? make_float2(relu6(v.x + bb.x), relu6(v.y + bb.y)) : zero;
+              }
+              *e = v;
+            }
           }
         }
-      float bias[CPL];
-      load_run<T, CPL>(bds + c, bias);
 #pragma unroll
-      for (int oy = 0; oy < L::TH; ++oy) {
+        for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      }
+    } else {
+      // warpgroup 3 refills each slot of this chunk with the slice R later, once read
+      for (int s = 0; s < nslices && next_q < total; ++s) {
+        bar_wait(&empty[released.slot], released.phase);
+        issue_next(released.slot);
+        released.next(R);
+      }
+      bar_wait(w2full, chunk & 1);
+    }
+    __syncthreads();
+
+    // B. depthwise 3x3 over e: a warp per output column, a lane per two
+    // channels, taps in dy, dx order, d kept in registers until every
+    // thread has read e, then written over it.
+    {
+      const int ox = tid / 32, c = 2 * lane;
+      float2 dv[L::TH];
+      if constexpr (runs(DEPTHWISE)) {
+        float2 wt[9];
 #pragma unroll
-        for (int e = 0; e < CPL; ++e) acc[oy][e] = relu6(acc[oy][e] + bias[e]);
-        store_run<T, CPL>(ds + (oy * L::TW + ox) * L::LDE + c, acc[oy]);
+        for (int k = 0; k < 9; ++k) wt[k] = *reinterpret_cast<const float2*>(wds + k * L::EC + c);
+#pragma unroll
+        for (int oy = 0; oy < L::TH; ++oy) dv[oy] = zero;
+#pragma unroll
+        for (int r = 0; r < L::TH + 2; ++r)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float2 ev = *reinterpret_cast<const float2*>(es + (r * L::HW2 + ox + dx) * L::LDE + c);
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+              const int oy = r - dy;
+              if (oy < 0 || oy >= L::TH) continue;
+              dv[oy].x = fmaf(ev.x, wt[dy * 3 + dx].x, dv[oy].x);
+              dv[oy].y = fmaf(ev.y, wt[dy * 3 + dx].y, dv[oy].y);
+            }
+          }
+        const float2 bias = *reinterpret_cast<const float2*>(bds + c);
+#pragma unroll
+        for (int oy = 0; oy < L::TH; ++oy)
+          dv[oy] = make_float2(relu6(dv[oy].x + bias.x), relu6(dv[oy].y + bias.y));
+      }
+      __syncthreads();  // every read of e is done
+      if constexpr (runs(DEPTHWISE))
+#pragma unroll
+        for (int oy = 0; oy < L::TH; ++oy)
+          *reinterpret_cast<float2*>(es + (oy * L::TW + ox) * L::LDE + c) = dv[oy];
+    }
+    __syncthreads();
+
+    // C. partial project GEMM: 64 pixels x NW output channels per
+    // warpgroup, over the chunk's 64 rows of W2 (eight k8 steps), at most 64
+    // columns at a time, summed by the tensor cores into `part` and then
+    // added to acc_p in f32.
+    if (pcol < ncol) {
+      constexpr int NH = NW < 64 ? NW : 64;
+      const int r0 = prow + 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+      for (int half = 0; half < NW / NH; ++half) {
+        float part[NH / 2];
+#pragma unroll
+        for (int i = 0; i < NH / 2; ++i) part[i] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < L::EC / 8; ++kk) {
+          const Split a(*reinterpret_cast<const float2*>(es + r0 * L::LDE + 8 * kk + 2 * t),
+                        *reinterpret_cast<const float2*>(es + r1 * L::LDE + 8 * kk + 2 * t));
+          const float* wb = w2s + (2 * kk * ncol + pcol + half * NH) * L::PLANE;
+          wgmma_fence();
+          if constexpr (runs(PROJECT))
+            mma3<NH>(part, a, smem_desc(wb, ncol * 16, L::CORE),
+                     smem_desc(wb + L::EC * ncol, ncol * 16, L::CORE));
+          wgmma_commit();
+          wgmma_wait<1>();  // this step's A is in distinct registers from the last
+        }
+        wgmma_wait<0>();
+        keep(part);
+#pragma unroll
+        for (int i = 0; i < NH / 2; ++i) acc_p[half * NH / 2 + i] += part[i];
       }
     }
-    __syncthreads();
-
-    // C. partial project GEMM.
-    mma.project(ds, w2s, ncol);
-    __syncthreads();
+    __syncthreads();  // d and the W2 piece are free again
+    if (tid == PRODUCER && chunk + 1 < nchunks) issue_w2(chunk + 1);
   }
 
-  // Epilogue: + b2 (+ x), store the pixels and channels that exist.
-  mma.each_p(ncol, [&](int p, int col, const auto& v) {
-    constexpr int RUN = sizeof(v) / sizeof(float);
-    const int oy = p / L::TW, ox = p % L::TW;
-    const int gy = ty0 + oy, gx = tx0 + ox;
-    if (col >= ncol || gy >= H || gx >= W) return;
-    float o[RUN], bv[RUN];
-    load_run<T, RUN>(b2 + co0 + col, bv);
+  // Epilogue: + b2 (+ x, from device memory), store the pixels and channels
+  // that exist.
+  if (pcol >= ncol) return;
 #pragma unroll
-    for (int e = 0; e < RUN; ++e) o[e] = v[e] + bv[e];
-    if (residual) {
-      float xv[RUN];
-      load_run<T, RUN>(xs + ((oy + 1) * L::HW2 + ox + 1) * ldx + co0 + col, xv);
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = pcol + 8 * j + 2 * t;
+    if (col >= ncol) continue;
+    const float2 bv = *reinterpret_cast<const float2*>(b2 + co0 + col);
 #pragma unroll
-      for (int e = 0; e < RUN; ++e) o[e] += xv[e];
+    for (int h = 0; h < 2; ++h) {
+      const int p = prow + 16 * warp + g + 8 * h;
+      const int gy = ty0 + p / L::TW, gx = tx0 + p % L::TW;
+      if (gy >= H || gx >= W) continue;
+      const long long pix = static_cast<long long>(gy) * W + gx;
+      float2 o = make_float2(acc_p[4 * j + 2 * h] + bv.x, acc_p[4 * j + 2 * h + 1] + bv.y);
+      if (residual) {
+        const float2 xv = *reinterpret_cast<const float2*>(x + pix * C + co0 + col);
+        o.x += xv.x;
+        o.y += xv.y;
+      }
+      *reinterpret_cast<float2*>(out + pix * Co + co0 + col) = o;
     }
-    store_run<T, RUN>(out + (static_cast<long long>(gy) * W + gx) * Co + co0 + col, o);
-  });
+  }
 }
 
 // Grid of one block per tile and 256 output channels; 0 or the CUDA error.
@@ -899,25 +1057,20 @@ int grid_of(int N, int H, int W, int Co, int th, int tw, int* tiles_x, int* tile
   return 0;
 }
 
-int launch_f32(const void* x, const void* w1, const void* b1, const void* wd,
-               const void* bd, const void* w2, const void* b2, void* out, int N,
-               int H, int W, int C, int E, int Co, int residual, void* stream) {
-  using T = float;
-  using L = Lay<T>;
-  const int smem = L::smem_bytes(C);
-  if (smem > SMEM_LIMIT || (residual && C != Co))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t rc = allow_smem(dwblock_kernel<T>, smem);
+template <int NW>
+int launch_f32(const void* x, const void* w1p, const void* w2p, const void* b2, void* out,
+               int N, int H, int W, int C, int E, int Co, int residual, void* stream) {
+  using L = FLay;
+  const int smem = L::smem_bytes(Co < NP ? Co : NP);
+  cudaError_t rc = allow_smem(dwblock_f32_kernel<NW>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int tiles_x, tiles_y;
   dim3 grid;
   if (int bad = grid_of(N, H, W, Co, L::TH, L::TW, &tiles_x, &tiles_y, &grid)) return bad;
-  dwblock_kernel<T><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(wd),
-      static_cast<const T*>(bd), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), H, W, C, E, Co, tiles_x,
-      tiles_y, L::ks(C), residual);
+  dwblock_f32_kernel<NW><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1p),
+      static_cast<const float*>(w2p), static_cast<const float*>(b2), static_cast<float*>(out),
+      H, W, C, E, Co, tiles_x, tiles_y, residual);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -944,23 +1097,31 @@ int launch_bf16(const void* x, const void* w1p, const void* w2p, const void* b2,
 
 extern "C" {
 
-// Each returns cudaGetLastError() right after the launch (0 on success).
-// bf16 reads the weights packed by ops/dwblock.py::pack_dwblock_weights.
+// Each returns cudaGetLastError() right after the launch (0 on success) and
+// reads the weights packed by ops/dwblock.py::pack_dwblock_weights.
 int dwblock_bf16(const void* x, const void* w1_packed, const void* w2_packed, const void* b2,
                  void* out, int N, int H, int W, int C, int E, int Co, int residual,
                  void* stream) {
   return launch_bf16(x, w1_packed, w2_packed, b2, out, N, H, W, C, E, Co, residual, stream);
 }
 
-int dwblock_f32(const void* x, const void* w1, const void* b1, const void* wd,
-                const void* bd, const void* w2, const void* b2, void* out,
-                int N, int H, int W, int C, int E, int Co, int residual,
+int dwblock_f32(const void* x, const void* w1_packed, const void* w2_packed, const void* b2,
+                void* out, int N, int H, int W, int C, int E, int Co, int residual,
                 void* stream) {
-  return launch_f32(x, w1, b1, wd, bd, w2, b2, out, N, H, W, C, E, Co, residual, stream);
+  if (C % FLay::KS || E % 8 || Co % 8 || (residual && C != Co) || C > MAX_C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the project's columns per warpgroup: the fewest that cover the widest
+  // column block, rounded up to a multiple of 16 and split in two
+  const int need = round_up(Co < NP ? Co : NP, 16) / 2;
+  decltype(&launch_f32<16>) launch = need <= 16   ? &launch_f32<16>
+                                    : need <= 32 ? &launch_f32<32>
+                                    : need <= 64 ? &launch_f32<64>
+                                                 : &launch_f32<128>;
+  return launch(x, w1_packed, w2_packed, b2, out, N, H, W, C, E, Co, residual, stream);
 }
 
-// The packed-weight layout the bf16 kernel reads, for the pack to be held
-// against: E columns per chunk, rows of W1 per bulk copy, channels per plane,
+// The packed-weight layouts the kernels read, for the pack to be held
+// against: E columns per chunk, rows of W1 per copy, channels per plane,
 // output channels per block, and the multiple C is padded to.
 void dwblock_bf16_layout(int* chunk, int* slice_rows, int* plane, int* column_block,
                          int* k_step) {
@@ -969,6 +1130,15 @@ void dwblock_bf16_layout(int* chunk, int* slice_rows, int* plane, int* column_bl
   *plane = BLay::PLANE;
   *column_block = NP;
   *k_step = 16;
+}
+
+void dwblock_f32_layout(int* chunk, int* slice_rows, int* plane, int* column_block,
+                        int* k_step) {
+  *chunk = FLay::EC;
+  *slice_rows = FLay::KS;
+  *plane = FLay::PLANE;
+  *column_block = NP;
+  *k_step = 8;
 }
 
 const char* dwblock_error_string(int code) {

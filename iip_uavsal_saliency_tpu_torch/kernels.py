@@ -36,7 +36,7 @@ SOURCES = ("twa_scan", "dwblock")
 KERNELS = ("twa_scan", "twa_step", "dwblock")
 # the device functions behind each count, by the names a profiler gives them
 SYMBOLS = {"twa_scan": ("twa_clip_kernel",), "twa_step": ("twa_step_kernel",),
-           "dwblock": ("dwblock_kernel", "dwblock_bf16_kernel")}
+           "dwblock": ("dwblock_f32_kernel", "dwblock_bf16_kernel")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -176,7 +176,7 @@ class DWBlock(nn.Module):
 
     def pack(self, dtype: torch.dtype) -> None:
         """Pack the kernel's weights once, for serving: the folded weights
-        and, for bf16, the kernel's shared-memory layout of them
+        and the kernel's shared-memory layout of them for bf16 or f32
         (`pack_dwblock_weights`). From here on the kernel path reads these
         and no longer looks at the parameters, so call it after the last
         cast or load (`make_baked_infer_step` does); a later `.to()`,
@@ -187,7 +187,7 @@ class DWBlock(nn.Module):
                 self._packed = self._pack(dtype)
                 w1, b1, wd, bd, w2, _ = self._packed
                 self._blobs = (pack_dwblock_weights(w1, b1, wd, bd, w2)
-                               if dtype == torch.bfloat16 else None)
+                               if dtype in (torch.bfloat16, torch.float32) else None)
 
     def packed_weights(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
         """(W1 (C, E), b1, Wd (3, 3, E), bd, W2 (E, Co), b2) in `dtype` with
@@ -202,8 +202,8 @@ class DWBlock(nn.Module):
         return packed
 
     def kernel_weights(self, dtype: torch.dtype):
-        """(`packed_weights(dtype)`, the bf16 kernel's blobs that `pack` made
-        of exactly those, or None: then the kernel's wrapper packs on the fly)."""
+        """(`packed_weights(dtype)`, the kernel's blobs that `pack` made of
+        exactly those, or None: then the kernel's wrapper packs on the fly)."""
         weights = self.packed_weights(dtype)
         return weights, self._blobs if weights is self._packed else None
 

@@ -1,22 +1,26 @@
 """Where a launch of the port's fused dwBlock kernel (K2) spends its time.
 
-    python3 -m iip_uavsal_saliency_tpu_torch.tools.k2_probe
+    python3 -m iip_uavsal_saliency_tpu_torch.tools.k2_probe [--dtype bf16|f32]
 
-On one NVIDIA GPU, at 20x45x80, C=256 -> 256, E=1536, residual, bf16, times
-builds of `csrc/dwblock.cu` with one part of the bf16 kernel compiled out
-each (`-DDWBLOCK_SKIP=<bit mask>`, see `Part` in the source): the bulk
-copies of the packed weights (W1 slices and W2 pieces; their mbarriers are
-then completed by a plain arrival), the expand `wgmma`, its epilogue (which
-also lets the compiler drop the GEMM, whose result is then unused), the
-depthwise taps, the project `wgmma`, all four compute parts together, and
-all five (what is left is the skeleton: staging x, the barriers and
-mbarrier waits of every chunk, and the output epilogue).
+On one NVIDIA GPU, at 20x45x80, C=256 -> 256, E=1536, residual, in bf16
+(`dwblock_bf16_kernel`) or f32 (`dwblock_f32_kernel`, 3xTF32), times
+builds of `csrc/dwblock.cu` with one part of the kernel compiled out
+each (`-DDWBLOCK_SKIP=<bit mask>`, see `Part` in the source): the copies
+(bf16: the bulk copies of the packed weights, W1 slices and W2 pieces; f32
+also the cp.async of x's slices; their mbarriers are then completed by a
+plain arrival), the expand `wgmma`, its epilogue (which also lets the
+compiler drop the GEMM, whose result is then unused), the depthwise taps,
+the project `wgmma`, all four compute parts together, and all five (what
+is left is the skeleton: bf16 stages x, and both wait on the barriers and
+mbarriers of every chunk, f32 also splits its A operands, and write the
+output epilogue).
 Those builds give wrong results and only their times are read: the time a
 part takes is the full kernel's time less the time without it. Whether K2 is right, and its
 time beside its plain version, library call and bound, is `chip_smoke.py`'s
 to say.
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.dwblock import _SIGNATURE_BF16, pack_dwblock_weights
+from ..ops.dwblock import _SIGNATURE, pack_dwblock_weights
 
 SHAPE = (20, 45, 80, 256, 1536, 256)  # N, H, W, C, E, Co
 PARTS = ["COPIES", "EXPAND", "EXPAND_EPILOGUE", "DEPTHWISE", "PROJECT"]  # as Part
@@ -50,14 +54,18 @@ def us_per_call(fn, reps=5, windows=5):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    dtype_name = parser.parse_args().dtype
     if not torch.cuda.is_available():
         sys.exit("k2_probe: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     n, h, w, c, e, co = SHAPE
     shapes = [(n, h, w, c), (c, e), (e,), (3, 3, e), (e,), (e, co), (co,), (n, h, w, co)]
     gen = torch.Generator("cuda").manual_seed(0)
-    x, w1, b1, wd, bd, w2, b2, out = [torch.randn(s, device="cuda", generator=gen).mul(0.1).bfloat16()
+    x, w1, b1, wd, bd, w2, b2, out = [torch.randn(s, device="cuda", generator=gen).mul(0.1).to(dtype)
                                       for s in shapes]
     blobs = pack_dwblock_weights(w1, b1, wd, bd, w2)  # kept alive while the pointers are used
     pointers = [t.data_ptr() for t in (x, *blobs, b2, out)]
@@ -75,8 +83,8 @@ def main():
             log, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed without {parts}:\n{log}")
-            fn = ctypes.CDLL(lib).dwblock_bf16
-            fn.argtypes, fn.restype = _SIGNATURE_BF16, ctypes.c_int
+            fn = getattr(ctypes.CDLL(lib), f"dwblock_{dtype_name}")
+            fn.argtypes, fn.restype = _SIGNATURE, ctypes.c_int
 
             def call():
                 rc = fn(*pointers, n, h, w, c, e, co, 1, torch.cuda.current_stream().cuda_stream)
@@ -84,7 +92,7 @@ def main():
 
             times.append(us_per_call(call))
     full = times[0]
-    print(f"K2 bf16 N,H,W,C,E,Co={SHAPE}: {full:.1f} us per launch; without ... "
+    print(f"K2 {dtype_name} N,H,W,C,E,Co={SHAPE}: {full:.1f} us per launch; without ... "
           f"(and what that part takes)")
     for parts, t in zip(VARIANTS[1:], times[1:]):
         print(f"  {','.join(parts):45s} {t:8.1f} us  ({full - t:7.1f})")

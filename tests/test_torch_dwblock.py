@@ -196,7 +196,9 @@ PACK_WIDTHS = {"c24": (24, 144, 24), "c24_to_16": (24, 144, 16), "c32": (32, 192
                "c64": (64, 384, 64), "c64_to_96": (64, 384, 96), "c96": (96, 576, 96),
                "c160": (160, 960, 160), "c160_to_320": (160, 960, 320),
                "c256": (256, 1536, 256), "c320_to_256": (320, 1920, 256),
-               "c352": (352, 2112, 352)}
+               "c352": (352, 2112, 352),
+               # ob_cb_layer.0: C % 8 != 0, refused by the gate but packed at load
+               "c20_to_64": (20, 120, 64)}
 
 
 @pytest.mark.parametrize("name", sorted(PACK_WIDTHS))
@@ -217,6 +219,154 @@ def test_pack_dwblock_weights_unpacks_exactly(name):
     assert not any(v[:, e:].any() for v in vectors)
     # a bulk copy of W1 is SLICE_ROWS rows of one chunk, 8 planes of 64 x 16 bytes
     assert tdw.SLICE_ROWS // tdw.PLANE * tdw.CHUNK * tdw.PLANE * 2 == 8192
+
+
+def _unpack_f32(w1_blob, w2_blob, c, e, co):
+    """The inverse of the f32 `pack_dwblock_weights`, from its docstring: the
+    (big, small) halves of W1 (2, C', E') and W2 (2, E', Co), and per column
+    block the (11, E') rows b1, bd, taps, each packed piece read back by
+    index (C' is C padded to a multiple of 8, E' E to chunks of 64)."""
+    cp, ep = -(-c // 8) * 8, -(-e // 64) * 64
+    nq = ep // 64
+    # [q][s][h][p][n][k] is half h of W1[8s + 2k + p, 64q + n]
+    w1 = w1_blob.reshape(nq, cp // 8, 2, 2, 64, 4).permute(2, 1, 5, 3, 0, 4).reshape(2, cp, ep)
+    per_chunk = w2_blob.reshape(nq, -1)
+    w2, vectors, at = [], [], 0
+    for co0 in range(0, co, 256):
+        rows = min(256, co - co0)
+        # [q][h][plane 2j + p][n][k] is half h of W2[64q + 8j + 2k + p, co0 + n]
+        piece = per_chunk[:, at:at + 2 * 64 * rows].reshape(nq, 2, 8, 2, rows, 4)
+        w2.append(piece.permute(1, 0, 2, 5, 3, 4).reshape(2, ep, rows))
+        at += 2 * 64 * rows
+        vectors.append(per_chunk[:, at:at + 11 * 64].reshape(nq, 11, 64).permute(1, 0, 2)
+                       .reshape(11, ep))
+        at += 11 * 64
+    assert at == per_chunk.shape[1]
+    return w1, torch.cat(w2, dim=2), vectors
+
+
+@pytest.mark.parametrize("name", sorted(PACK_WIDTHS))
+def test_pack_dwblock_weights_f32_unpacks_exactly(name):
+    """The f32 blobs hold each weight's two TF32 halves where the kernel
+    reads them, up to C = 352, and zeros in the padding of E."""
+    c, e, co = PACK_WIDTHS[name]
+    rng = np.random.RandomState(c + e + co + 1)
+    w1, b1, wd, bd, w2 = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                          for s in ((c, e), (e,), (3, 3, e), (e,), (e, co)))
+    w1_blob, w2_blob = tdw.pack_dwblock_weights(w1, b1, wd, bd, w2)
+    assert w1_blob.dtype == w2_blob.dtype == torch.float32
+    assert (w1_blob.numel(), w2_blob.numel()) == tdw.packed_sizes(c, e, co, torch.float32)
+    assert w1_blob.is_contiguous() and w2_blob.is_contiguous()
+    got_w1, got_w2, vectors = _unpack_f32(w1_blob, w2_blob, c, e, co)
+    for got, want in ((got_w1[:, :c, :e], w1), (got_w2[:, :e], w2)):
+        big, small = tdw.tf32_split(want)
+        assert torch.equal(got[0], big) and torch.equal(got[1], small)
+    assert not got_w1[:, c:].any() and not got_w1[:, :, e:].any() and not got_w2[:, e:].any()
+    for v in vectors:  # every column block carries the chunk's vectors, in channel order
+        assert torch.equal(v[:, :e], torch.cat([b1[None], bd[None], wd.reshape(9, e)]))
+        assert not v[:, e:].any()
+    # a W1 slice is one k8 step of both halves: 8 rows x 64 columns x 2 x 4 bytes
+    assert tdw.F32_SLICE_ROWS * tdw.CHUNK * 2 * 4 == 4096
+    assert tdw.F32_K_STEP == 2 * tdw.F32_PLANE == tdw.F32_SLICE_ROWS
+
+
+def _tf32_split_cases():
+    rng = np.random.RandomState(3)
+    mags = 10.0 ** rng.uniform(-30, 30, 4000)
+    w = (rng.choice([-1.0, 1.0], 4000) * mags).astype(np.float32)
+    # exact ties of the first rounding (bit 12 set, bits 0-11 clear), both signs, and 0;
+    # above 2^-96, where w - big is a normal f32 (TF32 keeps no bits below 2^-126)
+    bits = (rng.randint(0x0f800000, 0x7f000000, 200, dtype=np.int64) & ~0x1fff) | 0x1000
+    ties = bits.astype(np.uint32).view(np.float32)
+    return np.concatenate([w, ties, -ties, np.zeros(1, np.float32)])
+
+
+def test_tf32_split_reconstructs_each_weight_within_2_pow_minus_22():
+    """big and small are TF32 values (the low 13 mantissa bits zero), big is
+    w rounded to nearest with ties away from zero, and big + small is w
+    within 2^-22 of |w| (for |w| above 2^-96, as every weight is)."""
+    w = _tf32_split_cases()
+    big, small = tdw.tf32_split(torch.from_numpy(w))
+    for half in (big, small):
+        assert half.dtype == torch.float32
+        assert not (half.numpy().view(np.uint32) & 0x1fff).any()
+    w64 = w.astype(np.float64)
+    # rounded to nearest at 10 mantissa bits, ties away from zero, in f64
+    exp = np.floor(np.log2(np.where(w64 == 0, 1.0, np.abs(w64))))
+    ulp = 2.0 ** (exp - 10)
+    want_big = np.sign(w64) * np.floor(np.abs(w64) / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(big.numpy().astype(np.float64), want_big)
+    err = np.abs(w64 - big.numpy().astype(np.float64) - small.numpy().astype(np.float64))
+    assert (err <= 2.0 ** -22 * np.abs(w64)).all()
+    assert err.max() > 0  # the dropped bits are real: small is rounded too
+
+
+def test_three_tf32_products_hold_an_f32_dot_product():
+    """The f32 kernel's sum small.big + big.small + big.big over a K of 1536
+    (the flagship project), computed exactly in f64 from the halves: within
+    4 * 2^-22 of sum |x||w| of the exact dot product, far inside the f32
+    kernel check's 2e-5 on outputs of order 1 to 8."""
+    rng = np.random.RandomState(11)
+    x = rng.uniform(0, 6, (64, 1536)).astype(np.float32)  # d after ReLU6
+    w = (rng.randn(1536, 32) * np.sqrt(1.0 / 1536)).astype(np.float32)
+    xb, xs = (t.numpy().astype(np.float64) for t in tdw.tf32_split(torch.from_numpy(x)))
+    wb, ws = (t.numpy().astype(np.float64) for t in tdw.tf32_split(torch.from_numpy(w)))
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    three = xs @ wb + xb @ ws + xb @ wb
+    scale = np.abs(x.astype(np.float64)) @ np.abs(w.astype(np.float64))
+    assert (np.abs(three - exact) <= 4 * 2.0 ** -22 * scale).all()
+    assert np.abs(three - exact).max() < 1e-5
+    one = xb @ wb  # plain TF32 would not hold the check
+    assert np.abs(one - exact).max() > 2e-5
+
+
+def test_packed_f32_weights_are_cached_until_a_weight_changes():
+    """`pack(torch.float32)` makes the f32 kernel's blobs once, from exactly
+    the folded weights it keeps; a load or a cast drops them; without `pack`,
+    and whenever a gradient is wanted, there are none and the kernel's
+    wrapper packs on the fly."""
+    tm = tl.DWBlock(8, 8, 3, use_kernel=True).eval()
+    with torch.no_grad():
+        assert tm.kernel_weights(torch.float32)[1] is None
+        tm.pack(torch.float32)
+        weights, blobs = tm.kernel_weights(torch.float32)
+        assert weights is tm.packed_weights(torch.float32) and blobs is not None
+        for got, want in zip(blobs, tdw.pack_dwblock_weights(*weights[:5])):
+            assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert tm.kernel_weights(torch.float32)[1] is blobs
+        assert tm.kernel_weights(torch.bfloat16)[1] is None  # not the dtype packed
+        tm.load_state_dict(tm.state_dict())
+        assert tm._blobs is None and tm.kernel_weights(torch.float32)[1] is None
+        tm.pack(torch.float32)
+        tm.double()
+        assert tm._blobs is None
+        tm.float().pack(torch.float32)
+        assert tm.kernel_weights(torch.float32)[1] is not None
+    weights, blobs = tm.kernel_weights(torch.float32)  # a gradient is wanted
+    assert weights[0].requires_grad and blobs is None
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["packed_on_the_fly", "packed_at_load"])
+def test_f32_dwblock_with_packed_weights_matches_jax(packed):
+    """`DWBlock(use_kernel=True)` in f32 on folded weights, with the f32
+    kernel's blobs made by `pack` or not, against the JAX block in f32 (its
+    Pallas gate admits only bf16, so XLA's three convs): the same function
+    within the sum-order tolerance. On the CPU the plain weights are read."""
+    c = co = 64
+    rng = np.random.RandomState(19)
+    x = rng.randn(2, 12, 16, c).astype(np.float32)
+    jm, v, state_dict = _jax_block(c, co, x, rng)
+    v = jax.tree_util.tree_map(np.asarray, jfold.fold_batchnorm(v))
+    tm = tl.DWBlock(c, co, 3, use_kernel=True).eval()
+    tm.load_state_dict(state_dict(v, 6), strict=True)
+    fold_conv_bn(tm)
+    if packed:
+        tm.pack(torch.float32)
+    with torch.no_grad():
+        assert (tm.kernel_weights(torch.float32)[1] is not None) == packed
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2))
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=ATOL, rtol=0)
 
 
 def test_fused_dwblock_grads_match_jax(pallas_interpret):
@@ -329,6 +479,23 @@ def test_flagship_model_admits_its_stride8_blocks():
                         "cxt_cb_prior.0": (4, 256, 45, 80),
                         "sfnet.lv5_aspp2": (20, 320, 12, 20)}.items():
         assert not blocks[name].takes_kernel(shape, torch.bfloat16), name
+
+
+def test_fused_model_packs_every_block_in_both_dtypes():
+    """`DWBlock.pack` (which the baked serving step calls on every block
+    with the kernel switched on, whether the gate admits it or not) packs
+    each block of the flagship for both kernels; the blobs have the sizes
+    the wrapper checks."""
+    model = UAVSal(fused_dwblock=True).eval()
+    blocks = [m for m in model.modules() if isinstance(m, tl.DWBlock) and len(m.conv) == 4]
+    assert len(blocks) > 20
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in blocks:
+            m.pack(dtype)
+            w1, _, _, _, w2, _ = m.packed_weights(dtype)
+            sizes = tdw.packed_sizes(w1.shape[0], w1.shape[1], w2.shape[1], dtype)
+            assert tuple(b.numel() for b in m._blobs) == sizes
+            assert all(b.dtype == dtype for b in m._blobs)
 
 
 def test_cpu_block_does_not_count_launches():

@@ -184,11 +184,15 @@ DW_SHAPES = {
     "c160_two_co_tiles": ((2, 12, 20, 160, 960, 320), False),  # features.17
     "c192_four_frames": ((4, 9, 20, 192, 1152, 64), False),    # fucb_layer.0
     "widest": ((1, 9, 17, 352, 2112, 352), True),              # C = MAX_C
+    # the flagship widths: st_layer / fust_layer and fucbst_layer.0
+    "c256": ((2, 9, 20, 256, 1536, 256), True),
+    "c320_to_256": ((1, 11, 18, 320, 1920, 256), False),
 }
 
 
-# f32: the kernel's FMA chains and the plain version's matmuls sum C and E
-# products in other orders; outputs are of order 1 to 10. bf16: e, d and
+# f32: the kernel's 3xTF32 products (each within about 2^-21 of the f32
+# product) and the plain version's matmuls summed in other orders; outputs
+# are of order 1 to 10. bf16: e, d and
 # the output are rounded to bf16 at the same points in both, so they differ
 # where an f32 sum that differs in its last bits rounds to the other
 # neighbour: one bf16 ulp of an output below 16 is 2^-4 = 0.0625.
@@ -212,6 +216,36 @@ def test_dwblock_layout_constants_are_the_kernels(card):
     dw._lib().dwblock_bf16_layout(*[ctypes.byref(v) for v in values])
     assert [v.value for v in values] == [dw.CHUNK, dw.SLICE_ROWS, dw.PLANE, dw.COLUMN_BLOCK,
                                          dw.K_STEP]
+
+
+def test_dwblock_f32_layout_constants_are_the_kernels(card):
+    """The f32 pack's layout constants are the ones the kernel source states."""
+    values = [ctypes.c_int() for _ in range(5)]
+    dw._lib().dwblock_f32_layout(*[ctypes.byref(v) for v in values])
+    assert [v.value for v in values] == [dw.CHUNK, dw.F32_SLICE_ROWS, dw.F32_PLANE,
+                                         dw.COLUMN_BLOCK, dw.F32_K_STEP]
+
+
+# The f32 kernel's cases: C=24 (three x slices, fewer than the ring's slots),
+# a ragged last E chunk, partial 13x7 and 9x17 tiles, Co=320 over two column
+# blocks (the second of 64), each project width (Co 16, 64, 256), the widest C,
+# the flagship widths, residual or not.
+@pytest.mark.parametrize("name", ["ragged", "co_differs", "c160_two_co_tiles", "widest",
+                                  "c256", "c320_to_256", "residual"])
+def test_dwblock_f32_kernel_is_deterministic_with_packed_weights(card, name):
+    """The 3xTF32 kernel: two runs give equal bits, weights packed
+    beforehand give the bits of the wrapper's own packing, and both hold
+    the plain version in f32 within 2e-5."""
+    shape, residual = DW_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32, device=card) for a in _dw_case(*shape, seed=13)]
+    blobs = pack_dwblock_weights(*args[1:6])
+    kernels.reset_launches()
+    first = fused_dwblock_kernel(*args, residual)
+    again = fused_dwblock_kernel(*args, residual, blobs)
+    torch.cuda.synchronize()
+    assert kernels.launches["dwblock"] == 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, dwblock_ref(*args, residual), atol=2e-5, rtol=0)
 
 
 # The cases wgmma and the packed weights make new: K padded to 16 (C=24), a
@@ -258,6 +292,11 @@ def test_dwblock_kernel_raises_on_what_it_does_not_take(card):
     w1_blob, w2_blob = pack_dwblock_weights(*bf[1:6])
     with pytest.raises(ValueError, match="packed weights"):
         fused_dwblock_kernel(*bf, True, (w1_blob[:-8], w2_blob))
+    with pytest.raises(ValueError, match="packed weights"):  # f32 takes its own layout
+        fused_dwblock_kernel(*args, True, (w1_blob, w2_blob))
+    f32_blobs = pack_dwblock_weights(*args[1:6])
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_dwblock_kernel(*args, True, (f32_blobs[0], f32_blobs[1][:-4]))
     assert kernels.launches["dwblock"] == 0
 
 

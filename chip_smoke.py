@@ -12,7 +12,8 @@
    V=1, 2 and 4, also against the per-frame bf16 kernel on the same inputs
    and for equal bits on 20 more runs (a stale read of h_{s-1} between blocks
    would be rare, so one repeat is not enough); the per-frame kernel at the flagship
-   shape in f32 and at a ragged shape (V=2, S=3, 13x7x24) in bf16 and f32;
+   shape in f32 (and for equal bits on 20 more runs) and at a ragged shape
+   (V=2, S=3, 13x7x24) in bf16 and f32;
    and shard invariance, the content of the JAX package's
    `twa_scan_sharded`: K1 on V=4 (S=3, 13x7x24 and 45x80x256, bf16 and f32)
    equals, bit for bit, K1 on x[:2] and x[2:] concatenated. K2 (`ops/dwblock.py::
@@ -64,8 +65,10 @@
    windows; K1's two kernels and its library yardstick in turns (per-frame,
    persistent, library, library, persistent, per-frame) at V=1 and V=4 in
    bf16, with the fastest window beside each median, and the per-frame
-   kernel in f32, as the f32 paths launch it, beside its own f32 yardstick,
-   plain version and bound; K2 at each admitted block of the bf16 path and
+   kernel in f32 (3xTF32), as the f32 paths launch it, beside its own f32
+   yardstick, plain version and bound (3xTF32, with the FMA bound beside
+   it); the f32 serving step, graphed, K2 off and on, in turns; K2 at each
+   admitted block of the bf16 path and
    of the f32 path on that block's own input beside the block as three
    cuDNN convs (f32: TF32 off) and its bound, with the sums per step; and
    writes a profiler table of one clip of each path to
@@ -124,8 +127,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K1's f32 route is plain FMA
-PEAK_TF32_FLOPS = 495e12  # K2's f32 route: 3xTF32 on the tensor cores
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K2's depthwise, and each f32 bound on FMA alone
+PEAK_TF32_FLOPS = 495e12  # K1's and K2's f32 routes: 3xTF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 # K1 tolerances, max abs error against twa_scan_ref on the same inputs.
@@ -353,6 +356,11 @@ def check_k1(torch, kernels, twa, rng):
         err = held("per-frame", shape, dtype, ys, h_last, args, tol)
         if (shape, dtype) == (flagship, torch.float32):
             errs["twa_step"] = err
+            for run in range(REPEATS):
+                again, again_last = twa.twa_scan(*args)
+                if not (torch.equal(again, ys) and torch.equal(again_last, h_last)):
+                    fail(f"K1 (per-frame, f32) gives other bits on run {run + 2}")
+            print(f"K1 per-frame f32: {REPEATS + 1} runs give equal bits")
     # shard invariance: whole V against the two halves, bit for bit
     for hwc in ((13, 7, 24), (OUT_H, OUT_W, 256)):
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
@@ -656,10 +664,11 @@ def time_k1(torch, F, twa, rng, v):
 
 def time_k1_f32(torch, F, twa, rng):
     """The per-frame kernel as the f32 main paths launch it, 1 x 45 x 80 x 256
-    in f32 on plain FMA, 20 launches a clip: beside its library yardstick
-    (one cuDNN conv, TF32 off, + sigmoid + lerp per frame), in turns (kernel,
-    library, library, kernel), then the plain version and the bound, which is
-    at the f32 rate outside the tensor cores. Returns ms per launch."""
+    in f32 (3xTF32 on the tensor cores), 20 launches a clip: beside its
+    library yardstick (one cuDNN conv, TF32 off, + sigmoid + lerp per frame),
+    in turns (kernel, library, library, kernel), then the plain version and
+    the bound: 3xTF32 at the TF32 peak, with the bound on FMA alone beside
+    it. Returns ms per launch."""
     s, h, w, c = S, OUT_H, OUT_W, 256
     x, gx, w_h, h0 = k1_case(torch, rng, (1, s, h, w, c), torch.float32)
     if twa.kernel_route(x.shape, x.dtype) != "twa_step":
@@ -673,12 +682,14 @@ def time_k1_f32(torch, F, twa, rng):
     torch.backends.cudnn.benchmark = False
     out = {name: float(np.median(ws)) / s for name, ws in windows.items()}
     out["plain"] = cuda_ms(lambda: twa.twa_scan_ref(x, gx, w_h, h0), 3) / s
-    out["bound"], out["bound_by"] = k1_bound((1, 1, h, w, c), 4, PEAK_F32_FLOPS)
+    out["bound"], out["bound_by"] = k1_bound((1, 1, h, w, c), 4, PEAK_TF32_FLOPS / 3)
+    out["bound_fma"] = k1_bound((1, 1, h, w, c), 4, PEAK_F32_FLOPS)[0]
     print(f"K1 per-frame kernel, f32 at 1x{s}x{h}x{w}x{c}: {out['kernel'] * 1e3:.2f} us/frame "
           f"(fastest window {min(windows['kernel']) / s * 1e3:.2f}), library "
           f"{out['library'] * 1e3:.2f} (fastest {min(windows['library']) / s * 1e3:.2f}), plain "
-          f"{out['plain'] * 1e3:.2f}, bound {out['bound'] * 1e3:.2f} ({out['bound_by']}, at "
-          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)")
+          f"{out['plain'] * 1e3:.2f}, bound {out['bound'] * 1e3:.2f} ({out['bound_by']}, 3xTF32 "
+          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; {out['bound_fma'] * 1e3:.2f} on FMA at "
+          f"{PEAK_F32_FLOPS / 1e12:.0f}); kernel/library {out['kernel'] / out['library']:.3f}")
     return out
 
 
@@ -1355,8 +1366,8 @@ def main() -> None:
         torch.cuda.synchronize()
         taken = []
 
-        def recorder(*args):  # ConvTWA's call of K1, its arguments and results kept
-            out = twa.twa_scan(*args)
+        def recorder(*args, **kwargs):  # ConvTWA's call of K1, its arguments and results kept
+            out = twa.twa_scan(*args, **kwargs)
             taken.append(([a.clone() for a in args], [o.clone() for o in out]))
             return out
 
@@ -1464,8 +1475,8 @@ def main() -> None:
     launches_on, graphed16k, sal16k, _ = drive("main path, K2 on (bf16)", model16k, step16k,
                                                spy16k, seen16k, True, len(admitted) * CLIPS)
     model32, step32, spy32, seen32 = serve(None, False)
-    launches_f32, _, sal32, _ = drive("main path, K2 off (f32)", model32, step32, spy32, seen32,
-                                      False, 0)
+    launches_f32, graphed32, sal32, _ = drive("main path, K2 off (f32)", model32, step32, spy32,
+                                              seen32, False, 0)
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
     admitted32, taken32k = check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k,
@@ -1473,9 +1484,9 @@ def main() -> None:
                                              model32k.init_state(IN_H, IN_W, V, device="cuda"))
     if admitted32 != admitted:
         fail("the gate admits other blocks in f32 than in bf16")
-    launches_f32k, _, sal32k, _ = drive("main path, K2 on (f32)", model32k, step32k, spy32k,
-                                        seen32k, False, len(admitted) * CLIPS)
-    del model32, model32k, step32, step32k, spy32, spy32k
+    launches_f32k, graphed32k, sal32k, _ = drive("main path, K2 on (f32)", model32k, step32k,
+                                                 spy32k, seen32k, False, len(admitted) * CLIPS)
+    del step32, step32k, spy32, spy32k
     print(f"f32 map mean {sal32.mean().item():.4g} std {sal32.std().item():.4g}")
     compare("bf16 vs f32 saliency, K2 off", sal16, sal32)
     compare("bf16 K2 on vs f32 saliency", sal16k, sal32)
@@ -1499,6 +1510,17 @@ def main() -> None:
         print(f"serving step, K2 {which}, {how} (bf16, V={V}, S={S}, 360x640, uint8 clip on "
               f"the card): {first:.3f} and {second:.3f} ms per clip, "
               f"{V * S / first * 1e3:.1f} and {V * S / second * 1e3:.1f} FPS")
+    # the f32 serving step (the parity path), graphed as users run it, K2 off
+    # and on, in turns
+    f32_paths, state32 = {"off": graphed32, "on": graphed32k}, state.float()
+    f32_times = {which: [] for which in f32_paths}
+    for which in ("off", "on", "on", "off"):
+        f32_times[which].append(cuda_ms(lambda: f32_paths[which](clip, state32), 10))
+    for which, (first, second) in f32_times.items():
+        print(f"serving step f32, K2 {which}, graphed (V={V}, S={S}, 360x640, TF32 off): "
+              f"{first:.3f} and {second:.3f} ms per clip, {V * S / first * 1e3:.1f} and "
+              f"{V * S / second * 1e3:.1f} FPS")
+    del f32_paths, graphed32, graphed32k, model32, model32k
     time_host_issue(torch, paths, clip, state)
     time_runner(torch, paths, {"off": model16, "on": model16k}, video, native)
     write_profile(torch, step16, clip, state, "chip_smoke_profile.txt")
@@ -1556,6 +1578,8 @@ def main() -> None:
         "plain_ms": k1_f32["plain"],
         "bound_ms": k1_f32["bound"],
         "bound_by": k1_f32["bound_by"],
+        "bound_route": "3xTF32 at 495 TFLOP/s",
+        "bound_fma_ms": k1_f32["bound_fma"],
         "library_ms": k1_f32["library"],
         "frames_per_launch": 1,
         "train_step_launches": train_launches["f32"]["twa_step"],

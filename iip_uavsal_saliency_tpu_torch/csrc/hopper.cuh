@@ -1,0 +1,181 @@
+// Hopper (sm_90a) device primitives shared by the kernel sources, in PTX:
+// mbarriers, bulk copies, the async-proxy fence, wgmma (bf16 operand
+// descriptors, tf32 with A from registers) and the 3xTF32 split. Each source
+// is built into a library of its own, so each gets its own copy.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// One thread: `bytes` from device memory to shared memory as one bulk copy,
+// which completes (with this thread's arrival) the current phase of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Shared-memory writes of ordinary stores and cp.async, made visible to
+// wgmma (the async proxy); a barrier must follow before wgmma reads them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma operand descriptor without swizzle: start address, the byte distance
+// between core matrices along K (leading) and along M or N (stride). Adding
+// bytes / 16 moves the start.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int k_bytes, int mn_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(k_bytes >> 4) << 16 |
+         static_cast<uint64_t>(mn_bytes >> 4) << 32;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of accumulators across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for a register A operand: live, and unchanged, until here.
+__device__ __forceinline__ void keep(unsigned (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// 3xTF32. The TF32 value nearest v (ties away from zero), as wgmma reads it.
+__device__ __forceinline__ unsigned tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// A thread's four f32 A values of one k8 step, split: a0 (row g, k = t),
+// a1 (row g + 8, k = t), a2 (row g, k = t + 4), a3 (row g + 8, k = t + 4),
+// from the two channels 2t, 2t + 1 of rows g and g + 8 (see the pack's
+// row order).
+struct Split {
+  unsigned big[4], small[4];
+  Split() = default;
+  __device__ __forceinline__ Split(float2 row_g, float2 row_g8) {
+    const float v[4] = {row_g.x, row_g8.x, row_g.y, row_g8.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      big[i] = tf32(v[i]);
+      small[i] = tf32(v[i] - __uint_as_float(big[i]));
+    }
+  }
+};
+
+// d (64 x N, f32) += A (64 x 8, tf32, registers as `Split` holds them) .
+// B (8 x N, tf32, K-major in shared memory). d's layout is wgmma_m64n64's.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// d += a . (big + small) in three products, the small ones first.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2], const Split& a, uint64_t b_big,
+                                     uint64_t b_small) {
+  wgmma_tf32<N>(d, a.small, b_big);
+  wgmma_tf32<N>(d, a.big, b_small);
+  wgmma_tf32<N>(d, a.big, b_big);
+}
+// Arrives on `bar` once this thread's cp.async copies so far have landed
+// (an arrival the barrier's count includes).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// A place in a ring of mbarrier-guarded slots: the slot and the parity of
+// the phase its current use completes.
+struct Cursor {
+  int slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int slots) {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+}  // namespace

@@ -54,17 +54,60 @@
 //   - No split-K, no atomics on data: a tile's bits do not depend on which
 //     block computes it, so a split of V gives the bits of the whole.
 //
-// twa_step_kernel (bf16 on WMMA 16x16x16, f32 on plain FMA, no TF32;
-// `twa_step_*`): one frame per launch, the host launches frames in order
-// (ops/twa.py). It takes everything the persistent kernel's gate does not:
-// f32 (the f32 serving path's 2.44e-6 parity rests on FMA), C % 8 == 0 with
-// C % 32 != 0, widths whose halo tile does not fit beside the W_h slice.
+// twa_step_kernel (bf16 on WMMA 16x16x16; `twa_step_bf16`): one frame per
+// launch, the host launches frames in order (ops/twa.py). It takes the bf16
+// shapes the persistent kernel's gate refuses: C % 8 == 0 with C % 32 != 0,
+// widths whose halo tile does not fit beside the W_h slice.
+//
+// twa_step_f32_kernel (f32; `twa_step_f32`): one frame per launch, the
+// implicit GEMM on the tensor cores as 3xTF32 on wgmma. Each f32 operand v
+// is split into TF32 parts big = rna(v) and small = rna(v - big), and a
+// product is accumulated in f32 as small.big + big.small + big.big (the
+// dropped small.small is about 2^-22 of it). At the flagship frame that is
+// 3 x 4.2467 GFLOP at the 495 TFLOP/s TF32 peak, 25.74 us, against 17.1 MB
+// of x, gx, h_{s-1}, h_s and W_h in f32 (5.1 us at 3.35 TB/s): bound by
+// operations. Design:
+//   - Tile: a block owns BM = 128 consecutive pixels (GEMM rows) of one
+//     video, as two consumer warpgroups of 64 rows that share every B slot,
+//     and a column block of BN = 64 output channels; a producer warp feeds
+//     the ring. At 45x80x256 that is 29 x 4 = 116 blocks, one wave on 132
+//     SMs, and 116 x 9*256*64 x 8 bytes = 137 MB of L2 reads of the split
+//     W_h per frame (64 rows x 128 channels would read 269 MB, and 256
+//     rows x 64 channels fill 60 SMs).
+//   - h_{s-1} staged once per tile: for each tap row dy the tile's run of
+//     pixels with one pixel each side (3 x 130 pixels, whatever W), in
+//     chunks of KC = 32 channels through two cp.async buffers (160-byte
+//     pixel pitch: the float2 reads of a half-warp fall on distinct banks).
+//     Pixels outside the image rows are zeros written by the loader; a tap
+//     that crosses a row's end reads zero in registers. A is taken from
+//     registers in f32 and split there, so a tap's shift is an address:
+//     h_{s-1} leaves L2 once per tile and chunk, not once per tap.
+//   - B: `ops/twa.py::pack_twa_weights` splits W_h once, at load, and lays
+//     each column block out as [chunk][tap][k8 step][big, small][plane of
+//     4 channels][64 columns][4], C padded to 32 and N to 64 with zeros, so
+//     that one tap of a chunk (4 k8 steps, 16 KB) is one bulk copy into a
+//     slot of the ring, on mbarriers (6 slots).
+//   - The tensor cores' f32 sums are not IEEE round-to-nearest: they sum
+//     at most FOLD_TAPS = 3 taps of a chunk (K = 96) before the partial is
+//     added in f32 to sums that start as gx (tests/test_torch_twa_f32.py
+//     holds the fold length in f64: all of K in one sum would not hold
+//     TOL_F32). On an H100 the kernel holds twa_scan_ref within 2.04e-6
+//     over 20 flagship frames (chip_smoke.py).
+//   - Three register sets of A, one wgmma group in flight: step k + 1's A
+//     is loaded and split while step k multiplies, into the set of step
+//     k - 2, whose group has completed (a set is written again only then).
+//   - Epilogue from registers: x_s, gx_s and h_{s-1} for the accumulator's
+//     own rows and columns are loaded before the GEMM, gate and lerp run in
+//     f32, and each element is stored once as f32.
+//   - No split-K, no atomics: a video's bits do not depend on the others.
 //
 // Requirements (checked by the Python wrapper): C % 8 == 0 (C % 32 == 0 for
 // the persistent kernel), all pointers 16-byte aligned, tensors contiguous
 // in (V, S, H, W, C) / (V, H, W, C) order, W_h contiguous in HWIO order
-// (3, 3, C, C). Any H, W >= 1 for the per-frame kernel.
+// (3, 3, C, C) for the bf16 kernels and packed by `pack_twa_weights` for
+// the f32 one. Any H, W >= 1 for the per-frame kernels.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -73,9 +116,36 @@
 #include <mutex>
 #include <utility>
 
+#include "hopper.cuh"
 #include "smem.cuh"
 
 namespace {
+
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a Hopper block can use
+
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+
+// 16-byte asynchronous copy from device to shared memory through L2 only;
+// `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The per-frame kernel in bf16 (WMMA).
 
 constexpr int BM = 64;   // output pixels per block
 constexpr int BN = 64;   // output channels per block
@@ -97,14 +167,11 @@ struct Tile {
   static constexpr int BV = BK * BN / VEC / NT;  // 16B loads per thread (B)
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
@@ -220,44 +287,6 @@ struct Acc<__nv_bfloat16> {
   }
 };
 
-// f32: plain FMA, 8 rows x 4 columns per thread (columns strided by 16).
-template <>
-struct Acc<float> {
-  using TL = Tile<float>;
-  float f[8][4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
-  }
-
-  __device__ void run(const float* As, const float* Bs) {
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(tr * 8 + i) * TL::LDA + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k * TL::LDB + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) f[i][j] = fmaf(a[i], b[j], f[i][j]);
-    }
-  }
-
-  __device__ void store(float* Cs) {
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(tr * 8 + i) * TL::LDC + tc + 16 * j] = f[i][j];
-  }
-};
-
 template <typename T>
 __device__ __forceinline__ void load8(const T* p, float (&out)[8]) {
   constexpr int VEC = Tile<T>::VEC;
@@ -355,6 +384,273 @@ int launch(const void* x, const void* gx, const void* hprev, const void* w,
 }
 
 // ---------------------------------------------------------------------------
+// The per-frame kernel in f32: 3xTF32 on wgmma (see the header).
+
+// Timing builds only (tools/k1_probe --dtype f32): a bit mask of parts
+// compiled out. Such a build computes wrong values; the port never builds one.
+#ifndef STEP_SKIP
+#define STEP_SKIP 0
+#endif
+enum StepPart {
+  STEP_MMA = 0,        // the wgmma
+  STEP_SPLIT = 1,      // A's loads from the staged copy and their split
+  STEP_FOLD = 2,       // the partial sums' drain and add (all of K in one sum)
+  STEP_COPIES = 3,     // the bulk copies of W_h (the producer arrives instead)
+  STEP_HANDSHAKE = 4,  // the ring's mbarrier waits and arrivals (and the copies)
+  STEP_STAGING = 5,    // the cp.async of h_{s-1}
+  STEP_EPILOGUE = 6,   // the epilogue's loads and gate (the sums are stored)
+};
+__host__ __device__ constexpr bool step_runs(StepPart p) { return !((STEP_SKIP >> p) & 1); }
+
+struct F32Step {
+  static constexpr int BM = 128;             // GEMM rows (pixels) per block
+  static constexpr int BN = 64;              // output channels per block: the pack's column block
+  static constexpr int KC = 32;              // input channels per staged chunk: the pack's chunk
+  static constexpr int KSTEP = 8;            // channels of one wgmma k8 step
+  static constexpr int PLANE = 4;            // channels per 16-byte core-matrix row of B
+  static constexpr int CONSUMERS = 256;      // two warpgroups of 64 rows
+  static constexpr int NT = CONSUMERS + 32;  // and the producer warp
+  static constexpr int SEG = BM + 2;         // staged pixels per tap row
+  static constexpr int PITCH = KC + 8;       // floats per staged pixel (160 bytes)
+  static constexpr int A_BYTES = round_up(3 * SEG * PITCH * 4, 128);  // one staged chunk
+  static constexpr int STEP_FLOATS = 2 * KSTEP * BN;        // one k8 step of B, big and small
+  static constexpr int SLOT_FLOATS = KC / KSTEP * STEP_FLOATS;  // one tap of a chunk: 16 KB
+  static constexpr int SLOT_BYTES = SLOT_FLOATS * 4;
+  static constexpr int FOLD_TAPS = 3;        // taps the tensor cores sum at a time (K = 96)
+  static constexpr int MAX_RING = 8;
+  static constexpr int BAR_BYTES = 256;      // 2 * MAX_RING mbarriers
+  static constexpr int RING = (SMEM_LIMIT - BAR_BYTES - 2 * A_BYTES) / SLOT_BYTES < MAX_RING
+                                  ? (SMEM_LIMIT - BAR_BYTES - 2 * A_BYTES) / SLOT_BYTES
+                                  : MAX_RING;
+  static constexpr int SMEM = BAR_BYTES + 2 * A_BYTES + RING * SLOT_BYTES;
+};
+static_assert(F32Step::RING >= 2 && F32Step::SMEM <= SMEM_LIMIT &&
+                  F32Step::A_BYTES % 128 == 0 && F32Step::SLOT_BYTES % 128 == 0 &&
+                  8 * 2 * F32Step::MAX_RING <= F32Step::BAR_BYTES,
+              "f32 per-frame layout");
+static_assert(9 % F32Step::FOLD_TAPS == 0, "a chunk's last tap ends a fold group");
+
+// The consumer warpgroups' own barrier (the producer warp is not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(F32Step::CONSUMERS) : "memory");
+}
+
+// grid = (ceil(H*W / BM), ceil(C / BN), V). `wp` is W_h packed by
+// ops/twa.py::pack_twa_weights; `vstride` steps x, gx and out from one video
+// to the next, `hstride` steps h_{s-1}.
+__global__ void __launch_bounds__(F32Step::NT, 1)
+    twa_step_f32_kernel(const float* __restrict__ x, const float* __restrict__ gx,
+                        const float* __restrict__ hprev, const float* __restrict__ wp,
+                        float* __restrict__ out, long long vstride, long long hstride, int H,
+                        int W, int C) {
+  using L = F32Step;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [RING]: a slot's W_h landed
+  uint64_t* empty = full + L::MAX_RING;                // [RING]: all consumer warps read it
+  float* abuf = reinterpret_cast<float*>(smem + L::BAR_BYTES);  // [2][3 * SEG][PITCH]
+  float* ring = reinterpret_cast<float*>(smem + L::BAR_BYTES + 2 * L::A_BYTES);
+
+  const int tid = threadIdx.x;
+  const int M = H * W;
+  const int m0 = blockIdx.x * L::BM, n0 = blockIdx.y * L::BN;
+  const long long v = blockIdx.z;
+  const int nchunk = (C + L::KC - 1) / L::KC;
+  const int total = 9 * nchunk;  // ring slots of the tile, one per (chunk, tap)
+
+  if (tid == 0) {
+    for (int i = 0; i < L::RING; ++i) {
+      bar_init(&full[i], 1);                   // the producer's arrival, with the copy's bytes
+      bar_init(&empty[i], L::CONSUMERS / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= L::CONSUMERS) {
+    // The producer warp's first lane streams the block's column block of
+    // the packed W_h through the ring, each slot refilled once released.
+    if (tid != L::CONSUMERS || !step_runs(STEP_HANDSHAKE)) return;
+    const float* src = wp + static_cast<long long>(blockIdx.y) * total * L::SLOT_FLOATS;
+    Cursor fill;
+    for (int q = 0; q < total; ++q) {
+      if (q >= L::RING) bar_wait(&empty[fill.slot], fill.phase ^ 1);
+      if constexpr (step_runs(STEP_COPIES))
+        bulk_load(ring + fill.slot * L::SLOT_FLOATS,
+                  src + static_cast<long long>(q) * L::SLOT_FLOATS, L::SLOT_BYTES, &full[fill.slot]);
+      else
+        bar_arrive(&full[fill.slot]);
+      fill.next(L::RING);
+    }
+    return;
+  }
+
+  x += v * vstride;
+  gx += v * vstride;
+  out += v * vstride;
+  hprev += v * hstride;
+  const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = wg * 64 + 16 * warp + g;  // this thread's GEMM rows r0 and r0 + 8 of the tile
+  int col[2];                              // their pixels' columns in the image
+#pragma unroll
+  for (int h = 0; h < 2; ++h) col[h] = (m0 + r0 + 8 * h) % W;
+
+  // Chunk `chunk` of h_{s-1} into its buffer: for tap row dy = 0, 1, 2 the
+  // pixels m0 + (dy - 1) * W - 1 .. + SEG - 1 (flat index; zeros outside the
+  // image rows and past C), 16-byte cp.async, consecutive threads on
+  // consecutive pieces of a pixel.
+  auto stage = [&](int chunk) {
+    float* dst = abuf + (chunk & 1) * (L::A_BYTES / 4);
+    const int c0 = chunk * L::KC;
+    if constexpr (step_runs(STEP_STAGING))
+      for (int e = tid; e < 3 * L::SEG * (L::KC / 4); e += L::CONSUMERS) {
+        const int pix = e / (L::KC / 4), piece = e % (L::KC / 4);
+        const int dy = pix / L::SEG;
+        const int q = m0 + (dy - 1) * W - 1 + (pix - dy * L::SEG);
+        const int c = c0 + 4 * piece;
+        const bool ok = q >= 0 && q < M && c < C;
+        cp_async16(dst + pix * L::PITCH + 4 * piece,
+                   ok ? hprev + static_cast<long long>(q) * C + c : hprev, ok);
+      }
+    cp_async_commit();
+  };
+  stage(0);
+
+  // The epilogue's operands for the accumulator's rows and columns, asked
+  // for now: the sums start as gx_s; x_s and h_{s-1} wait in registers. Of
+  // an m64n64 accumulator a thread holds, for each 8 columns j, [4j], [4j +
+  // 1] at (row r0, columns 8j + 2t, + 1) and [4j + 2], [4j + 3] at row r0 + 8.
+  float sum[32], xv[32], hv[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + r0 + 8 * h, n = n0 + 8 * j + 2 * t, i = 4 * j + 2 * h;
+      float2 gv = make_float2(0.0f, 0.0f), xx = gv, hh = gv;
+      if (step_runs(STEP_EPILOGUE) && p < M && n < C) {
+        const long long off = static_cast<long long>(p) * C + n;
+        gv = __ldg(reinterpret_cast<const float2*>(gx + off));
+        xx = __ldg(reinterpret_cast<const float2*>(x + off));
+        hh = __ldg(reinterpret_cast<const float2*>(hprev + off));
+      }
+      sum[i] = gv.x, sum[i + 1] = gv.y;
+      xv[i] = xx.x, xv[i + 1] = xx.y;
+      hv[i] = hh.x, hv[i + 1] = hh.y;
+    }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  Split a[3];  // A of three k8 steps: the one being read, the one before, the next
+#pragma unroll
+  for (int b = 0; b < 3; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[b].big[i] = a[b].small[i] = 0u;
+  const float2 zero = make_float2(0.0f, 0.0f);
+  Cursor taken;      // the consumers' place in the ring
+  int pending = -1;  // a slot whose last wgmma group may still be in flight
+  constexpr int STEPS = 9 * (L::KC / L::KSTEP);  // k8 steps of a chunk, tap by tap
+
+  for (int ch = 0; ch < nchunk; ++ch) {
+    cp_async_wait<0>();  // this thread's part of chunk ch landed
+    consumers_sync();    // everyone's did, and chunk ch - 1's buffer is read
+    if (ch + 1 < nchunk) stage(ch + 1);
+    const float* As = abuf + (ch & 1) * (L::A_BYTES / 4);
+    // A of k8 step s of the chunk (tap s / 4, its channels 8 (s % 4) ..),
+    // split into set s % 3; a tap that crosses the row's end reads the
+    // conv's zero padding
+    auto load_a = [&](int s) {
+      const int tap = s / 4, dy = tap / 3, dx = tap % 3 - 1;
+      const bool ok0 = dx == 0 || (dx < 0 ? col[0] > 0 : col[0] < W - 1);
+      const bool ok1 = dx == 0 || (dx < 0 ? col[1] > 0 : col[1] < W - 1);
+      const float* a0 = As + (dy * L::SEG + r0 + 1 + dx) * L::PITCH + 2 * t + L::KSTEP * (s % 4);
+      if constexpr (step_runs(STEP_SPLIT)) {
+        a[s % 3] = Split(ok0 ? *reinterpret_cast<const float2*>(a0) : zero,
+                         ok1 ? *reinterpret_cast<const float2*>(a0 + 8 * L::PITCH) : zero);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[s % 3].big[i] = a[s % 3].small[i] = tid + s;
+      }
+    };
+    load_a(0);
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      const int tap = s / 4, k = s % 4;
+      if (k == 0 && step_runs(STEP_HANDSHAKE)) {
+        bar_wait(&full[taken.slot], taken.phase);
+        __syncwarp();  // the polls diverge; the wgmma is warp-aligned
+      }
+      const float* bk = ring + taken.slot * L::SLOT_FLOATS + k * L::STEP_FLOATS;
+      wgmma_fence();
+      if constexpr (step_runs(STEP_MMA))
+        mma3<L::BN>(acc, a[s % 3], smem_desc(bk, L::BN * 16, 8 * 16),
+                    smem_desc(bk + L::KSTEP * L::BN, L::BN * 16, 8 * 16));
+      wgmma_commit();
+      // the next step's A while this one multiplies, into the set that
+      // step s - 2 read (complete: waited for in the last step)
+      if (s + 1 < STEPS) load_a(s + 1);
+      wgmma_wait<1>();  // step s - 1 completed: its A set is free
+      keep(a[(s + 2) % 3].big);
+      keep(a[(s + 2) % 3].small);
+      if (k == 0 && pending >= 0) {  // and so did the previous tap's last group
+        if (step_runs(STEP_HANDSHAKE) && lane == 0) bar_arrive(&empty[pending]);
+        pending = -1;
+      }
+      if (k < 3) continue;
+      const bool last = ch + 1 == nchunk && tap == 8;
+      if (tap % L::FOLD_TAPS == L::FOLD_TAPS - 1 && (step_runs(STEP_FOLD) || last)) {
+        // drain, release the slot, and add the tensor cores' partial in f32
+        wgmma_wait<0>();
+        keep(acc);
+#pragma unroll
+        for (int b = 0; b < 3; ++b) keep(a[b].big), keep(a[b].small);
+        if (step_runs(STEP_HANDSHAKE) && lane == 0) bar_arrive(&empty[taken.slot]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sum[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      } else {
+        pending = taken.slot;
+      }
+      taken.next(L::RING);
+    }
+  }
+
+  // Epilogue on the accumulator's own rows and columns: gate and lerp in
+  // f32, one f32 store per element.
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + r0 + 8 * h, n = n0 + 8 * j + 2 * t, i = 4 * j + 2 * h;
+      if (p >= M || n >= C) continue;
+      float2 o = make_float2(sum[i], sum[i + 1]);
+      if constexpr (step_runs(STEP_EPILOGUE)) {
+        const float g0 = 1.0f / (1.0f + expf(-sum[i]));
+        const float g1 = 1.0f / (1.0f + expf(-sum[i + 1]));
+        o = make_float2(g0 * xv[i] + (1.0f - g0) * hv[i], g1 * xv[i + 1] + (1.0f - g1) * hv[i + 1]);
+      }
+      *reinterpret_cast<float2*>(out + static_cast<long long>(p) * C + n) = o;
+    }
+}
+
+int launch_step_f32(const void* x, const void* gx, const void* hprev, const void* wp, void* out,
+                    long long vstride, long long hstride, int V, int H, int W, int C,
+                    void* stream) {
+  using L = F32Step;
+  if (C % L::KSTEP) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(twa_step_f32_kernel, L::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((H * W + L::BM - 1) / L::BM, (C + L::BN - 1) / L::BN, V);
+  twa_step_f32_kernel<<<grid, L::NT, L::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gx),
+      static_cast<const float*>(hprev), static_cast<const float*>(wp), static_cast<float*>(out),
+      vstride, hstride, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // The persistent kernel: one launch per clip (bf16).
 
 // Timing builds only (tools/k1_probe): a bit mask of parts compiled out.
@@ -373,11 +669,6 @@ constexpr int MI = WM / 16;
 constexpr int NTHREAD = MT / WM * 32;  // 8 warps
 constexpr int NSTAGE = 3;    // chunk buffers in the cp.async ring
 constexpr int ROW_BYTES = KC * 2;   // one staged pixel, and one row of the slice
-constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a Hopper block can use
-
-__host__ __device__ constexpr int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
 // Bytes of one staged chunk for a tile of `tr` rows with its halo.
 __host__ __device__ constexpr int stage_bytes(int tr, int W) {
   return round_up((tr + 2) * (W + 2), 8) * ROW_BYTES;
@@ -385,23 +676,6 @@ __host__ __device__ constexpr int stage_bytes(int tr, int W) {
 __host__ __device__ constexpr int clip_smem_bytes(int tr, int W, int C) {
   return 9 * C * ROW_BYTES + NSTAGE * stage_bytes(tr, W) +
          round_up((tr + 2) * (W + 2), 4) * 4;
-}
-
-// 16-byte asynchronous copy from device to shared memory through L2 only;
-// `valid` false writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // `ldsm` loads four 8x8 b16 matrices from shared memory: lane l gives the
@@ -739,12 +1013,22 @@ int twa_step_bf16(const void* x, const void* gx, const void* hprev,
                                W, C, stream);
 }
 
+// `w_packed` is W_h packed by ops/twa.py::pack_twa_weights.
 int twa_step_f32(const void* x, const void* gx, const void* hprev,
-                 const void* w, void* out, long long vstride,
+                 const void* w_packed, void* out, long long vstride,
                  long long hstride, int V, int H, int W, int C,
                  void* stream) {
-  return launch<float>(x, gx, hprev, w, out, vstride, hstride, V, H, W, C,
-                       stream);
+  return launch_step_f32(x, gx, hprev, w_packed, out, vstride, hstride, V, H, W, C, stream);
+}
+
+// The packed-weight layout the f32 kernel reads, for the pack to be held
+// against: input channels per chunk (one tap of a chunk per ring slot),
+// output channels per block, channels per k step and per plane.
+void twa_f32_layout(int* chunk, int* column_block, int* k_step, int* plane) {
+  *chunk = F32Step::KC;
+  *column_block = F32Step::BN;
+  *k_step = F32Step::KSTEP;
+  *plane = F32Step::PLANE;
 }
 
 // The whole clip in one cooperative launch (bf16). `done` is a zeroed int32

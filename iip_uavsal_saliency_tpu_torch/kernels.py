@@ -9,7 +9,8 @@ loaded. Nothing is compiled or loaded when this module is imported.
 
 `launches` counts, per kernel function, the launches its wrapper made
 (`twa_scan.cu` holds two: `twa_scan`, the persistent kernel, one launch per
-clip, and `twa_step`, one launch per frame); a run resets it with
+clip, and `twa_step`, one launch per frame, whose f32 and bf16 device
+functions count together); a run resets it with
 `reset_launches()` and reads it afterwards to show which kernels a path
 went through. The wrappers count where they launch, and nowhere else: a
 launch recorded into a CUDA graph counts once, at its capture, and the
@@ -35,7 +36,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("twa_scan", "dwblock")
 KERNELS = ("twa_scan", "twa_step", "dwblock")
 # the device functions behind each count, by the names a profiler gives them
-SYMBOLS = {"twa_scan": ("twa_clip_kernel",), "twa_step": ("twa_step_kernel",),
+SYMBOLS = {"twa_scan": ("twa_clip_kernel",),
+           "twa_step": ("twa_step_f32_kernel", "twa_step_kernel"),
            "dwblock": ("dwblock_f32_kernel", "dwblock_bf16_kernel")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

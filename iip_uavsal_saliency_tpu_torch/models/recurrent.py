@@ -7,7 +7,8 @@
 The gate conv is linear, so it splits into conv(x, W[:, :Cin]) +
 conv(h, W[:, Cin:]). The input half runs once over all V*S frames as one
 `F.conv2d`; the scan over frames (`ops/twa.py::twa_scan`, kernel K1 on the
-card) runs only the hidden half and the gate.
+card) runs only the hidden half and the gate. For the f32 kernel the hidden
+half is also packed (`ops/twa.py::pack_twa_weights`), once for serving.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.twa import twa_scan
+from ..ops.twa import pack_twa_weights, twa_scan
 
 
 class _TWACell(nn.Module):
@@ -29,15 +30,23 @@ class _TWACell(nn.Module):
         self.rnn_conv = nn.Conv2d(2 * hidden_dim, hidden_dim, 3, padding=1, bias=False)
 
 
+def _packs(w: torch.Tensor) -> bool:
+    """Whether the scan reads this weight's hidden half packed: the f32
+    kernel on the card does; bf16 and the CPU read W_h as it is."""
+    return w.device.type == "cuda" and w.dtype == torch.float32
+
+
 class ConvTWA(nn.Module):
     """x (V, S, H, W, C), state (V, H, W, C) -> (ys (V, S, H, W, C), h_last).
 
     The gate weight is split into its input half (OIHW, for the conv) and
-    its hidden half permuted into the HWIO layout the kernel reads. For
-    serving (no gradient wanted) the split is made once and again only when
-    the weight changes; when a gradient is wanted it is made on the fly, so
-    that it reaches `rnn_conv.weight` (on the card the scan's backward
-    recomputes it through `twa_scan_ref`)."""
+    its hidden half permuted into the HWIO layout the kernel reads (and, for
+    the f32 kernel, packed: `packed_weight`). For serving (no gradient
+    wanted) the split and the pack are made once and again only when the
+    weight changes (in place, by a load or by a cast); when a gradient is
+    wanted the split is made on the fly, so that it reaches
+    `rnn_conv.weight` (on the card the scan's backward recomputes it through
+    `twa_scan_ref`), and the scan packs once per call."""
 
     def __init__(self, hidden_dim: int = 256):
         super().__init__()
@@ -45,6 +54,7 @@ class ConvTWA(nn.Module):
         self.cell_list = nn.ModuleList([_TWACell(hidden_dim)])
         self._split: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._split_key = None
+        self._packed: Optional[torch.Tensor] = None
         # the scan to run; None is `ops/twa.py::twa_scan` (K1 on the card).
         # A check that holds K1's path against the plain one sets it to
         # `twa_scan_ref` on a model of its own
@@ -63,7 +73,28 @@ class ConvTWA(nn.Module):
         if self._split_key != key:
             self._split = self._split_of(w.detach())
             self._split_key = key
+            self._packed = None
         return self._split
+
+    def packed_weight(self) -> Optional[torch.Tensor]:
+        """W_h packed for the f32 kernel (`pack_twa_weights`), made once
+        beside the cached split and dropped with it; None when a gradient
+        is wanted or the weight is not f32 on the card."""
+        w = self.cell_list[0].rnn_conv.weight
+        if (torch.is_grad_enabled() and w.requires_grad) or not _packs(w):
+            return None
+        w_h = self.split_weight()[1]
+        if self._packed is None:
+            self._packed = pack_twa_weights(w_h)
+        return self._packed
+
+    def _apply(self, fn, *args, **kwargs):
+        self._split = self._split_key = self._packed = None  # a cast or a move
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._split = self._split_key = self._packed = None
+        super()._load_from_state_dict(*args, **kwargs)
 
     def _split_of(self, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return (w[:, :self.hidden_dim].contiguous(memory_format=torch.channels_last),
@@ -75,5 +106,6 @@ class ConvTWA(nn.Module):
         frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
         gx = F.conv2d(frames, w_x, padding=1).permute(0, 2, 3, 1)
         gx = gx.contiguous().reshape(v, s, h, w, c)
-        scan = twa_scan if self.scan is None else self.scan
-        return scan(x.contiguous(), gx, w_h, state)
+        if self.scan is not None:
+            return self.scan(x.contiguous(), gx, w_h, state)
+        return twa_scan(x.contiguous(), gx, w_h, state, packed=self.packed_weight())

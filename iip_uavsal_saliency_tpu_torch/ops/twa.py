@@ -24,14 +24,17 @@ On a CUDA tensor it launches one of the two hand-written Hopper kernels of
   across blocks through per-tile counters in a scratch tensor that this
   wrapper allocates and zeroes.
 - `twa_step`, one launch per frame, frames in order on the current stream:
-  everything else the kernel takes (f32 on plain FMA, which the f32 serving
-  path's parity rests on; C a multiple of 8 but not of 32; widths whose halo
-  tile does not fit).
+  everything else the kernel takes. f32 runs `twa_step_f32_kernel`, the
+  implicit GEMM as 3xTF32 on `wgmma` (small.big + big.small + big.big, f32
+  accumulation, the tensor cores' sums folded into f32 every 96 of K), on
+  W_h split into TF32 halves and packed by `pack_twa_weights` (once per
+  call, or once at load by `ConvTWA` for serving); bf16 with C a multiple
+  of 8 but not of 32, or a halo tile too wide, runs the WMMA kernel.
 
 Both fuse the sigmoid and the lerp into the GEMM's epilogue in f32 and round
 once, at the store of h_s; frame s reads h_{s-1} from ys[:, s-1]. At the
 flagship 45x80x256 a frame is 4.25 GFLOP, so either is compute-bound on an
-H100 (bound ~4.3 us/frame in bf16); the source's header says what each
+H100 (bound ~4.3 us/frame in bf16, 25.7 as 3xTF32); the source's header says what each
 design does about it. A video's result does not depend on which other videos
 share the launch, so a split of V gives the bits of the whole (the content
 of the JAX package's `twa_scan_sharded`). On a CPU tensor `twa_scan` runs
@@ -49,18 +52,27 @@ W_h (3, 3, C, C) in HWIO order.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .dwblock import _ceil_to, tf32_split
 
 _STEP_SIGNATURE = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
 _SCAN_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 _SLICE = 32  # the persistent kernel's output channels per block
+# The f32 per-frame kernel's packed-weight layout (`twa_f32_layout` in the
+# source, which a GPU test holds these against): input channels per chunk
+# (C is padded to it), output channels per block (N is padded to it),
+# channels per k step and per 16-byte core-matrix row ("plane").
+F32_CHUNK = 32
+F32_COLUMN_BLOCK = 64
+F32_K_STEP = 8
+F32_PLANE = 4
 
 
 def clip_takes(w: int, c: int) -> bool:
@@ -109,13 +121,45 @@ def twa_scan_ref(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor,
     return torch.stack(ys, 1), h
 
 
+def packed_twa_size(c: int) -> int:
+    """Elements of the blob `pack_twa_weights` makes for C channels."""
+    return 2 * 9 * _ceil_to(c, F32_CHUNK) * _ceil_to(c, F32_COLUMN_BLOCK)
+
+
+def pack_twa_weights(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h (3, 3, C, C) f32 in HWIO order, in the byte order the f32
+    per-frame kernel wants in shared memory: each weight split by
+    `tf32_split` into a big and a small TF32 half, input channels padded
+    with zeros to a multiple of 32 (a staged chunk) and output channels to
+    a multiple of 64 (a block's columns), so the kernel needs no masks.
+
+    One flat blob, [column block nb][chunk q][tap ky, kx][k8 step j][half
+    h][plane p][64 columns n][k]: element is half h of W_h[ky, kx, 32q + 8j
+    + 2k + p, 64nb + n]. Within each k8 step the rows are taken in the order
+    0 2 4 6 1 3 5 7, so that a thread's two A values of a row (MMA k = t and
+    t + 4) are channels 2t, 2t + 1: one 8-byte load. A block reads its
+    column block from end to end, one tap of a chunk (16 KB) per bulk copy,
+    planes as wgmma's K-major layout without swizzle has them."""
+    if w_h.dtype != torch.float32 or w_h.dim() != 4 or w_h.shape[:2] != (3, 3) \
+            or w_h.shape[2] != w_h.shape[3]:
+        raise ValueError(f"pack_twa_weights takes f32 W_h of shape (3, 3, C, C), got "
+                         f"{tuple(w_h.shape)} of {w_h.dtype}")
+    c = w_h.shape[-1]
+    cp, np_ = _ceil_to(c, F32_CHUNK), _ceil_to(c, F32_COLUMN_BLOCK)
+    halves = torch.stack(tf32_split(F.pad(w_h, (0, np_ - c, 0, cp - c))))
+    # (h, ky, kx, q, j, k, p, nb, n) -> (nb, q, ky, kx, j, h, p, n, k)
+    blob = halves.reshape(2, 3, 3, cp // F32_CHUNK, F32_CHUNK // F32_K_STEP, F32_PLANE, 2,
+                          np_ // F32_COLUMN_BLOCK, F32_COLUMN_BLOCK)
+    return blob.permute(7, 3, 1, 2, 4, 0, 6, 8, 5).reshape(-1)
+
+
 class _TWAScan(torch.autograd.Function):
     """Kernel forward, backward recomputed through the plain version."""
 
     @staticmethod
-    def forward(ctx, x, gx, w_h, h0):
+    def forward(ctx, x, gx, w_h, h0, packed):
         ctx.save_for_backward(x, gx, w_h, h0)
-        return _twa_scan_cuda(x, gx, w_h, h0)
+        return _twa_scan_cuda(x, gx, w_h, h0, packed=packed)
 
     @staticmethod
     def backward(ctx, grad_ys, grad_last):
@@ -125,20 +169,23 @@ class _TWAScan(torch.autograd.Function):
         with torch.enable_grad():
             outs = twa_scan_ref(*args)
         grads = iter(torch.autograd.grad(outs, wanted, (grad_ys, grad_last)))
-        return tuple(next(grads) if a.requires_grad else None for a in args)
+        return tuple(next(grads) if a.requires_grad else None for a in args) + (None,)
 
 
-def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor,
-             h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
+             packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TWA scan: kernel K1 on a CUDA tensor, `twa_scan_ref` on a CPU one
-    (where autograd differentiates the plain version itself)."""
+    (where autograd differentiates the plain version itself). `packed` is
+    `pack_twa_weights(w_h)` made beforehand, read by the f32 kernel only
+    (without it the wrapper packs once per call); the backward and the plain
+    version read `w_h`."""
     if x.device.type == "cpu":
         return twa_scan_ref(x, gx, w_h, h0)
     if x.device.type != "cuda":
         raise ValueError(f"twa_scan runs on cuda or cpu tensors, got {x.device}")
     # normalize at the kernel boundary, as the Pallas wrapper does: an f32
     # initial state or weight beside bf16 streams is cast to the stream dtype
-    return _TWAScan.apply(x, gx, w_h.to(x.dtype), h0.to(x.dtype))
+    return _TWAScan.apply(x, gx, w_h.to(x.dtype), h0.to(x.dtype), packed)
 
 
 def _lib():
@@ -153,12 +200,16 @@ def _lib():
         lib.twa_clip_tile_rows.restype = ctypes.c_int
         lib.twa_error_string.argtypes = [ctypes.c_int]
         lib.twa_error_string.restype = ctypes.c_char_p
+        lib.twa_f32_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.twa_f32_layout.restype = None
     return lib
 
 
-def _twa_scan_cuda(x, gx, w_h, h0, route=None):
+def _twa_scan_cuda(x, gx, w_h, h0, route=None, packed=None):
     """Launch the kernel `kernel_route` names (`route` overrides it, for the
-    checks that hold one kernel against the other) or raise."""
+    checks that hold one kernel against the other) or raise. The f32
+    per-frame kernel reads `packed`, or W_h packed here, once for all
+    frames."""
     chosen = kernel_route(x.shape, x.dtype)  # raises on what K1 does not take
     route = route or chosen
     v, s, h, w, c = x.shape
@@ -171,6 +222,17 @@ def _twa_scan_cuda(x, gx, w_h, h0, route=None):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("twa_scan kernel needs contiguous, 16-byte aligned "
                              "tensors on one device")
+    if route == "twa_step" and x.dtype == torch.float32:
+        if packed is None:
+            with torch.no_grad():
+                packed = pack_twa_weights(w_h)
+        size = packed_twa_size(c)
+        if (packed.shape != (size,) or packed.dtype != torch.float32
+                or packed.device != x.device or not packed.is_contiguous()
+                or packed.data_ptr() % 16):
+            raise ValueError(f"packed W_h must be a flat, contiguous, 16-byte aligned f32 "
+                             f"tensor of {size} elements on x's device (pack_twa_weights)")
+        w_h = packed
     lib = _lib()
     ys = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -203,6 +265,7 @@ def _launch_clip(lib, x, gx, w_h, h0, ys, stream) -> None:
 
 
 def _launch_frames(lib, x, gx, w_h, h0, ys, stream) -> None:
+    """One launch per frame; `w_h` is the packed blob for f32."""
     v, s, h, w, c = x.shape
     fn = lib.twa_step_bf16 if x.dtype == torch.bfloat16 else lib.twa_step_f32
     hwc = h * w * c

@@ -1,19 +1,29 @@
-"""Where a frame of the port's persistent ConvTWA kernel (K1) spends its time.
+"""Where the port's ConvTWA kernel (K1) spends its time.
 
-    python3 -m iip_uavsal_saliency_tpu_torch.tools.k1_probe
+    python3 -m iip_uavsal_saliency_tpu_torch.tools.k1_probe [--dtype bf16|f32]
 
-On one NVIDIA GPU, at 1x20x45x80x256 and 4x20x45x80x256 in bf16, times
-builds of `csrc/twa_scan.cu` with parts of the persistent kernel compiled
-out (`-DCLIP_SKIP=<bit mask>`, see `Part` in the source): the mma, the
-ldmatrix loads, the copies of h_{s-1}, the epilogue, the wait for other
-blocks, the fences, the epilogue's operand loads. Those builds give wrong
-results and only their times are read (us per frame, median and fastest of
-14 windows of 10 clips, the builds in turns): the time a part takes is the
-time with it less the time without it. Whether K1 is right, and its time
-beside its plain version, library call and bound, is `chip_smoke.py`'s to
-say.
+On one NVIDIA GPU, times builds of `csrc/twa_scan.cu` with parts of a
+kernel compiled out; those builds give wrong results and only their times
+are read: the time a part takes is the time with it less the time without
+it. The builds run in turns, one `nvcc` each, all started together.
+
+- bf16: the persistent kernel at 1x20x45x80x256 and 4x20x45x80x256
+  (`-DCLIP_SKIP=<bit mask>`, see `Part` in the source): the mma, the
+  ldmatrix loads, the copies of h_{s-1}, the epilogue, the wait for other
+  blocks, the fences, the epilogue's operand loads. us per frame, median
+  and fastest of 14 windows of 10 clips.
+- f32: the per-frame 3xTF32 kernel at one 45x80x256 frame, V = 1 and 4
+  (`-DSTEP_SKIP=<bit mask>`, see `StepPart`): the wgmma, A's loads and
+  splits, the folds of the tensor cores' sums, the ring's bulk copies, the
+  ring's mbarrier handshake (with the copies), the staging of h_{s-1}, the
+  epilogue's loads and gate. us per launch, median and fastest of 14
+  windows of 20 launches.
+
+Whether K1 is right, and its time beside its plain version, library call
+and bound, is `chip_smoke.py`'s to say.
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -24,13 +34,18 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.twa import _SCAN_SIGNATURE
+from ..ops.twa import _SCAN_SIGNATURE, _STEP_SIGNATURE, pack_twa_weights
 
 SHAPES = [(1, 20, 45, 80, 256), (4, 20, 45, 80, 256)]  # V, S, H, W, C
 PARTS = ["MMA", "LDSM", "STAGING", "EPILOGUE", "ORDER", "FENCE", "OPERANDS"]  # as Part
 VARIANTS = [[], ["MMA"], ["MMA", "LDSM"], ["MMA", "LDSM", "STAGING"],
             ["MMA", "LDSM", "STAGING", "OPERANDS"], ["MMA", "LDSM", "STAGING", "EPILOGUE"],
             ["OPERANDS"], ["ORDER"], ["FENCE"]]
+F32_SHAPES = [(1, 45, 80, 256), (4, 45, 80, 256)]  # V, H, W, C: one frame
+F32_PARTS = ["MMA", "SPLIT", "FOLD", "COPIES", "HANDSHAKE", "STAGING", "EPILOGUE"]  # as StepPart
+F32_VARIANTS = ([[]] + [[p] for p in F32_PARTS if p != "HANDSHAKE"]
+                + [["COPIES", "HANDSHAKE"], ["MMA", "SPLIT"],
+                   ["MMA", "SPLIT", "FOLD", "COPIES", "HANDSHAKE", "STAGING"]])
 
 
 def us_windows(fn, reps=10, windows=7):
@@ -48,53 +63,98 @@ def us_windows(fn, reps=10, windows=7):
     return times
 
 
+def build_variants(tmp, macro, parts, variants):
+    """One library per variant, `-D<macro>=<mask of the parts left out>`."""
+    procs = []
+    for i, left_out in enumerate(variants):
+        mask = sum(1 << parts.index(p) for p in left_out)
+        lib = os.path.join(tmp, f"lib{i}.so")
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-D{macro}={mask}", "-o", lib,
+               str(kernels.CSRC / "twa_scan.cu")]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), lib))
+    libs = []
+    for left_out, (proc, lib) in zip(variants, procs):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed without {left_out}:\n{log}")
+        libs.append(ctypes.CDLL(lib))
+    return libs
+
+
+def in_turns(libs, call, reps):
+    """Each build timed in turns, forward then backward: 14 windows each."""
+    times = [[] for _ in libs]
+    for i in list(range(len(libs))) + list(reversed(range(len(libs)))):
+        times[i] += us_windows(lambda: call(libs[i]), reps)
+    return times
+
+
+def probe_bf16(tmp, stream):
+    libs = build_variants(tmp, "CLIP_SKIP", PARTS, VARIANTS)
+    for lib in libs:
+        lib.twa_scan_bf16.argtypes, lib.twa_scan_bf16.restype = _SCAN_SIGNATURE, ctypes.c_int
+    for shape in SHAPES:
+        v, s, h, w, c = shape
+        gen = torch.Generator("cuda").manual_seed(0)
+        x, gx, h0 = (torch.randn(sh, device="cuda", generator=gen).mul(0.5).bfloat16()
+                     for sh in (shape, shape, (v, h, w, c)))
+        w_h = torch.randn((3, 3, c, c), device="cuda", generator=gen).mul(0.03).bfloat16()
+        ys = torch.empty_like(x)
+        tiles = v * -(-h // libs[0].twa_clip_tile_rows(h, w, c))
+
+        def clip(lib):
+            done = torch.zeros(tiles, dtype=torch.int32, device="cuda")
+            rc = lib.twa_scan_bf16(x.data_ptr(), gx.data_ptr(), h0.data_ptr(), w_h.data_ptr(),
+                                   ys.data_ptr(), done.data_ptr(), v, s, h, w, c, stream)
+            assert rc == 0, rc
+
+        times = in_turns(libs, clip, 10)
+        print(f"K1 persistent, bf16 at {shape}, us per frame: median (fastest window); "
+              f"without ...")
+        for parts, t in zip(VARIANTS, times):
+            print(f"  {','.join(parts) or 'whole kernel':40s} {np.median(t) / s:7.2f} "
+                  f"({min(t) / s:.2f})")
+
+
+def probe_f32(tmp, stream):
+    libs = build_variants(tmp, "STEP_SKIP", F32_PARTS, F32_VARIANTS)
+    for lib in libs:
+        lib.twa_step_f32.argtypes, lib.twa_step_f32.restype = _STEP_SIGNATURE, ctypes.c_int
+    for v, h, w, c in F32_SHAPES:
+        gen = torch.Generator("cuda").manual_seed(0)
+        x, gx, hprev = (torch.randn((v, h, w, c), device="cuda", generator=gen).mul(0.5)
+                        for _ in range(3))
+        packed = pack_twa_weights(torch.randn((3, 3, c, c), device="cuda", generator=gen)
+                                  .mul(0.03))
+        out = torch.empty_like(x)
+        hwc = h * w * c
+
+        def frame(lib):
+            rc = lib.twa_step_f32(x.data_ptr(), gx.data_ptr(), hprev.data_ptr(),
+                                  packed.data_ptr(), out.data_ptr(), hwc, hwc, v, h, w, c, stream)
+            assert rc == 0, rc
+
+        times = in_turns(libs, frame, 20)
+        full = float(np.median(times[0]))
+        print(f"K1 per-frame 3xTF32, f32 at V={v} {h}x{w}x{c}, us per launch: median (fastest "
+              f"window); without ... (and what that part takes)")
+        for parts, t in zip(F32_VARIANTS, times):
+            print(f"  {','.join(parts) or 'whole kernel':45s} {np.median(t):8.2f} ({min(t):.2f})"
+                  f"  ({full - np.median(t):7.2f})")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
+    dtype_name = parser.parse_args().dtype
     if not torch.cuda.is_available():
         sys.exit("k1_probe: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     stream = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for i, parts in enumerate(VARIANTS):  # one nvcc per build, all started together
-            mask = sum(1 << PARTS.index(p) for p in parts)
-            lib = os.path.join(tmp, f"lib{i}.so")
-            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DCLIP_SKIP={mask}", "-o", lib,
-                   str(kernels.CSRC / "twa_scan.cu")]
-            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                           text=True), lib))
-        libs = []
-        for parts, (proc, lib) in zip(VARIANTS, procs):
-            log, _ = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed without {parts}:\n{log}")
-            lib = ctypes.CDLL(lib)
-            lib.twa_scan_bf16.argtypes, lib.twa_scan_bf16.restype = _SCAN_SIGNATURE, ctypes.c_int
-            libs.append(lib)
-
-        for shape in SHAPES:
-            v, s, h, w, c = shape
-            gen = torch.Generator("cuda").manual_seed(0)
-            x, gx, h0 = (torch.randn(sh, device="cuda", generator=gen).mul(0.5).bfloat16()
-                         for sh in (shape, shape, (v, h, w, c)))
-            w_h = torch.randn((3, 3, c, c), device="cuda", generator=gen).mul(0.03).bfloat16()
-            ys = torch.empty_like(x)
-            tiles = v * -(-h // libs[0].twa_clip_tile_rows(h, w, c))
-
-            def clip(lib):
-                done = torch.zeros(tiles, dtype=torch.int32, device="cuda")
-                rc = lib.twa_scan_bf16(x.data_ptr(), gx.data_ptr(), h0.data_ptr(), w_h.data_ptr(),
-                                       ys.data_ptr(), done.data_ptr(), v, s, h, w, c, stream)
-                assert rc == 0, rc
-
-            times = [[] for _ in libs]
-            for i in list(range(len(libs))) + list(reversed(range(len(libs)))):
-                times[i] += us_windows(lambda: clip(libs[i]))
-            print(f"K1 persistent, bf16 at {shape}, us per frame: median (fastest window); "
-                  f"without ...")
-            for parts, t in zip(VARIANTS, times):
-                print(f"  {','.join(parts) or 'whole kernel':40s} {np.median(t) / s:7.2f} "
-                      f"({min(t) / s:.2f})")
+        (probe_bf16 if dtype_name == "bf16" else probe_f32)(tmp, stream)
 
 
 if __name__ == "__main__":

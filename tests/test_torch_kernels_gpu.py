@@ -19,8 +19,10 @@ from iip_uavsal_saliency_tpu_torch import kernels
 from iip_uavsal_saliency_tpu_torch.ops import dwblock as dw
 from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwblock,
                                                        fused_dwblock_kernel, pack_dwblock_weights)
+from iip_uavsal_saliency_tpu_torch.ops import twa
 from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_takes,
-                                                    kernel_route, twa_scan, twa_scan_ref)
+                                                    kernel_route, pack_twa_weights, twa_scan,
+                                                    twa_scan_ref)
 from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
 from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
 from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
@@ -51,22 +53,83 @@ def _launches(route, frames):
             "twa_step": frames if route == "twa_step" else 0, "dwblock": 0}
 
 
-# f32: the kernel and cuDNN (TF32 off) sum the 9*C products in other orders.
+# f32: the kernel's 3xTF32 products (each within about 2^-21 of the f32
+# product, the tensor cores' sums folded into f32 every 96 of K) and cuDNN
+# (TF32 off) sum the 9*C products in other orders.
 # bf16: the plain version rounds the conv and the gate to bf16 every frame,
 # the kernel keeps them in f32 until it stores h_s.
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 5, 13, 7, 24), (3, 4, 20, 8, 8), (1, 2, 1, 1, 8)],
-                         ids=["ragged", "three_videos", "one_pixel"])
-def test_twa_kernel_matches_ref(card, shape, dtype, atol):
+STEP_CASES = {
+    # name: (v, s, h, w, c), dtypes; every shape here goes to the per-frame kernel
+    "ragged": ((2, 5, 13, 7, 24), ("f32", "bf16")),        # C % 32 != 0
+    "three_videos": ((3, 4, 20, 8, 8), ("f32", "bf16")),
+    "one_pixel": ((1, 2, 1, 1, 8), ("f32", "bf16")),
+    "flagship": ((1, 20, 45, 80, 256), ("f32",)),           # as the f32 paths serve it
+    "c40": ((2, 3, 9, 11, 40), ("f32",)),                   # N and K not multiples of the tiles
+    "c264": ((1, 3, 7, 19, 264), ("f32",)),                 # a second, 8-column block of N
+}
+STEP_TOL = {"f32": (torch.float32, 1e-5), "bf16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.mark.parametrize("name,dtype_name", [(n, d) for n, (_, ds) in STEP_CASES.items()
+                                             for d in ds])
+def test_twa_kernel_matches_ref(card, name, dtype_name):
+    """The per-frame kernel against the plain version, one launch per
+    frame; in f32 (3xTF32) also equal bits on a repeated run and with W_h
+    packed beforehand."""
+    shape = STEP_CASES[name][0]
+    dtype, atol = STEP_TOL[dtype_name]
     args = [torch.tensor(a, dtype=torch.float32).to(card, dtype) for a in _case(*shape)]
     kernels.reset_launches()
     ys, last = twa_scan(*args)
     torch.cuda.synchronize()
-    assert kernel_route(shape, dtype) == "twa_step"  # C % 32 != 0: one launch per frame
+    assert kernel_route(shape, dtype) == "twa_step"
     assert kernels.launches == _launches("twa_step", shape[1])
     ref, ref_last = twa_scan_ref(*args)
     torch.testing.assert_close(ys.float(), ref.float(), atol=atol, rtol=0)
     torch.testing.assert_close(last.float(), ref_last.float(), atol=atol, rtol=0)
+    if dtype == torch.float32:
+        again, _ = twa_scan(*args)
+        packed, _ = twa_scan(*args, packed=pack_twa_weights(args[2]))
+        assert torch.equal(again, ys) and torch.equal(packed, ys)
+
+
+def test_twa_f32_layout_constants_are_the_kernels(card):
+    """The f32 pack's layout constants are the ones the kernel source states."""
+    values = [ctypes.c_int() for _ in range(4)]
+    _lib().twa_f32_layout(*[ctypes.byref(v) for v in values])
+    assert [v.value for v in values] == [twa.F32_CHUNK, twa.F32_COLUMN_BLOCK, twa.F32_K_STEP,
+                                         twa.F32_PLANE]
+
+
+def test_twa_f32_packs_once_per_scan_and_once_for_serving(card, monkeypatch):
+    """A scan with a gradient wanted packs W_h once, not once per frame;
+    ConvTWA serving packs once and reuses the pack; a pack of the wrong size
+    is refused."""
+    from iip_uavsal_saliency_tpu_torch.models import recurrent
+    from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
+
+    made = []
+
+    def counting(w_h):
+        made.append(w_h.shape)
+        return pack_twa_weights(w_h)
+
+    monkeypatch.setattr(twa, "pack_twa_weights", counting)
+    monkeypatch.setattr(recurrent, "pack_twa_weights", counting)
+    args = [torch.tensor(a, dtype=torch.float32, device=card) for a in _case(1, 5, 6, 7, 16)]
+    args[0].requires_grad_()
+    kernels.reset_launches()
+    ys, _ = twa_scan(*args)
+    ys.square().sum().backward()
+    assert len(made) == 1 and kernels.launches["twa_step"] == 5
+    tm = ConvTWA(16).to(card)
+    x = args[0].detach()
+    with torch.no_grad():
+        first, _ = tm(x, tm.init_state(6, 7, device=card))
+        again, _ = tm(x, tm.init_state(6, 7, device=card))
+    assert len(made) == 2 and torch.equal(first, again)
+    with pytest.raises(ValueError, match="packed W_h"):
+        twa_scan(*(a.detach() for a in args), packed=pack_twa_weights(args[2])[:-4])
 
 
 CLIP_SHAPES = {
@@ -131,7 +194,7 @@ def test_twa_gate_agrees_with_the_kernels_tile_rows(card, hwc, rows):
 
 # `twa_scan_sharded` of the JAX package: the kernel unchanged on each V
 # shard. On one card that is shard invariance: V = 4 gives the bits that
-# x[:2] and x[2:] give, on either kernel.
+# x[:2] and x[2:] give, on each kernel (f32: the 3xTF32 per-frame one).
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(4, 3, 13, 7, 24), (4, 3, 45, 80, 256)],
                          ids=["ragged", "flagship_width"])

@@ -11,6 +11,7 @@ import torch
 from iip_uavsal_saliency_tpu.models.recurrent import ConvTWA as JConvTWA
 from iip_uavsal_saliency_tpu.ops.pallas_twa import twa_scan_pallas, twa_scan_xla
 from iip_uavsal_saliency_tpu_torch import kernels
+from iip_uavsal_saliency_tpu_torch.models import recurrent
 from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
 from iip_uavsal_saliency_tpu_torch.ops.twa import (clip_takes, kernel_route, twa_scan,
                                                     twa_scan_ref)
@@ -52,7 +53,13 @@ def test_twa_scan_ref_matches_jax(case, oracle):
 
 
 @pytest.mark.parametrize("v,s", [(1, 5), (2, 3)])
-def test_conv_twa_matches_jax(v, s):
+def test_conv_twa_matches_jax(v, s, monkeypatch):
+    """ConvTWA against the JAX module in f32 on the CPU, where the scan is
+    the plain version and no weight is packed for the f32 kernel."""
+    def refuse(w_h):
+        raise AssertionError("W_h packed on the CPU")
+
+    monkeypatch.setattr(recurrent, "pack_twa_weights", refuse)
     rng = np.random.RandomState(v * 10 + s)
     c, h, w = 8, 6, 7
     x = rng.randn(v, s, h, w, c).astype(np.float32)
@@ -159,7 +166,7 @@ ROUTE_SHAPES = {
 @pytest.mark.parametrize("name", sorted(ROUTE_SHAPES))
 def test_kernel_route(name, dtype, v):
     (h, w, c), bf16_route = ROUTE_SHAPES[name]
-    want = bf16_route if dtype == torch.bfloat16 else "twa_step"  # f32 stays on plain FMA
+    want = bf16_route if dtype == torch.bfloat16 else "twa_step"  # f32: the 3xTF32 per-frame kernel
     assert kernel_route((v, 20, h, w, c), dtype) == want
 
 

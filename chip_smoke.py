@@ -47,12 +47,28 @@
    Each of the four paths runs twice: with the eager step (the checks
    above, whose recorders need Python to run on every call) and as a user
    runs it, the step replayed from a CUDA graph (`graph_step`) through the
-   pipelined `predict_videos`, under the profiler. The kernels that ran in
-   the graphed run, counted from the trace, must be the eager run's
-   launches, exactly (the wrappers count none there: a replay runs without
-   them); it must give the eager run's uint8 maps bit for bit, and over the
+   pipelined `predict_videos`, under the profiler. The graph's own kernel
+   nodes must be the eager run's launches per clip, exactly, and the trace
+   must show each of them running (the profiler drops records, so it does
+   not count them); the wrappers count none there (a replay runs without
+   them). It must give the eager run's uint8 maps bit for bit, and over the
    3 carried clips the eager step's saliency and state bit for bit. The
    `launches` of the kernels line are the eager runs' counts.
+3b. Drives the JAX `UAVSal`'s other configurations at the same width
+   (seeded numpy weights of each configuration's own -> JAX-layout tree ->
+   `load_model_for_inference(..., cnn_type=, num_stblock=, bias_type=)`):
+   ResNet-50 (bf16 with K2 off and on, f32) and VGG16 (bf16 and f32)
+   through every check above (3 carried clips, K1's launches exact, K2's
+   once per admitted block and clip, graphed equal to eager bit for bit,
+   the bf16 maps against the f32 run at CC >= 0.99 per frame), each f32
+   run's first clip against the port on the CPU (with two TF32 controls
+   that the bounds must catch), their graphed bf16 steps
+   and the runner over 20 clips timed in turns with the flagship's, one
+   step of each profiled (`build/chip_smoke_profile_{resnet50,vgg16}.txt`,
+   K1's share); then ResNet-18/34/101/152 and the flagship with
+   `bias_type` (1,0,1) and (0,0,0), one eager bf16 clip each: K1 once,
+   finite saliency in [0, 1], a new state. Each configuration's launches
+   are printed, and listed in the kernels line (`config_launches`).
 4. Times the serving step with K2 off and on, eager and graphed (ms per
    clip, FPS), the host's time to issue one step (eager against one
    replay), the pipelined `predict_videos` end to end, graphed and eager,
@@ -90,6 +106,11 @@
    Phase 4 also times K2's f32 kernel (3xTF32) at the flagship block beside
    its three cuDNN convs (TF32 off), its plain version and its bound (3xTF32,
    with the plain-FMA bound beside it).
+5b. Trains ResNet-50 UAVSal: one f32 step on the card against the CPU at
+   128x224, S=10; at 360x640, S=10, the f32 and the bf16 mixed step with
+   K1's launches exact (10 and 1), the loss falling over 10 steps on one
+   clip, ms per step in turns, peak memory and K1's share of a profiled
+   bf16 step.
 6. Evaluates (`evaluation/scorer.py::_score_video`, all seven metrics; no
    kernel of ours): phase 3's graphed K2-off maps (540x960, 60 frames)
    against seeded synthetic ground truth with one frame without fixations,
@@ -106,7 +127,8 @@
 The line before the last is a JSON object with one entry per kernel
 (`twa_scan`, `twa_step`, `dwblock` for K2 in bf16 and `dwblock_f32` for K2
 in f32, each with `train_step_launches`, its launches counted in one train
-step of the dtype it serves, K2's with the fused dwBlock on); the
+step of the dtype it serves, K2's with the fused dwBlock on, and
+`config_launches`, its launches on each path of phase 3b and 5b); the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -727,6 +749,358 @@ def check_k1_served(torch, twa, name, taken):
 
 
 # ---------------------------------------------------------------------------
+# 3b. The other configurations at full width (360x640)
+
+# served as phase 3 serves the flagship, every check of it: (cnn_type,
+# num_stblock, bias_type)
+FULL_CONFIGS = {"ResNet-50": ("resnet50", 2, (1, 1, 1)), "VGG16": ("vgg16", 2, (1, 1, 1))}
+# served one eager bf16 clip each
+CLIP_CONFIGS = {"ResNet-18": ("resnet18", 2, (1, 1, 1)), "ResNet-34": ("resnet34", 2, (1, 1, 1)),
+                "ResNet-101": ("resnet101", 2, (1, 1, 1)),
+                "ResNet-152": ("resnet152", 2, (1, 1, 1)),
+                "MobileNetV2, bias_type (1, 0, 1)": ("mobilenet_v2", 2, (1, 0, 1)),
+                "MobileNetV2, bias_type (0, 0, 0)": ("mobilenet_v2", 2, (0, 0, 0))}
+# f32 serving on the card (cuDNN with TF32 off, K1 as 3xTF32) against the
+# port on the CPU, one clip from a zero state: the same f32 math summed in
+# other orders through some 60 to 100 layers; saliency absolute, state
+# relative to its largest value. Each bound lies between the sound run's
+# readings and the controls' (TF32 let into the f32 path: cuDNN's convs, or
+# K1's scan alone), which the phase reads and holds above it. On an H100
+# (ResNet-50, VGG16): sound 4.17e-7 and 5.96e-7 (saliency), 2.47e-6 and
+# 2.38e-6 (state); K1's scan at TF32 4.32e-6 and 4.14e-6, 2.62e-5 and
+# 3.66e-5; cuDNN at TF32 2.1e-4 to 2.5e-4, 1.25e-3 to 1.29e-3. Each bound is
+# near the geometric mean of the largest sound reading and the smallest
+# control's.
+TOL_SERVE_CPU = 1.5e-6
+TOL_SERVE_CPU_STATE = 8e-6
+# ResNet-50's f32 train step, the card against the CPU, at a reduced
+# 128x224 (the CPU's step at 360x640 would take minutes). On the CPU the f32
+# step lies from the f64 step (the exact answer) at: loss 2.1e-5, gradient
+# 0.063, worst leaf 0.078, BN stats 7.5e-5, state 3.8e-3 (about twice the
+# flagship's drift: some 150 train-mode BatchNorms against 100); the card's
+# f32 step lies as far on another side, so each bound is 2.5 to 5 times that.
+TRAIN_SMALL_H, TRAIN_SMALL_W = 128, 224
+TOL_R50_TRAIN_LOSS = 1e-4
+TOL_R50_TRAIN_GRAD = 0.2
+TOL_R50_TRAIN_GRAD_LEAF = 0.4
+TOL_R50_TRAIN_BN = 3e-4
+TOL_R50_TRAIN_STATE = 1.5e-2
+CONFIG_TRAIN_STEPS = 10  # steps on one repeated clip, over which the loss must fall
+
+
+def config_kwargs(cfg):
+    cnn_type, num_stblock, bias_type = cfg
+    return {"cnn_type": cnn_type, "num_stblock": num_stblock, "bias_type": bias_type}
+
+
+def config_variables(cfg, seed):
+    """Seeded weights of the configuration's UAVSal as a JAX-layout tree,
+    and their sum |w|: `random_state_dict` from a generator of its own,
+    with VGG16's backbone kernels sqrt(2) times larger, since its convs are
+    followed by a ReLU and no BatchNorm, and at std sqrt(1 / fan_in) each
+    of its 13 ReLUs halves the signal (the maps then flatten and bf16
+    against f32 fell to CC 0.991 at 128x256 on the CPU; 0.998 with the
+    factor)."""
+    from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
+
+    model = UAVSal(**config_kwargs(cfg))
+    sd = random_state_dict(model, np.random.default_rng(seed))
+    if cfg[0] == "vgg16":
+        for key, t in sd.items():
+            if key.startswith("sfnet.features.") and t.dim() == 4:
+                t.mul_(np.sqrt(2.0))
+    checksum = sum(t.double().abs().sum().item() for t in sd.values())
+    return to_jax_variables(sd, table_of(model)), checksum
+
+
+def tf32_controls(torch, step, clip):
+    """The f32 served `step` on `clip` from a zero state with TF32 let into
+    the f32 path, as controls for the card-vs-CPU bounds: {what: (saliency,
+    state)} with cuDNN's convs at TF32 (K1 stays 3xTF32), and with K1's scan
+    replaced by its plain version whose convs run at TF32 (the rest stays
+    f32)."""
+    from iip_uavsal_saliency_tpu_torch.models import recurrent
+    from iip_uavsal_saliency_tpu_torch.ops import twa
+
+    def tf32_scan(x, gx, w_h, h0, packed=None):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return twa.twa_scan_ref(x, gx, w_h, h0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    zero = torch.zeros((V, OUT_H, OUT_W, 256), device="cuda")
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["cuDNN's convs at TF32"] = step(clip, zero)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    recurrent.twa_scan = tf32_scan
+    try:
+        out["K1 as a plain scan at TF32"] = step(clip, zero)
+    finally:
+        recurrent.twa_scan = twa.twa_scan
+    torch.cuda.synchronize()
+    return out
+
+
+def configs_phase(torch, kernels, dwblock, DWBlock, serve, drive, compare, video, native,
+                  first_clip, flagship):
+    """3b. The other configurations at 360x640 on seeded weights (numpy ->
+    JAX-layout tree -> `load_model_for_inference` with the configuration).
+    ResNet-50 and VGG16 go through phase 3's checks (`drive`): 3 carried
+    clips of S=20, eager and graphed, K1's launches exact (bf16 the
+    persistent kernel once per clip, f32 the per-frame kernel once per
+    frame) and for ResNet-50 with K2 on once per admitted block and clip,
+    graphed equal to eager bit for bit, the bf16 maps against the f32 run
+    (CC per frame); then the card's f32 clip against the port on the CPU.
+    Their graphed bf16 steps and the pipelined runner over `LONG_CLIPS`
+    clips are timed in turns with the flagship's (`flagship` = its graphed
+    step and model), and one step of each is profiled. The other
+    configurations serve one eager bf16 clip each: K1's count, finite
+    output in [0, 1], a new state. Returns each configuration's launches."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.runners.infer import (load_model_for_inference,
+                                                             predict_videos)
+    from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+
+    results, timed, profiles = {}, {"flagship (MobileNetV2)": flagship}, {}
+    zero16 = torch.zeros((V, OUT_H, OUT_W, 256), dtype=torch.bfloat16, device="cuda")
+    gauss = get_gauss_priors(OUT_H, OUT_W, 8)
+    for k, (name, cfg) in enumerate(FULL_CONFIGS.items()):
+        tree, checksum = config_variables(cfg, SEED + 20 + k)
+        config = config_kwargs(cfg)
+        print(f"{name} ({config}): seeded weights, sum |w| {checksum:.6f}")
+        launches = {}
+        m16, s16, spy16, seen16 = serve(torch.bfloat16, False, tree, config)
+        launches["bf16"], g16, sal16, _ = drive(f"{name}, K2 off (bf16)", m16, s16, spy16,
+                                                seen16, True, 0)
+        sal16k = None
+        if cfg[0] == "resnet50":
+            m16k, s16k, spy16k, seen16k = serve(torch.bfloat16, True, tree, config)
+            print(f"K2 bf16 at the admitted blocks of one {name} serving step:")
+            admitted, _ = check_k2_admitted(torch, dwblock, DWBlock, m16k, s16k, first_clip,
+                                            zero16)
+            if any(n.startswith(("sfnet.features.", "sfnet.lv5_aspp")) for n, _ in admitted):
+                fail(f"{name}: K2's gate admits a block it must refuse (C <= 352): {admitted}")
+            launches["bf16, K2 on"], _, sal16k, _ = drive(
+                f"{name}, K2 on (bf16)", m16k, s16k, spy16k, seen16k, True,
+                len(admitted) * CLIPS)
+            del m16k, s16k, spy16k, seen16k
+        m32, s32, spy32, seen32 = serve(None, False, tree, config)
+        launches["f32"], g32, sal32, _ = drive(f"{name}, K2 off (f32)", m32, s32, spy32, seen32,
+                                               False, 0)
+        print(f"{name}: f32 map mean {sal32.mean().item():.4g} std {sal32.std().item():.4g}")
+        compare(f"{name}: bf16 vs f32 saliency", sal16, sal32)
+        if sal16k is not None:
+            compare(f"{name}: bf16 K2 on vs f32 saliency", sal16k, sal32)
+        # the card's f32 clip against the port on the CPU
+        cpu_model = load_model_for_inference(tree, fold_bn=True, device="cpu", **config)
+        cpu_step = make_baked_infer_step(cpu_model, gauss, flagship[2])
+        t0 = time.perf_counter()
+        out_c, st_c = cpu_step(first_clip.cpu(), cpu_model.init_state(IN_H, IN_W, V))
+        cpu_s = time.perf_counter() - t0
+
+        def from_cpu(out_g, st_g):
+            return ((out_c - out_g.cpu()).abs().max().item(),
+                    (st_c - st_g.cpu()).abs().max().item() / st_c.abs().max().item())
+
+        out_g, _, st_g = seen32[0]
+        d_sal, d_st = from_cpu(out_g, st_g)
+        print(f"{name}: f32 clip on the card against the CPU ({cpu_s:.1f} s there): saliency "
+              f"max abs diff {d_sal:.3g} (tolerance {TOL_SERVE_CPU}), state {d_st:.3g} of its "
+              f"largest value {st_c.abs().max().item():.3g} (tolerance {TOL_SERVE_CPU_STATE})")
+        if not (d_sal <= TOL_SERVE_CPU and d_st <= TOL_SERVE_CPU_STATE):
+            fail(f"{name}: the card's f32 clip disagrees with the CPU's")
+        for control, (sal_c, state_c) in tf32_controls(torch, s32, first_clip).items():
+            c_sal, c_st = from_cpu(sal_c, state_c)
+            print(f"{name}: control, {control}: saliency {c_sal:.3g}, state {c_st:.3g} "
+                  f"against the CPU")
+            if not (c_sal > TOL_SERVE_CPU and c_st > TOL_SERVE_CPU_STATE):
+                fail(f"{name}: the bounds on the f32 clip do not catch {control}")
+        del cpu_model, cpu_step, m32, s32, spy32, seen32, g32
+        profiles[name] = write_profile(torch, s16, first_clip, zero16,
+                                       f"chip_smoke_profile_{cfg[0]}.txt")
+        results[name] = launches
+        timed[name] = (g16, m16)
+        torch.cuda.empty_cache()
+
+    # the graphed bf16 steps and the runner over LONG_CLIPS clips, in turns
+    names = list(timed)
+    step_ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        graphed = timed[n][0]
+        step_ms[n].append(cuda_ms(lambda: graphed(first_clip, zero16), 10))
+    long_video = np.concatenate([video] * -(-LONG_CLIPS * S // len(video)))[:LONG_CLIPS * S]
+    secs = {n: [] for n in names}
+    for rep in range(E2E_RUNS):
+        for n in (names if rep % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict_videos(timed[n][0], timed[n][1], [long_video], native, batch_size=4)
+            torch.cuda.synchronize()
+            secs[n].append(time.perf_counter() - t0)
+    n_frames = len(long_video)
+    for n in names:
+        a, b = step_ms[n]
+        fps = ", ".join(f"{n_frames / t:.1f}" for t in secs[n])
+        print(f"{n}: graphed bf16 step (V={V}, S={S}, 360x640) {a:.3f} and {b:.3f} ms per clip "
+              f"({V * S / a * 1e3:.1f} and {V * S / b * 1e3:.1f} FPS); runner end to end, "
+              f"graphed, over {LONG_CLIPS} clips, {E2E_RUNS} runs in turns: FPS {fps}; median "
+              f"{n_frames / float(np.median(secs[n])):.1f}"
+              + (f"; one eager step's device time {profiles[n][0]:.3f} ms, K1 "
+                 f"{profiles[n][1]:.3f} ms ({profiles[n][1] / profiles[n][0]:.1%})"
+                 if n in profiles else ""))
+    del timed, step_ms
+    torch.cuda.empty_cache()
+
+    # the other configurations, one eager bf16 clip each
+    want = {"twa_scan": 1, "twa_step": 0, "dwblock": 0}
+    for k, (name, cfg) in enumerate(CLIP_CONFIGS.items()):
+        tree, checksum = config_variables(cfg, SEED + 30 + k)
+        config = config_kwargs(cfg)
+        model = load_model_for_inference(tree, fold_bn=True, device="cuda", **config)
+        step = make_baked_infer_step(model, gauss if cfg[2][0] else None,
+                                     flagship[2] if cfg[2][1] else None,
+                                     compute_dtype=torch.bfloat16)
+        step(first_clip, zero16)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, new_state = step(first_clip, zero16)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        print(f"{name} ({config}; sum |w| {checksum:.6f}): one eager bf16 clip, launches "
+              f"{launches}, saliency in [{out.min().item():.4g}, {out.max().item():.4g}], "
+              f"std {out.std().item():.4g}")
+        if launches != want:
+            fail(f"{name}: launched {launches}, expected {want}")
+        if (out.shape != (V, S, OUT_H, OUT_W, 1) or not torch.isfinite(out).all()
+                or out.min().item() < 0 or out.max().item() > 1):
+            fail(f"{name}: saliency of shape {tuple(out.shape)} is not finite in [0, 1]")
+        if not torch.isfinite(new_state).all() or torch.equal(new_state, zero16):
+            fail(f"{name}: the state did not change or is not finite")
+        results[name] = {"bf16": launches}
+        del model, step, out, new_state
+        torch.cuda.empty_cache()
+    for name, launches in results.items():
+        print(f"configuration {name}: launches per path {json.dumps(launches)}")
+    return results
+
+
+def config_train_phase(torch, kernels):
+    """5b. ResNet-50 UAVSal trained on seeded `init_uavsal` weights: (1) one
+    f32 train step on the card against the same step on the CPU at
+    128x224, S=10; (2) at 360x640, S=10, the f32 and the bf16 mixed step:
+    K1's launches in one step exactly (f32 the per-frame kernel once per
+    frame, bf16 the persistent kernel once), the loss falling over
+    `CONFIG_TRAIN_STEPS` steps on one clip (Adam lr 1e-3), ms per step in
+    turns, peak memory, and K1's share of a profiled bf16 step. Returns
+    the launches of one step by dtype."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    config = {"cnn_type": "resnet50"}
+    rng = np.random.default_rng(SEED + 40)
+    start = init_uavsal(UAVSal(**config), torch.Generator().manual_seed(SEED)).state_dict()
+
+    # (1) the card against the CPU, f32, at the reduced size
+    h, w = TRAIN_SMALL_H, TRAIN_SMALL_W
+    x = torch.from_numpy(rng.integers(0, 256, (1, TRAIN_S, h, w, 3)).astype(np.uint8))
+    ymap = rng.uniform(0.0, 1.0, (1, TRAIN_S, h // 8, w // 8, 1))
+    ypts = rng.uniform(0.0, 1.0, (1, TRAIN_S, h // 8, w // 8, 1)) < 0.05
+    ypts[:, :, 3, 4] = True
+    y = torch.from_numpy(np.concatenate([ymap, ypts], -1).astype(np.float32))
+    small = (x, y, torch.from_numpy(get_gauss_priors(h // 8, w // 8, 8)),
+             torch.from_numpy(rng.uniform(0.0, 1.0, (h // 8, w // 8, 20)).astype(np.float32)),
+             torch.from_numpy(rng.normal(0.0, 0.5, (1, h // 8, w // 8, 256)).astype(np.float32)))
+    t0 = time.perf_counter()
+    on_cpu = one_train_step(torch, kernels, start, small, cpu, config=config)
+    cpu_s = time.perf_counter() - t0
+    on_card = one_train_step(torch, kernels, start, small, cuda, config=config)
+    print(f"ResNet-50 train step f32 at {h}x{w}, S={TRAIN_S}: {cpu_s:.1f} s on the CPU; loss "
+          f"CPU {on_cpu[0]:.6f}, card {on_card[0]:.6f}; card launches {on_card[4]}")
+    held_train(f"ResNet-50 train step f32 at {h}x{w}, card vs CPU", train_diffs(on_cpu, on_card),
+               TOL_R50_TRAIN_LOSS, TOL_R50_TRAIN_GRAD, TOL_R50_TRAIN_GRAD_LEAF,
+               TOL_R50_TRAIN_BN, TOL_R50_TRAIN_STATE)
+    if on_card[4] != {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}:
+        fail(f"ResNet-50 train step f32 at {h}x{w} launched {on_card[4]}")
+    del on_cpu, on_card
+
+    # (2) at 360x640: launches, the loss over repeated steps, times, memory
+    frames, gaze = train_video(rng, TRAIN_S)
+    x, y = torch.from_numpy(frames[None]).to(cuda), torch.from_numpy(gaze[None]).to(cuda)
+    g = torch.from_numpy(get_gauss_priors(OUT_H, OUT_W, 8)).to(cuda)
+    o = torch.from_numpy(rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)).to(cuda)
+    zero = torch.zeros((1, OUT_H, OUT_W, 256), device=cuda)
+    want = {torch.bfloat16: {"twa_scan": 1, "twa_step": 0, "dwblock": 0},
+            None: {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}}
+    launches = {}
+    for dtype in (None, torch.bfloat16):
+        name = "bf16 mixed" if dtype else "f32"
+        model = train_model(torch, start, cuda, config=config)
+        step = make_train_step(create_train_state(model, make_optimizer(model, 1e-3, TRAIN_WD)),
+                               compute_dtype=dtype)
+        kernels.reset_launches()
+        losses = [float(step(x, g, o, zero, y)[0])]
+        torch.cuda.synchronize()
+        launches["bf16" if dtype else "f32"] = one = dict(kernels.launches)
+        losses += [float(step(x, g, o, zero, y)[0]) for _ in range(CONFIG_TRAIN_STEPS - 1)]
+        print(f"ResNet-50 train step {name} (360x640, S={TRAIN_S}): launches {one}; "
+              f"{CONFIG_TRAIN_STEPS} steps on one clip (Adam lr 1e-3): loss "
+              + ", ".join(f"{v:.4f}" for v in losses))
+        if one != want[dtype]:
+            fail(f"ResNet-50 train step {name} launched {one}, expected {want[dtype]}")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"ResNet-50 train step {name}: the loss did not fall")
+        del model, step
+    steps = {}
+    for dtype in (None, torch.bfloat16):
+        model = train_model(torch, start, cuda, config=config)
+        steps[dtype] = make_train_step(
+            create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
+            compute_dtype=dtype)
+    windows = {None: [], torch.bfloat16: []}
+    for dtype in (None, torch.bfloat16, torch.bfloat16, None):
+        windows[dtype] += cuda_windows(lambda: steps[dtype](x, g, o, zero, y), 2, windows=3)
+    for dtype, step in steps.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(x, g, o, zero, y)
+        torch.cuda.synchronize()
+        ms = float(np.median(windows[dtype]))
+        print(f"ResNet-50 train step {'bf16 mixed' if dtype else 'f32'} (V=1, S={TRAIN_S}, "
+              f"360x640, uint8 clip on the card): median {ms:.3f} ms over {len(windows[dtype])} "
+              f"windows of 2 steps (turns f32, bf16, bf16, f32), fastest "
+              f"{min(windows[dtype]):.3f}; {TRAIN_S / ms * 1e3:.1f} training frames/s; memory "
+              f"allocated {before / 2**30:.3f} GiB before the step, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB in it")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps[torch.bfloat16](x, g, o, zero, y)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if "twa_clip_kernel" in e.key) / 1e3
+    print(f"ResNet-50 bf16 train step under the profiler: device time {total:.3f} ms, K1's "
+          f"forward {k1:.3f} ms ({k1 / total:.1%})")
+    del steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 5. Training at full width (360x640, S=10, V=1)
 
 
@@ -750,25 +1124,27 @@ def train_video(rng, n):
     return frames, gaze
 
 
-def train_model(torch, start, device, fused=False, scan=None):
-    """The flagship with the weights `start`, channels-last on `device`;
-    `scan` is ConvTWA's scan (None: K1 on the card)."""
+def train_model(torch, start, device, fused=False, scan=None, config=None):
+    """The flagship (or the UAVSal of `config`, its keyword arguments) with
+    the weights `start`, channels-last on `device`; `scan` is ConvTWA's scan
+    (None: K1 on the card)."""
     from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
 
-    model = UAVSal(fused_dwblock=fused)
+    model = UAVSal(fused_dwblock=fused, **(config or {}))
     model.load_state_dict(start, strict=True)
     model.rnn.scan = scan
     return model.to(device, memory_format=torch.channels_last)
 
 
-def one_train_step(torch, kernels, start, batch, device, dtype=None, fused=False, scan=None):
+def one_train_step(torch, kernels, start, batch, device, dtype=None, fused=False, scan=None,
+                   config=None):
     """One train step (Adam, every parameter trained) from the weights
     `start` on `batch` = (x, y, gauss, ob, state): (loss, {name: gradient},
     {name: buffer after}, new state, its launches), all on the host in f64."""
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
     from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
 
-    model = train_model(torch, start, device, fused, scan)
+    model = train_model(torch, start, device, fused, scan, config)
     step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
                            compute_dtype=dtype)
     x, y, gauss, ob, state = (t.to(device) for t in batch)
@@ -1343,10 +1719,15 @@ def main() -> None:
     video = synthetic_video(rng, V * S * CLIPS)
     native = [(NATIVE_H, NATIVE_W)]
 
-    def serve(compute_dtype, fused):
-        model = load_model_for_inference(variables, fold_bn=True, device="cuda",
-                                         fused_dwblock=fused)
-        step = make_baked_infer_step(model, gauss, ob, compute_dtype=compute_dtype)
+    def serve(compute_dtype, fused, tree=None, config=None):
+        """A served model and its eager step: the flagship, or the UAVSal of
+        `config` (keyword arguments) with the weights `tree`."""
+        config = config or {}
+        bias = config.get("bias_type", (1, 1, 1))
+        model = load_model_for_inference(tree or variables, fold_bn=True, device="cuda",
+                                         fused_dwblock=fused, **config)
+        step = make_baked_infer_step(model, gauss if bias[0] else None, ob if bias[1] else None,
+                                     compute_dtype=compute_dtype)
         seen = []
 
         def spy(x, state):
@@ -1405,9 +1786,11 @@ def main() -> None:
         """The main path as a user runs it: `predict_videos` with the step
         replayed from a CUDA graph (`graph_step`), after one warm-up clip
         that captures it, under the profiler. The kernels that ran on the
-        card, counted from the trace, must be the eager run's launches; the
-        wrappers must count none (a replay runs without them), and the
-        step's own per-replay tally must agree. Its maps must be the eager
+        card: the graph's own kernel nodes must be the eager run's launches
+        per clip, and the trace must show each of them (`kernels.
+        trace_shows_graph`: the profiler drops records); the wrappers must
+        count none (a replay runs without them), and the step's own tally
+        must agree. Its maps must be the eager
         run's bits, and over the same 3 carried clips its saliency and
         state the eager step's bits."""
         from torch.profiler import ProfilerActivity, profile
@@ -1423,8 +1806,14 @@ def main() -> None:
         traced = kernels.traced_launches(prof)
         counted = dict(kernels.launches)
         tally = {k: n - tally[k] for k, n in graphed.replayed.items()}
-        if traced != want:
-            fail(f"{name}, graphed: the trace shows {traced} kernel launches, expected {want}")
+        per_clip = {k: n // CLIPS for k, n in want.items()}
+        nodes = graphed.graph_launches()
+        if nodes != per_clip:
+            fail(f"{name}, graphed: the graph's kernel nodes are {nodes}, expected {per_clip} "
+                 "(the eager run's launches per clip)")
+        if not kernels.trace_shows_graph(traced, nodes, CLIPS):
+            fail(f"{name}, graphed: the trace of {CLIPS} replays shows {traced} kernel "
+                 f"launches, expected each of {nodes} and at most {CLIPS} times as many")
         if any(counted.values()) or tally != want:
             fail(f"{name}, graphed: the wrappers counted {counted} (expected none) and the "
                  f"replays' tally is {tally} (expected {want})")
@@ -1441,7 +1830,8 @@ def main() -> None:
                        for (g, _), (e, _, _) in zip(replayed, seen))
         state_diff = max((g - e).abs().max().item() for (_, g), (_, _, e) in zip(replayed, seen))
         same_maps = np.array_equal(graphed_maps, maps)
-        print(f"{name}, graphed: kernels in the trace {traced}, the replays' tally {tally}; "
+        print(f"{name}, graphed: the graph's kernel nodes {nodes}, kernels in the trace "
+              f"{traced}, the replays' tally {tally}; "
               f"against the eager step over {CLIPS} "
               f"carried clips: saliency max abs diff {sal_diff:.3g}, state max abs diff "
               f"{state_diff:.3g}; uint8 maps equal: {same_maps}")
@@ -1495,6 +1885,10 @@ def main() -> None:
     f32_diff = (sal32k - sal32).abs().max().item()
     if not f32_diff <= TOL_F32_PATHS:
         fail(f"f32 saliency with K2 on differs from K2 off by {f32_diff} > {TOL_F32_PATHS}")
+
+    # 3b. the other configurations
+    config_launches = configs_phase(torch, kernels, dwblock, DWBlock, serve, drive, compare,
+                                    video, native, first_clip, (graphed16, model16, ob))
 
     # 4. measurements
     clip = first_clip
@@ -1550,9 +1944,19 @@ def main() -> None:
 
     # 5. training
     train_launches = train_phase(torch, kernels, twa)
+    config_train_launches = config_train_phase(torch, kernels)
 
     # 6. evaluation
     eval_phase(torch, maps16)
+
+    def by_config(kernel):
+        """The kernel's launches on each path of each configuration of phase
+        3b (serving: per 3 clips or one clip; ResNet-50 training: per step)."""
+        counts = {f"{name}, {path}": n[kernel] for name, paths in config_launches.items()
+                  for path, n in paths.items()}
+        counts.update({f"ResNet-50 train step, {dtype}": n[kernel]
+                       for dtype, n in config_train_launches.items()})
+        return counts
 
     print(smi)
     k1 = {"route": "cuda", "source": "iip_uavsal_saliency_tpu_torch/csrc/twa_scan.cu",
@@ -1569,6 +1973,7 @@ def main() -> None:
         "library_ms": k1_times["library"][0],
         "frames_per_launch": S,
         "train_step_launches": train_launches["bf16"]["twa_scan"],
+        "config_launches": by_config("twa_scan"),
     }, {
         # the per-frame kernel as the f32 paths launch it: one frame of 1x45x80x256 f32
         "name": "twa_step", **k1,
@@ -1583,6 +1988,7 @@ def main() -> None:
         "library_ms": k1_f32["library"],
         "frames_per_launch": 1,
         "train_step_launches": train_launches["f32"]["twa_step"],
+        "config_launches": by_config("twa_step"),
     }, {
         "name": "dwblock",
         "route": "cuda",
@@ -1596,6 +2002,7 @@ def main() -> None:
         "bound_by": k2_bound_by,
         "library_ms": k2_library_ms,
         "train_step_launches": train_launches["bf16 fused"]["dwblock"],
+        "config_launches": by_config("dwblock"),
     }, {
         # the same kernel source in f32 (3xTF32), as the f32 K2-on path launches it
         "name": "dwblock_f32",
@@ -1717,19 +2124,28 @@ def runner_costs(torch, graphed, model, video, native) -> None:
         f.write(table)
 
 
-def write_profile(torch, step, clip, state, filename: str) -> None:
-    """Device time by kernel for one serving step, into build/."""
+def write_profile(torch, step, clip, state, filename: str):
+    """Device time by kernel for one serving step, into build/. Returns the
+    step's device time and K1's part of it (its two kernels), in ms."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(clip, state)
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events
+             if "twa_clip_kernel" in e.key or "twa_step" in e.key) / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, filename), "w") as f:
         f.write(table)
-    print(f"profile of one serving step: build/{filename}")
+    print(f"profile of one serving step: build/{filename}; device time {total:.3f} ms, K1 "
+          f"{k1:.3f} ms ({k1 / total:.1%})")
+    return total, k1
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@
         [--methods A,B] [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli eval-img [--config cfg.json]
         [--methods A,B] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli modelsize [--config cfg.json]
+        [--key value ...]
 
-`train` trains the flagship on `<data_dir>/<train_dataset>` (its txt
+`train` trains UAVSal on `<data_dir>/<train_dataset>` (its txt
 splits, videos and ground truth in the reference's layout) as the JAX
 package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
 checkpoints, `_best.ckpt` and `_final.ckpt`; `--model-path` is a video-model
@@ -20,8 +22,15 @@ files under `<...>/Results/Results_<method_name>/Saliency/<method_name>`,
 as the JAX package's `test` does: the checkpoint is `--model-path`, else
 `<save_model_dir>/<method_name>/<method_name>_final.ckpt`; `serve_bf16`
 selects bf16; the device is CUDA unless `--device cpu` is given. The
-configuration is the JAX package's (utils/config.py); values the port does
-not implement yet raise NotImplementedError naming their ROADMAP item.
+configuration is the JAX package's (utils/config.py): both commands build
+the `uavsal` model of `cnn_type` (mobilenet_v2, resnet18/34/50/101/152,
+vgg16), `num_stblock`, `bias_type` and `s2d_stem`; values the port does
+not implement yet (the other `model_name`s and `st_type`s, `dp_devices`
+above 1) raise NotImplementedError naming their ROADMAP item.
+
+`modelsize` prints the bytes of the configured UAVSal's parameters and
+BatchNorm statistics per top-level part of the JAX variable tree, as the
+JAX package's `modelsize` does (no device is used).
 
 `eval` scores the `.mat` files of each method (`--methods`, else
 `method_name`) under `<data_dir>/<test_dataset>/Results/Results_<method_name>/
@@ -33,8 +42,8 @@ unless `device_auc` is false. `eval-img` scores the PNGs of
 `<data_dir>/salicon-15/val/Results/Results_<method_name>/Saliency/<method>`
 (`Scores/Score_<method>.mat`, means logged; `device_auc` unset picks the
 path by the device's round trip). The other subcommands of the JAX CLI
-(`train-img`, `vis`, `convert`, `export`, `test-aot`, `modelsize`,
-`pipeline`) are ROADMAP A.9b and A.11.
+(`train-img`, `vis`, `convert`, `export`, `test-aot`, `pipeline`) are
+ROADMAP A.9b and A.11.
 """
 
 from __future__ import annotations
@@ -48,9 +57,8 @@ from .utils.logging import get_logger
 
 log = get_logger("cli")
 
-# what the port's UAVSal is (models/uavsal.py), and the JAX Config's value for it
-FLAGSHIP = {"cnn_type": "mobilenet_v2", "model_name": "uavsal", "num_stblock": 2,
-            "bias_type": (1, 1, 1), "st_type": "st", "s2d_stem": False}
+# the model the port builds (models/uavsal.py), as the JAX Config names it
+SUPPORTED = {"model_name": "uavsal", "st_type": "st"}
 
 
 def _split_cli(argv: Sequence[str]
@@ -86,12 +94,12 @@ def _final_ckpt(cfg: Config) -> str:
 
 
 def _check_supported(cfg: Config) -> None:
-    for key, flagship in FLAGSHIP.items():
+    for key, want in SUPPORTED.items():
         value = getattr(cfg, key)
-        if (tuple(value) if isinstance(value, (list, tuple)) else value) != flagship:
+        if value != want:
             raise NotImplementedError(
-                f"{key}={value!r}: the port runs the flagship UAVSal only ({key}="
-                f"{flagship!r}); the zoo and the other backbones are ROADMAP A.10")
+                f"{key}={value!r}: the port runs the `uavsal` model with sum-fusion "
+                f"STBlocks only ({key}={want!r}); the zoo is ROADMAP A.10")
     if cfg.dp_devices > 1:
         raise NotImplementedError(f"dp_devices={cfg.dp_devices}: multi-GPU serving and "
                                   "training are ROADMAP A.11")
@@ -103,8 +111,8 @@ def cmd_train(cfg: Config, device: Optional[str] = None):
 
     _check_supported(cfg)
     names = ("method_name", "model_name", "cnn_type", "iosize", "time_dims", "num_stblock",
-             "st_type", "bias_type", "batch_size", "epochs", "learning_rate", "weight_decay",
-             "is_early_stop", "max_patience", "is_best_only", "shuffle_train",
+             "st_type", "bias_type", "s2d_stem", "batch_size", "epochs", "learning_rate",
+             "weight_decay", "is_early_stop", "max_patience", "is_best_only", "shuffle_train",
              "videos_per_step", "resume", "mixed_precision", "remat", "prefetch_decode")
     tc = TrainConfig(**{name: getattr(cfg, name) for name in names})
     pre_vars = None
@@ -128,7 +136,9 @@ def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
 
     _check_supported(cfg)
     model = load_model_for_inference(_final_ckpt(cfg), time_dims=cfg.time_dims,
-                                     fold_bn=cfg.fold_bn, device=device)
+                                     fold_bn=cfg.fold_bn, device=device,
+                                     cnn_type=cfg.cnn_type, num_stblock=cfg.num_stblock,
+                                     bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem)
     test_videos(
         cfg.test_input_path,
         cfg.test_output_path,
@@ -179,12 +189,28 @@ def cmd_eval_img(cfg: Config, device: Optional[str] = None,
     return mean_scores_img(res_dir, methods)
 
 
-COMMANDS = {"train": cmd_train, "test": cmd_test, "eval": cmd_eval, "eval-img": cmd_eval_img}
+def cmd_modelsize(cfg: Config, device: Optional[str] = None) -> str:
+    """The JAX package's `modelsize` report of the configured UAVSal, from
+    the port's model on the CPU (sizes need no device and no weights)."""
+    from .models.convert import table_of, to_jax_variables
+    from .models.uavsal import UAVSal
+    from .ops.stats import model_size_report
+
+    _check_supported(cfg)
+    model = UAVSal(time_dims=cfg.time_dims, cnn_type=cfg.cnn_type, num_stblock=cfg.num_stblock,
+                   bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem)
+    report = model_size_report(to_jax_variables(model.state_dict(), table_of(model)))
+    print(report)
+    return report
+
+
+COMMANDS = {"train": cmd_train, "test": cmd_test, "eval": cmd_eval, "eval-img": cmd_eval_img,
+            "modelsize": cmd_modelsize}
 # the commands that take --methods
 SCORING = ("eval", "eval-img")
 # the JAX CLI's commands the port does not have yet, and their ROADMAP items
 NOT_PORTED = {"train-img": "A.9b", "vis": "A.11", "convert": "A.11", "export": "A.11",
-              "test-aot": "A.11", "modelsize": "A.11", "pipeline": "A.11"}
+              "test-aot": "A.11", "pipeline": "A.11"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -4,7 +4,8 @@
 1x1 laterals on c3 and c4; an ASPP on c5 (a 1x1 branch and three dilated
 depthwise DWBlocks at rates 6/12/18, concatenated and fused by a 1x1);
 align-corners bilinear upsampling of c4/c5 to c3's stride-8 grid; concat;
-3x3 `conv_last`.
+3x3 `conv_last`. The lateral and ASPP input widths are the backbone's
+c3, c4 and c5 widths (`FEATURE_INPLANES`).
 """
 
 from __future__ import annotations
@@ -14,24 +15,24 @@ from torch import nn
 
 from ..ops.layers import ConvBNAct, DWBlock
 from ..ops.resize import resize_bilinear_align_corners
-from .backbone import MobileNetV2Pyramid
+from .backbone import FEATURE_INPLANES, build_backbone
 
 ASPP_RATES = (6, 12, 18)
-_MBV2_C3, _MBV2_C4, _MBV2_C5 = 32, 96, 320
 
 
 class SRFNet(nn.Module):
-    def __init__(self):
+    def __init__(self, cnn_type: str = "mobilenet_v2", s2d_stem: bool = False):
         super().__init__()
         planes = [64, 64, 128, 256]
-        self.features = MobileNetV2Pyramid()
-        self.lv5_aspp1 = ConvBNAct(_MBV2_C5, planes[3], 1)
-        self.lv5_aspp2 = DWBlock(_MBV2_C5, planes[3], 3, dilation=ASPP_RATES[0])
-        self.lv5_aspp3 = DWBlock(_MBV2_C5, planes[3], 3, dilation=ASPP_RATES[1])
-        self.lv5_aspp4 = DWBlock(_MBV2_C5, planes[3], 3, dilation=ASPP_RATES[2])
+        self.features = build_backbone(cnn_type, s2d_stem)
+        _, c3, c4, c5 = FEATURE_INPLANES[cnn_type.lower()]
+        self.lv5_aspp1 = ConvBNAct(c5, planes[3], 1)
+        self.lv5_aspp2 = DWBlock(c5, planes[3], 3, dilation=ASPP_RATES[0])
+        self.lv5_aspp3 = DWBlock(c5, planes[3], 3, dilation=ASPP_RATES[1])
+        self.lv5_aspp4 = DWBlock(c5, planes[3], 3, dilation=ASPP_RATES[2])
         self.conv_lv5 = ConvBNAct(4 * planes[3], planes[3], 1)
-        self.conv_lv4 = ConvBNAct(_MBV2_C4, planes[2], 1)
-        self.conv_lv3 = ConvBNAct(_MBV2_C3, planes[1], 1)
+        self.conv_lv4 = ConvBNAct(c4, planes[2], 1)
+        self.conv_lv3 = ConvBNAct(c3, planes[1], 1)
         self.conv_last = ConvBNAct(planes[3] + planes[2] + planes[1], planes[3], 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

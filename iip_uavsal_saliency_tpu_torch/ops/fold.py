@@ -6,7 +6,12 @@ affine, so it folds into the preceding conv:
 
 - `fold_conv_bn(model)`: the fold the serving path uses, in place on the
   port's modules. Each conv gains a bias and its BatchNorm becomes an
-  identity, so a step runs one pass per conv.
+  identity, so a step runs one pass per conv. It folds every pair that
+  the JAX `fold_batchnorm` folds: the ConvBNAct-style `nn.Sequential`s
+  (the S2D stem among them, and ResNet's `downsample`) and the pairs a
+  module names in `conv_bn_pairs` (ResNet's `conv{k}`/`bn{k}` and its
+  stem). VGG16's convs, which carry a bias and no BatchNorm, stay as they
+  are.
 - `looks_folded(state_dict)`: whether weights carry that fold's signature.
 - `fold_batchnorm(variables)`: own copy of the JAX package's
   `ops/fold.py::fold_batchnorm` on the numpy variable tree, for trees
@@ -101,13 +106,16 @@ def looks_folded(state_dict, eps: float = BN_EPS) -> bool:
 
 @torch.no_grad()
 def fold_conv_bn(model: nn.Module) -> None:
-    """Fold every BatchNorm that follows a Conv2d in an nn.Sequential into
-    that conv, in place: W' = W * s, bias' = b (+ W's old bias * s)."""
-    for seq in model.modules():
-        if not isinstance(seq, nn.Sequential):
-            continue
-        for i in range(len(seq) - 1):
-            conv, bn = seq[i], seq[i + 1]
+    """Fold every BatchNorm that follows a Conv2d into that conv, in place:
+    W' = W * s, bias' = b (+ W's old bias * s), and the BatchNorm becomes an
+    identity. The pairs are the neighbours of an nn.Sequential and the
+    (conv name, BatchNorm name) pairs of a module's `conv_bn_pairs`."""
+    for module in model.modules():
+        pairs = list(getattr(module, "conv_bn_pairs", ()))
+        if isinstance(module, nn.Sequential):
+            pairs += [(str(i), str(i + 1)) for i in range(len(module) - 1)]
+        for conv_name, bn_name in pairs:
+            conv, bn = module._modules[conv_name], module._modules[bn_name]
             if not (isinstance(conv, nn.Conv2d) and isinstance(bn, BatchNorm)):
                 continue
             s, b = bn.affine()
@@ -115,4 +123,4 @@ def fold_conv_bn(model: nn.Module) -> None:
             bias = b if conv.bias is None else b + conv.bias.to(s.dtype) * s
             conv.weight.copy_((w * s.view(-1, 1, 1, 1)).to(conv.weight.dtype))
             conv.bias = nn.Parameter(bias.to(conv.weight.dtype), requires_grad=False)
-            seq[i + 1] = nn.Identity()
+            setattr(module, bn_name, nn.Identity())

@@ -5,10 +5,14 @@ Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
 - `BatchNorm` == TorchBatchNorm: in eval mode `y = x * s + b` with the
   per-channel affine computed in f32 and applied in the activation dtype; in
   train mode batch statistics and the running-stat EMA.
-- `ConvBNAct` == BasicConv2d: Conv(bias=False) -> BatchNorm -> ReLU6 with
-  symmetric `dilation * (k - 1) // 2` padding. The JAX package computes the
-  ASPP rate-18 depthwise conv as an exact pad-add sum; here it is the same
+- `ConvBNAct` == BasicConv2d: Conv(bias=False) -> BatchNorm -> ReLU6 (no
+  activation with `act=False`, as ResNet's `downsample`) with symmetric
+  `dilation * (k - 1) // 2` padding. The JAX package computes the ASPP
+  rate-18 depthwise conv as an exact pad-add sum; here it is the same
   dilated depthwise conv.
+- `S2DStem` == S2DStem: the 3x3 stride-2 stem computed exactly as a 2x2
+  conv over the 2x2 space-to-depth input (`space_to_depth`), with the
+  plain stem's weights and keys.
 - `DWBlock` == dwBlock: [1x1 expand] -> depthwise kxk -> 1x1 project + BN,
   with an identity residual when stride == 1 and in == out channels (which
   `res_connect=False` turns off). With `use_kernel=True` a block in eval
@@ -109,6 +113,48 @@ class ConvBNAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU6())
         super().__init__(*layers)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, 4C, H/2, W/2); channel (2a + b)*C + c holds the
+    pixel at phase (a, b) of its 2x2 block, the JAX package's order. The
+    result lies in memory as x does."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth needs H and W divisible by 2, got {h}x{w}")
+    y = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return laid_out_as(y.reshape(n, 4 * c, h // 2, w // 2), x)
+
+
+class S2DStem(ConvBNAct):
+    """The 3x3 stride-2 stem (padding 1) computed exactly as a 2x2 stride-1
+    conv over the 2x2 space-to-depth input, padded by one row and column
+    before. It is the plain stem's ConvBNAct (same modules and keys), so a
+    checkpoint loads unchanged and `ops/fold.py::fold_conv_bn` folds it as
+    it folds the plain stem; the kernel is regrouped at each call: padded
+    with a zero row and column before, its 4x4 taps split into 2x2 blocks of
+    2x2 phases. Needs even H and W."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 3, stride=2)
+
+    def s2d_weight(self) -> torch.Tensor:
+        """The stem's (F, C, 3, 3) kernel as the (F, 4C, 2, 2) kernel over
+        `space_to_depth`'s channels."""
+        k = self[0].weight
+        f, c = k.shape[:2]
+        kp = F.pad(k, (1, 0, 1, 0))  # (F, C, 4, 4), a zero tap row and column before
+        k2 = kp.reshape(f, c, 2, 2, 2, 2)  # [f, c, ki, a, kj, b]
+        return k2.permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 2, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self[0]
+        y = F.conv2d(F.pad(space_to_depth(x), (1, 0, 1, 0)), self.s2d_weight().to(x.dtype),
+                     None if conv.bias is None else conv.bias.to(x.dtype))
+        y = laid_out_as(y, x)
+        for layer in list(self)[1:]:
+            y = layer(y)
+        return y
 
 
 def _folded(conv: nn.Conv2d, bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:

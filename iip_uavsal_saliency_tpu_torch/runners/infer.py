@@ -41,7 +41,7 @@ from ..data.matio import savemat
 from ..data.priors import get_gauss_priors, get_ob_priors
 from ..data.video import preprocess_videos
 from ..device import resolve_device
-from ..models.convert import from_jax_variables
+from ..models.convert import from_jax_variables, table_of
 from ..models.uavsal import UAVSal
 from ..ops.fold import fold_conv_bn
 from ..serving.steps import graph_step, make_baked_infer_step
@@ -59,20 +59,29 @@ def load_model_for_inference(
     fold_bn: bool = True,
     device=None,
     fused_dwblock: bool = False,
+    cnn_type: str = "mobilenet_v2",
+    num_stblock: int = 2,
+    bias_type: Sequence[int] = (1, 1, 1),
+    s2d_stem: bool = False,
 ) -> UAVSal:
-    """The flagship `uavsal` model in eval form on `device` (CUDA by default).
+    """The `uavsal` model of this configuration in eval form on `device`
+    (CUDA by default).
 
-    Loads an unfolded tree or one the JAX package folded alike. `fold_bn`
-    folds every BatchNorm into the conv before it (`ops/fold.py::fold_conv_bn`),
-    as serving does by default. `fused_dwblock` serves every DWBlock the
-    fused kernel takes through it (`UAVSal(fused_dwblock=True)`)."""
+    Loads an unfolded tree or one the JAX package folded alike, through the
+    configuration's own bridge table. `fold_bn` folds every BatchNorm into
+    the conv before it (`ops/fold.py::fold_conv_bn`), as serving does by
+    default. `fused_dwblock` serves every DWBlock the fused kernel takes
+    through it (`UAVSal(fused_dwblock=True)`). `s2d_stem` (MobileNetV2
+    only) computes the stem as its space-to-depth form from the same
+    weights."""
     device = resolve_device(device)
     if isinstance(model_path_or_variables, (str, os.PathLike)):
         tree = load_checkpoint(os.fspath(model_path_or_variables))
     else:
         tree = model_path_or_variables
-    model = UAVSal(time_dims=time_dims, fused_dwblock=fused_dwblock)
-    model.load_state_dict(from_jax_variables(tree), strict=True)
+    model = UAVSal(time_dims=time_dims, fused_dwblock=fused_dwblock, cnn_type=cnn_type,
+                   num_stblock=num_stblock, bias_type=bias_type, s2d_stem=s2d_stem)
+    model.load_state_dict(from_jax_variables(tree, table_of(model)), strict=True)
     model.eval().requires_grad_(False)
     if fold_bn:
         fold_conv_bn(model)
@@ -254,21 +263,21 @@ def test_videos(
     for there); it is taken over as `make_baked_infer_step` says, and cast
     to `compute_dtype` (None: f32). The Gaussian priors are analytic, the
     observed ones come from `train_data_dir`'s training split (cached in
-    `priors_cache_dir`). A video whose `.mat` exists is skipped; one
-    shorter than `time_dims` gets an empty (H, W, 1, 0) map. Groups of
-    `videos_per_batch` videos are served in lock-step while the next group
-    is decoded on a worker thread. The port's UAVSal is the flagship, so
-    `bias_type` must be (1, 1, 1)."""
-    if tuple(bias_type) != (1, 1, 1):
-        raise NotImplementedError(f"bias_type={tuple(bias_type)}: the port serves the flagship "
-                                  "(1, 1, 1) only; the other prior streams are ROADMAP A.10")
+    `priors_cache_dir`); only the priors `bias_type` switches on are
+    built, and it must be the model's. A video whose `.mat` exists is
+    skipped; one shorter than `time_dims` gets an empty (H, W, 1, 0) map.
+    Groups of `videos_per_batch` videos are served in lock-step while the
+    next group is decoded on a worker thread."""
+    if tuple(int(bool(b)) for b in bias_type) != model.bias_type:
+        raise ValueError(f"bias_type={tuple(bias_type)} but the model was built with "
+                         f"{model.bias_type}")
     if method_name:
         output_path = os.path.join(output_path, method_name)
     os.makedirs(output_path, exist_ok=True)
     shape_r, shape_c, shape_r_out, shape_c_out = iosize
-    gauss = get_gauss_priors(shape_r_out, shape_c_out, 8)
+    gauss = get_gauss_priors(shape_r_out, shape_c_out, 8) if bias_type[0] else None
     ob = get_ob_priors(train_data_dir, dataset, "train", shape_r_out, shape_c_out, 20,
-                       priors_cache_dir)
+                       priors_cache_dir) if bias_type[1] else None
     step = make_baked_infer_step(model, gauss, ob, compute_dtype=compute_dtype)
     if next(model.parameters()).device.type == "cuda":
         step = graph_step(step)

@@ -118,7 +118,8 @@ class GraphedStep:
     `kernels.launches` counts where the wrappers launch: the warm-up calls
     and the capture count there, a replay runs without the wrappers and
     counts nothing. `replayed` tallies, per kernel, the launches the replays
-    ran as their captures recorded them; it is a convenience, and a
+    ran as their captures recorded them; it is a convenience.
+    `graph_launches` reads the same from the graphs' own kernel nodes, and a
     profiler trace (`kernels.traced_launches`) is what shows that they ran.
 
     On a CPU tensor the step runs eagerly as it is: the CPU is an explicit
@@ -156,11 +157,23 @@ class GraphedStep:
                 self.step(static_x, static_state)
         current.wait_stream(side)
         before = dict(kernels.launches)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # its nodes stay readable
         with torch.cuda.device(x.device), torch.cuda.graph(graph):
             saliency, new_state = self.step(static_x, static_state)
+        graph.instantiate()
         made = {name: kernels.launches[name] - before[name] for name in kernels.launches}
         return _Captured(graph, static_x, static_state, saliency, new_state, made)
+
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Per kernel, the kernel nodes of the graphs captured so far
+        (`kernels.graph_launches`), summed: what one replay of each runs,
+        read from the graphs themselves."""
+        total = {name: 0 for name in kernels.KERNELS}
+        for captured in self._graphs.values():
+            for name, n in kernels.graph_launches(captured.graph).items():
+                total[name] += n
+        return total
 
 
 def graph_step(step: Step) -> GraphedStep:

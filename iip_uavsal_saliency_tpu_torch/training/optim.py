@@ -12,31 +12,32 @@ BatchNorm running stats still move in train mode, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..models.convert import TABLE
+from ..models.convert import TABLE, Row, table_of
 from ..utils.logging import get_logger
 
 log = get_logger("train")
 
 
-def jax_param_paths() -> Dict[str, str]:
+def jax_param_paths(table: List[Row] = TABLE) -> Dict[str, str]:
     """Port parameter name -> its '/'-joined path under the JAX tree's
     `params` (e.g. 'trunk/sfnet/features/features_0/conv/kernel'), from the
-    weight bridge's table."""
-    return {key: "/".join(path[1:]) for path, key, _ in TABLE if path[0] == "params"}
+    weight bridge's table (the flagship's by default)."""
+    return {key: "/".join(path[1:]) for path, key, _ in table if path[0] == "params"}
 
 
 def make_frozen_mask(model: nn.Module, frozen_prefixes: Sequence[str]) -> Dict[str, bool]:
     """{parameter name: trainable}. A parameter is frozen when its JAX path
     starts with any of the prefixes, as the JAX package reads them, e.g.
-    ('trunk/sfnet', 'trunk/st_layer'). A prefix that matches nothing is
-    almost always a naming mistake and is warned about."""
-    paths = jax_param_paths()
+    ('trunk/sfnet', 'trunk/st_layer'), over the model's own table. A
+    prefix that matches nothing is almost always a naming mistake and is
+    warned about."""
+    paths = jax_param_paths(table_of(model))
     names = [name for name, _ in model.named_parameters()]
     missing = [n for n in names if n not in paths]
     if missing:

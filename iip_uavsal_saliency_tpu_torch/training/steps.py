@@ -73,7 +73,8 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     `state` (its model and optimizer are updated in place, its step counted).
 
     x: (V, S, H, W, 3) uint8 or normalized f32; y_true: (V, S, Ho, Wo, C);
-    rnn_state: (V, Ho, Wo, 256). The loss comes back as a detached f32
+    rnn_state: (V, Ho, Wo, 256); a prior the model's `bias_type` leaves
+    off is None. The loss comes back as a detached f32
     scalar on the device, the new state detached and in f32."""
     model, optimizer = state.model, state.optimizer
 
@@ -81,7 +82,7 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
         if compute_dtype is None:
             return model(x, gauss, ob, rnn_state)
         cast = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
-        args = tuple(t.to(compute_dtype) for t in (x, gauss, ob, rnn_state))
+        args = tuple(None if t is None else t.to(compute_dtype) for t in (x, gauss, ob, rnn_state))
         return torch.func.functional_call(model, cast, args)
 
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:

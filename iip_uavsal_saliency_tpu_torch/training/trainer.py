@@ -16,8 +16,10 @@ single-video path).
 
 The clip loop takes videos as paths (decoded one video ahead on a worker
 thread) or as arrays already decoded (`videos=`), which is how a machine
-without OpenCV or h5py drives it. Configurations outside the port so far
-raise NotImplementedError naming their ROADMAP item.
+without OpenCV or h5py drives it. The model is the `uavsal` of the
+configuration (`cnn_type`, `num_stblock`, `bias_type`, `s2d_stem`); the
+rest of the zoo, several videos per step and `remat` raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from ..data.lists import read_video_list
 from ..data.priors import get_gauss_priors, get_ob_priors
 from ..device import resolve_device
-from ..models.convert import from_jax_variables, to_jax_variables
+from ..models.convert import from_jax_variables, table_of, to_jax_variables
 from ..models.uavsal import UAVSal, init_uavsal
 from ..ops.fold import looks_folded
 from ..utils.logging import get_logger
@@ -63,6 +65,7 @@ class TrainConfig:
     num_stblock: int = 2
     st_type: str = "st"
     bias_type: Tuple[int, int, int] = (1, 1, 1)
+    s2d_stem: bool = False       # MobileNetV2's stem as its exact space-to-depth form
     batch_size: int = 2          # clips per step, flattened into S
     epochs: int = 20
     learning_rate: float = 1e-4  # fine-tune recipe: 1e-5
@@ -83,19 +86,18 @@ class TrainConfig:
 
 
 # what the port trains (models/uavsal.py), and the ROADMAP item of the rest
-_FLAGSHIP = {"model_name": ("uavsal", "A.10"), "cnn_type": ("mobilenet_v2", "A.10"),
-             "num_stblock": (2, "A.10"), "st_type": ("st", "A.10"),
-             "bias_type": ((1, 1, 1), "A.10"), "videos_per_step": (1, "A.9b"),
-             "remat": (False, "A.9b")}
+_SUPPORTED = {"model_name": ("uavsal", "A.10"), "st_type": ("st", "A.10"),
+              "videos_per_step": (1, "A.9b"), "remat": (False, "A.9b")}
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    for key, (want, item) in _FLAGSHIP.items():
+    for key, (want, item) in _SUPPORTED.items():
         value = getattr(cfg, key)
-        if (tuple(value) if isinstance(value, (list, tuple)) else value) != want:
+        if value != want:
             raise NotImplementedError(
-                f"{key}={value!r}: the port trains the flagship UAVSal, one video per "
-                f"step, without remat ({key}={want!r}); this is ROADMAP {item}")
+                f"{key}={value!r}: the port trains the `uavsal` model with sum-fusion "
+                f"STBlocks, one video per step, without remat ({key}={want!r}); this is "
+                f"ROADMAP {item}")
 
 
 def _masked_loss(loss_fn: Callable):
@@ -145,7 +147,8 @@ class Trainer:
     `pre_variables`: a JAX `{params, batch_stats}` tree to start from (warm
     start); else the weights are drawn by `init_uavsal` from seed 0.
     `ob_prior`: the (Ho, Wo, 20) observed-prior map; else it is built from
-    the train split as the JAX trainer builds it. `videos`: {"train": [...],
+    the train split as the JAX trainer builds it (neither when `bias_type`
+    leaves the stream off). `videos`: {"train": [...],
     "val": [...]} of `ArrayVideo`s to train on instead of the txt splits
     under `train_data_dir`."""
 
@@ -165,17 +168,23 @@ class Trainer:
         self.metrics = MetricsLogger(self.model_dir)
 
         _, _, out_r, out_c = config.iosize
-        if ob_prior is None:
+        use_gauss, use_ob, _ = config.bias_type
+        if use_ob and ob_prior is None:
             ob_prior = get_ob_priors(train_data_dir, dataset, "train", out_r, out_c, 20,
                                      priors_cache_dir)
-        self.gauss = torch.from_numpy(get_gauss_priors(out_r, out_c, 8)).to(self.device)
-        self.ob = torch.as_tensor(np.asarray(ob_prior, np.float32)).to(self.device)
+        self.gauss = (torch.from_numpy(get_gauss_priors(out_r, out_c, 8)).to(self.device)
+                      if use_gauss else None)
+        self.ob = (torch.as_tensor(np.asarray(ob_prior, np.float32)).to(self.device)
+                   if use_ob else None)
 
-        model = UAVSal(time_dims=config.time_dims)
+        model = UAVSal(time_dims=config.time_dims, cnn_type=config.cnn_type,
+                       num_stblock=config.num_stblock, bias_type=config.bias_type,
+                       s2d_stem=config.s2d_stem)
+        self.table = table_of(model)
         if pre_variables is None:
             init_uavsal(model, torch.Generator().manual_seed(0))
         else:
-            sd = from_jax_variables(pre_variables)
+            sd = from_jax_variables(pre_variables, self.table)
             if looks_folded(sd):
                 raise ValueError(
                     "pre_variables carry fold_batchnorm's signature (BN scale absorbed into "
@@ -281,7 +290,7 @@ class Trainer:
         return {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
 
     def _epoch_payload(self, epoch: int, min_val_loss: float, num_patience: int) -> dict:
-        return {**to_jax_variables(self.model.state_dict()),
+        return {**to_jax_variables(self.model.state_dict(), self.table),
                 "opt_state": optimizer_tree(self.model, self.state.optimizer),
                 "step": self.state.step, "epoch": epoch, "min_val_loss": min_val_loss,
                 "num_patience": num_patience}
@@ -297,13 +306,13 @@ class Trainer:
             raise NotImplementedError(
                 f"{latest} holds another optimizer layout (the JAX package's?): resuming "
                 "across packages is ROADMAP A.9b")
-        self.model.load_state_dict(from_jax_variables(ckpt), strict=True)
+        self.model.load_state_dict(from_jax_variables(ckpt, self.table), strict=True)
         load_optimizer_tree(self.model, self.state.optimizer, ckpt["opt_state"])
         self.state.step = int(ckpt["step"])
         best = None
         best_ckpt = f"{self.prefix}_best.ckpt"
         if os.path.exists(best_ckpt):
-            best = dict(from_jax_variables(load_checkpoint(best_ckpt)))
+            best = dict(from_jax_variables(load_checkpoint(best_ckpt), self.table))
         log.info("resumed from %s (epoch %d)", latest, int(ckpt["epoch"]) + 1)
         return (int(ckpt["epoch"]) + 1, float(ckpt["min_val_loss"]),
                 int(ckpt["num_patience"]), best)
@@ -338,7 +347,8 @@ class Trainer:
                     # the new best is on disk before the epoch checkpoint names
                     # its loss as min_val_loss, so a resume never points at
                     # weights that were not saved
-                    save_checkpoint(f"{self.prefix}_best.ckpt", to_jax_variables(best))
+                    save_checkpoint(f"{self.prefix}_best.ckpt",
+                                    to_jax_variables(best, self.table))
             if not cfg.is_best_only:
                 save_checkpoint(f"{self.prefix}_{epoch:02d}_{mean_loss:.4f}.ckpt",
                                 self._epoch_payload(epoch, min(mean_loss, min_val_loss),
@@ -352,6 +362,6 @@ class Trainer:
                     break
             log.info("epoch time: %.1fs", time.time() - t0)
 
-        save_checkpoint(f"{self.prefix}_final.ckpt", to_jax_variables(best))
+        save_checkpoint(f"{self.prefix}_final.ckpt", to_jax_variables(best, self.table))
         self.model.load_state_dict(best, strict=True)
         return self.state

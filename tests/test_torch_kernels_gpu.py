@@ -24,7 +24,7 @@ from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_ta
                                                     kernel_route, pack_twa_weights, twa_scan,
                                                     twa_scan_ref)
 from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
-from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
+from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
 from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
 from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference, predict_videos
 from iip_uavsal_saliency_tpu_torch.serving.steps import WARMUP_CALLS, graph_step, make_baked_infer_step
@@ -390,13 +390,12 @@ def test_kernel_forward_gradients_match_plain_versions(card):
 # ---------------------------------------------------------------------------
 # The serving step replayed from a CUDA graph (serving/steps.py::graph_step)
 
-@pytest.fixture(scope="module")
-def seeded_variables():
-    """A seeded JAX-layout variables tree of the flagship UAVSal: conv
-    kernels with std sqrt(1 / fan_in), BatchNorm statistics of order 1."""
-    rng = np.random.RandomState(11)
+def _seeded_tree(model, seed):
+    """A seeded JAX-layout variables tree of `model`'s UAVSal: conv kernels
+    with std sqrt(1 / fan_in), BatchNorm statistics of order 1."""
+    rng = np.random.RandomState(seed)
     sd = {}
-    for key, ref in UAVSal().state_dict().items():
+    for key, ref in model.state_dict().items():
         if key.endswith("running_var") or (ref.dim() == 1 and key.endswith("weight")):
             a = rng.uniform(0.5, 1.5, ref.shape)
         elif ref.dim() == 1:
@@ -404,7 +403,13 @@ def seeded_variables():
         else:
             a = rng.normal(0.0, np.sqrt(1.0 / np.prod(ref.shape[1:])), ref.shape)
         sd[key] = torch.tensor(a, dtype=torch.float32)
-    return to_jax_variables(sd)
+    return to_jax_variables(sd, table_of(model))
+
+
+@pytest.fixture(scope="module")
+def seeded_variables():
+    """A seeded JAX-layout variables tree of the flagship UAVSal."""
+    return _seeded_tree(UAVSal(), 11)
 
 
 def _served(variables, hw, dtype, k2):
@@ -434,7 +439,9 @@ def test_graph_step_equals_eager_step(card, seeded_variables, hw, dtype, k2):
     saliency and state (the kernels, cuDNN's choices and the inputs are the
     same; only the issue differs). A replay of the same input twice gives
     the same bits, and N replays run N times one eager step's launches:
-    counted from a profiler trace, while the wrappers count none."""
+    the graph's own kernel nodes and the step's tally exactly, and a
+    profiler trace shows each of those kernels (`kernels.trace_shows_graph`:
+    the profiler drops records), while the wrappers count none."""
     model, step = _served(seeded_variables, hw, dtype, k2)
     graphed = graph_step(step)
     eager_state = graphed_state = model.init_state(*hw, 1, dtype=dtype, device=card)
@@ -461,10 +468,56 @@ def test_graph_step_equals_eager_step(card, seeded_variables, hw, dtype, k2):
         for _ in range(4):
             graphed(clips[0], eager_state)
         torch.cuda.synchronize()
-    assert kernels.traced_launches(prof) == {name: 4 * n for name, n in one.items()}
+    assert graphed.graph_launches() == one
+    traced = kernels.traced_launches(prof)
+    assert kernels.trace_shows_graph(traced, one, 4), traced
     assert not any(kernels.launches.values())
     assert {k: n - tally[k] for k, n in graphed.replayed.items()} == {
         name: 4 * n for name, n in one.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_twa_kernel_on_a_resnet50_uavsal_convtwa_input(card, dtype, monkeypatch):
+    """K1 on what ConvTWA of a ResNet-50 UAVSal gives it: seeded weights,
+    360x640, S=20, the second of two carried clips (so h_{s-1} starts from
+    the first clip's state), through the served step; the arguments of the
+    scan are taken from the model. Against `twa_scan_ref` computed in f32
+    on those arguments: f32 within 1e-5, bf16 within 2e-2 (the plain
+    version's per-frame rounding that the kernel does not do), each scaled
+    by the largest |h| where it exceeds 1 (ResNet-50's state runs larger
+    than the flagship's), and one launch per clip (bf16) or frame (f32)."""
+    from iip_uavsal_saliency_tpu_torch.models import recurrent
+
+    tree = _seeded_tree(UAVSal(cnn_type="resnet50"), 14)
+    model = load_model_for_inference(tree, device="cuda", cnn_type="resnet50")
+    rng = np.random.RandomState(15)
+    step = make_baked_infer_step(model, get_gauss_priors(45, 80, 8),
+                                 rng.rand(45, 80, 20).astype(np.float32), compute_dtype=dtype)
+    taken = []
+
+    def recorder(*args, **kwargs):
+        out = twa_scan(*args, **kwargs)
+        taken.append(([a.clone() for a in args], [o.clone() for o in out]))
+        return out
+
+    monkeypatch.setattr(recurrent, "twa_scan", recorder)
+    state = model.init_state(360, 640, 1, dtype=dtype, device=card)
+    clips = _clips((360, 640), 2)
+    _, state = step(clips[0], state)
+    kernels.reset_launches()
+    step(clips[1], state)
+    torch.cuda.synchronize()
+    shape = (1, 20, 45, 80, 256)
+    route = kernel_route(shape, dtype)
+    assert route == ("twa_scan" if dtype == torch.bfloat16 else "twa_step")
+    assert kernels.launches == _launches(route, 20)
+    (x, gx, w_h, h0), (ys, last) = taken[1]
+    assert tuple(x.shape) == shape and h0.abs().max() > 0
+    exact, exact_last = twa_scan_ref(*(a.float() for a in (x, gx, w_h, h0)))
+    top = max(exact.abs().max().item(), 1.0)
+    atol = (2e-2 if dtype == torch.bfloat16 else 1e-5) * top
+    torch.testing.assert_close(ys.float(), exact, atol=atol, rtol=0)
+    torch.testing.assert_close(last.float(), exact_last, atol=atol, rtol=0)
 
 
 def test_graph_step_counts_warmup_and_capture_launches_and_not_the_replay(card,

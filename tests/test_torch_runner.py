@@ -330,9 +330,7 @@ def test_cli_test_matches_test_videos(world, port_maps, tmp_path):
         np.testing.assert_array_equal(maps, port_maps[name])
 
 
-@pytest.mark.parametrize("flag,value", [("cnn_type", "resnet50"), ("model_name", "uavsal_srf"),
-                                        ("num_stblock", "3"), ("bias_type", "1,0,1"),
-                                        ("st_type", "s2t"), ("s2d_stem", "true"),
+@pytest.mark.parametrize("flag,value", [("model_name", "uavsal_srf"), ("st_type", "s2t"),
                                         ("dp_devices", "2")])
 def test_cli_refuses_what_the_port_does_not_have(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP A.1[01]"):
@@ -340,16 +338,12 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value):
 
 
 def test_cli_only_registers_test():
-    """`test`, `train` (the training slice) and `eval`, `eval-img` (the
-    evaluation slice); the JAX CLI's other subcommands are refused."""
-    assert set(cli.COMMANDS) == {"train", "test", "eval", "eval-img"}
+    """`test`, `train` (the training slice), `eval`, `eval-img` (the
+    evaluation slice) and `modelsize`; the JAX CLI's other subcommands are
+    refused."""
+    assert set(cli.COMMANDS) == {"train", "test", "eval", "eval-img", "modelsize"}
     assert cli.main(["vis"]) == 2
     assert cli.main(["--help"]) == 0
-
-
-def test_test_videos_refuses_other_bias_types(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        tinfer.test_videos(str(tmp_path), str(tmp_path), None, bias_type=(1, 0, 1))
 
 
 def test_jax_config_json_loads_unchanged(tmp_path):

@@ -137,6 +137,45 @@ def test_cpu_scan_traces_no_kernel_launches():
     assert kernels.traced_launches(prof) == {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
 
 
+@pytest.mark.parametrize("traced, shows", [
+    ({"twa_scan": 3, "twa_step": 0, "dwblock": 66}, True),
+    ({"twa_scan": 3, "twa_step": 0, "dwblock": 65}, True),  # one record dropped
+    ({"twa_scan": 2, "twa_step": 0, "dwblock": 44}, True),  # a replay's records dropped
+    ({"twa_scan": 3, "twa_step": 0, "dwblock": 0}, False),  # K2 never ran
+    ({"twa_scan": 0, "twa_step": 0, "dwblock": 66}, False),  # K1 never ran
+    ({"twa_scan": 3, "twa_step": 0, "dwblock": 67}, False),  # more than 3 replays launch
+    ({"twa_scan": 4, "twa_step": 0, "dwblock": 66}, False),
+    ({"twa_scan": 3, "twa_step": 1, "dwblock": 66}, False),  # a kernel the graph has not
+], ids=["exact", "drop1", "drop_replay", "k2none", "k1none", "extra", "k1extra", "other"])
+def test_trace_shows_graph_reads_each_kernel_of_the_graph(traced, shows):
+    """Three replays of a graph whose nodes launch K1 once and K2 22 times:
+    the trace must show each of them, and no more than three replays'
+    worth, and no other kernel; dropped records are not a failure."""
+    per_replay = {"twa_scan": 1, "twa_step": 0, "dwblock": 22}
+    assert kernels.trace_shows_graph(traced, per_replay, 3) == shows
+
+
+@pytest.mark.parametrize("symbol, kernel", [
+    ("_ZN43_GLOBAL__N__5031cd55_10_dwblock_cu_57aa294819dwblock_bf16_kernelEPK13__nv_bfloat16S2_",
+     "dwblock"),
+    ("_ZN43_GLOBAL__N__5031cd55_10_dwblock_cu_57aa294818dwblock_f32_kernelILi64EEEvPKfS3_",
+     "dwblock"),
+    ("_Z19twa_step_f32_kernelPKfS0_S0_S0_Pfiiii", "twa_step"),
+    ("_Z15twa_step_kernelI13__nv_bfloat16EvPKT_S3_", "twa_step"),
+    ("_Z15twa_clip_kernelPK13__nv_bfloat16", "twa_scan"),
+    ("void twa_clip_kernel(__nv_bfloat16 const*)", "twa_scan"),
+    ("_Z22twa_step_kernel_helperv", None),
+    ("_ZN2at6native29vectorized_elementwise_kernelILi4EEEvi", None),
+], ids=["bf16", "f32-template", "k1-f32", "k1-template", "k1-clip", "demangled", "longer",
+        "aten"])
+def test_kernel_of_symbol_reads_mangled_names(symbol, kernel):
+    """A CUDA graph's kernel nodes name their functions mangled (in the
+    sources' anonymous namespace, with template arguments): each kernel's
+    device function is found there, and a longer name or another library's
+    kernel is not."""
+    assert kernels.kernel_of_symbol(symbol) == kernel
+
+
 def test_kernel_symbols_are_the_sources_device_functions():
     """The names `traced_launches` looks for are the `__global__` functions
     of the kernel sources, each counted for one kernel."""

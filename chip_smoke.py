@@ -16,7 +16,13 @@
    (V=2, S=3, 13x7x24) in bf16 and f32;
    and shard invariance, the content of the JAX package's
    `twa_scan_sharded`: K1 on V=4 (S=3, 13x7x24 and 45x80x256, bf16 and f32)
-   equals, bit for bit, K1 on x[:2] and x[2:] concatenated. K2 (`ops/dwblock.py::
+   equals, bit for bit, K1 on x[:2] and x[2:] concatenated. The bf16
+   per-frame kernel (`wgmma`, W_h packed by `pack_twa_weights_bf16`) forced
+   onto it at 1x20x45x80x256, 4x20x45x80x256 and 720x1280 serving's
+   1x20x90x160x256, and the ragged 2x3x13x7x24, against the plain version,
+   the persistent kernel where it takes the shape, its own bits over 20
+   more runs, V=4 against V=2 + V=2 (45x80 and 90x160), and the pack's
+   layout constants against the source's (`twa_bf16_layout`). K2 (`ops/dwblock.py::
    fused_dwblock_kernel`) vs `dwblock_ref` at 20x45x80 with C=256->256,
    E=1536, residual, with C=320->256, E=1920, and at a ragged 2x13x7 with
    C=24->16, in bf16 and f32; and, with phase 3, at every shape the main
@@ -69,6 +75,17 @@
    `bias_type` (1,0,1) and (0,0,0), one eager bf16 clip each: K1 once,
    finite saliency in [0, 1], a new state. Each configuration's launches
    are printed, and listed in the kernels line (`config_launches`).
+3c. Serves the flagship at `--iosize 720,1280,90,160` (UAV2's native
+   size; the 90x160x256 state is too wide for the persistent K1): bf16 with
+   K2 off and f32, one synthetic 720x1280 video of 3 carried clips of S=20,
+   eager and graphed through every check of phase 3 (bf16 launches K1's
+   per-frame kernel exactly 20 times a clip and the persistent one never;
+   K1 as served the bits of the kernel alone and within TOL_BF16 of the
+   plain version in f32), bf16 against f32 at CC >= 0.99 per frame, and the
+   launches of one bf16 mixed train step at that size (10); then its
+   graphed step and the runner over 20 clips in turns with the flagship's,
+   and a profile of one step (`build/chip_smoke_profile_720p.txt`, K1's
+   share).
 4. Times the serving step with K2 off and on, eager and graphed (ms per
    clip, FPS), the host's time to issue one step (eager against one
    replay), the pipelined `predict_videos` end to end, graphed and eager,
@@ -80,7 +97,8 @@
    its bound) with CUDA events after warm-up, each the median of 7 timed
    windows; K1's two kernels and its library yardstick in turns (per-frame,
    persistent, library, library, persistent, per-frame) at V=1 and V=4 in
-   bf16, with the fastest window beside each median, and the per-frame
+   bf16, and the per-frame kernel beside the yardstick at 720x1280's
+   1x20x90x160x256, with the fastest window beside each median, and the per-frame
    kernel in f32 (3xTF32), as the f32 paths launch it, beside its own f32
    yardstick, plain version and bound (3xTF32, with the FMA bound beside
    it); the f32 serving step, graphed, K2 off and on, in turns; K2 at each
@@ -125,10 +143,13 @@
    frames/s, and `device_dispatch_ms` with the image drivers' choice.
 
 The line before the last is a JSON object with one entry per kernel
-(`twa_scan`, `twa_step`, `dwblock` for K2 in bf16 and `dwblock_f32` for K2
-in f32, each with `train_step_launches`, its launches counted in one train
-step of the dtype it serves, K2's with the fused dwBlock on, and
-`config_launches`, its launches on each path of phase 3b and 5b); the
+(`twa_scan`, `twa_step` for K1's per-frame kernel as the f32 paths launch
+it, `twa_step_bf16` for it as bf16 720x1280 serving launches it, `dwblock`
+for K2 in bf16 and `dwblock_f32` for K2 in f32, each with
+`train_step_launches`, its launches counted in one train step of the dtype
+it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
+dwBlock on, and `config_launches`, its launches on each path of phase 3b,
+3c and 5b); the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -136,6 +157,7 @@ outlives it.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -226,6 +248,9 @@ TRAIN_REPEATS = 10  # steps on one repeated clip, over which the loss must fall
 TRAIN_LR, TRAIN_WD = 1e-4, 5e-5  # the trainer's defaults
 
 V, S, CLIPS = 1, 20, 3
+# `cli test --iosize 720,1280,90,160`: UAV2 served at its native size, a
+# 90x160x256 state, wider than the persistent K1 takes (phase 3c)
+NATIVE_IO = (720, 1280, 90, 160)
 LONG_CLIPS = 20  # the runner's steady state is timed over a video of this many clips
 E2E_RUNS = 5     # end-to-end runs per path, in turns
 IN_H, IN_W, OUT_H, OUT_W = 360, 640, 45, 80
@@ -287,15 +312,17 @@ def random_state_dict(model, rng):
     return sd
 
 
-def synthetic_video(rng, n: int) -> np.ndarray:
-    """(n, 360, 640, 3) uint8: a bright disk moving over a noisy gradient."""
-    yy, xx = np.mgrid[0:IN_H, 0:IN_W]
-    base = (xx * 0.2 + yy * 0.1).astype(np.float32)
-    frames = np.empty((n, IN_H, IN_W, 3), np.uint8)
+def synthetic_video(rng, n: int, h: int = IN_H, w: int = IN_W) -> np.ndarray:
+    """(n, h, w, 3) uint8: a bright disk moving over a noisy gradient (at
+    360x640 by default; scaled with h at another size)."""
+    k = h / IN_H
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (xx * 0.2 / k + yy * 0.1 / k).astype(np.float32)
+    frames = np.empty((n, h, w, 3), np.uint8)
     for t in range(n):
-        cy, cx = IN_H / 2 + 80 * np.sin(t / 7.0), 60 + t * 8
-        disk = ((yy - cy) ** 2 + (xx - cx) ** 2 < 40 ** 2) * 180.0
-        img = base[..., None] + disk[..., None] + rng.normal(0, 12, (IN_H, IN_W, 3))
+        cy, cx = h / 2 + 80 * k * np.sin(t / 7.0), (60 + t * 8) * k
+        disk = ((yy - cy) ** 2 + (xx - cx) ** 2 < (40 * k) ** 2) * 180.0
+        img = base[..., None] + disk[..., None] + rng.normal(0, 12, (h, w, 3))
         frames[t] = np.clip(img, 0, 255).astype(np.uint8)
     return frames
 
@@ -399,7 +426,64 @@ def check_k1(torch, kernels, twa, rng):
                 fail(f"K1 ({route}) on x[:2], x[2:] gives other bits than on x at {shape} {dtype}")
             print(f"K1 {route} V=4 equals V=2 + V=2 bit for bit at {shape} "
                   f"{str(dtype).replace('torch.', '')}")
+    errs["twa_step_bf16"] = check_k1_bf16_step(torch, kernels, twa, rng, drawn, held)
     return errs
+
+
+def check_k1_bf16_step(torch, kernels, twa, rng, drawn, held):
+    """Phase 2: K1's bf16 per-frame kernel (`wgmma`), forced onto it where the
+    persistent kernel takes the shape: the flagship frame at V = 1 and 4,
+    720x1280 serving's 90x160 state and the ragged 13x7x24, against the
+    plain version (`TOL_BF16`) and, where it takes the shape, the persistent
+    kernel (`TOL_K1_KERNELS`); the same bits on 20 more runs; V = 4 against
+    V = 2 + V = 2 bit for bit at the flagship width and at 90x160; the pack's
+    layout constants against the source's. Returns the error at 90x160."""
+    values = [ctypes.c_int() for _ in range(3)]
+    twa._lib().twa_bf16_layout(*[ctypes.byref(v) for v in values])
+    layout = [v.value for v in values]
+    if layout != [twa.BF16_CHUNK, twa.BF16_COLUMNS, twa.BF16_PLANE]:
+        fail(f"the bf16 pack's layout constants are not the kernel's: {layout}")
+    flagship, ragged = (1, S, OUT_H, OUT_W, 256), (2, 3, 13, 7, 24)
+    err = None
+    for shape in (flagship, (4, S, OUT_H, OUT_W, 256), (1, S, *NATIVE_IO[2:], 256), ragged):
+        args = k1_case(torch, rng, shape, torch.bfloat16, drawn.get(shape))
+        kernels.reset_launches()
+        ys, h_last = twa._twa_scan_cuda(*args, route="twa_step")
+        torch.cuda.synchronize()
+        want = {"twa_scan": 0, "twa_step": shape[1], "dwblock": 0}
+        if kernels.launches != want:
+            fail(f"K1 per-frame bf16 at {shape}: launched {kernels.launches}, expected {want}")
+        e = held("per-frame (wgmma)", shape, torch.bfloat16, ys, h_last, args, TOL_BF16)
+        if shape[2:4] == NATIVE_IO[2:]:
+            err = e
+        for run in range(REPEATS):
+            again, again_last = twa._twa_scan_cuda(*args, route="twa_step")
+            if not (torch.equal(again, ys) and torch.equal(again_last, h_last)):
+                fail(f"K1 (per-frame, bf16) gives other bits on run {run + 2} at {shape}")
+        line = f"K1 per-frame bf16 at {shape}: {REPEATS + 1} runs give equal bits"
+        if twa.clip_takes(shape[3], shape[4]):
+            clip, _ = twa._twa_scan_cuda(*args, route="twa_scan")
+            diff = (ys.float() - clip.float()).abs().max().item()
+            line += (f"; vs the persistent kernel max abs diff {diff:.3g} "
+                     f"({(ys != clip).float().mean().item():.3%} of values differ), tolerance "
+                     f"{TOL_K1_KERNELS}")
+            if not diff <= TOL_K1_KERNELS:
+                fail(f"K1's two bf16 kernels disagree at {shape}: {diff}")
+        print(line)
+    for hw in ((OUT_H, OUT_W), NATIVE_IO[2:]):
+        shape = (4, 3, *hw, 256)
+        x, gx, w_h, h0 = k1_case(torch, rng, shape, torch.bfloat16)
+        ys, h_last = twa._twa_scan_cuda(x, gx, w_h, h0, route="twa_step")
+        halves = [twa._twa_scan_cuda(x[i:i + 2].contiguous(), gx[i:i + 2].contiguous(), w_h,
+                                     h0[i:i + 2].contiguous(), route="twa_step") for i in (0, 2)]
+        torch.cuda.synchronize()
+        held("per-frame (wgmma), whole V", shape, torch.bfloat16, ys, h_last, (x, gx, w_h, h0),
+             TOL_BF16)
+        if not (torch.equal(torch.cat([p[0] for p in halves]), ys)
+                and torch.equal(torch.cat([p[1] for p in halves]), h_last)):
+            fail(f"K1 (per-frame, bf16) on x[:2], x[2:] gives other bits than on x at {shape}")
+        print(f"K1 per-frame bf16 V=4 equals V=2 + V=2 bit for bit at {shape}")
+    return err
 
 
 def dw_case(rng, n, h, w, c, e, co):
@@ -653,26 +737,32 @@ def k1_bound(shape, itemsize, peak_flops):
     return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
 
 
-def time_k1(torch, F, twa, rng, v):
-    """K1 at V x 20 x 45 x 80 x 256 in bf16: the per-frame kernel, the
-    persistent kernel and the library yardstick (one cuDNN conv + sigmoid +
+def time_k1(torch, F, twa, rng, v, hw=(OUT_H, OUT_W)):
+    """K1 at V x 20 x H x W x 256 in bf16 (45x80 by default): the per-frame
+    kernel (W_h packed once, as served), the persistent kernel where its gate
+    takes the shape, and the library yardstick (one cuDNN conv + sigmoid +
     lerp per frame, `cudnn.benchmark` on, autotuned in the warm-up call),
     timed in turns (per-frame, persistent, library, library, persistent,
     per-frame), 7 windows of 10 clips a turn; then the plain version and the
     bound. Returns ms per clip: {name: (median, fastest window)} over a
     name's 14 windows, and the bound."""
-    s, h, w, c = S, OUT_H, OUT_W, 256
+    s, (h, w), c = S, hw, 256
     x, gx, w_h, h0 = k1_case(torch, rng, (v, s, h, w, c), torch.bfloat16)
-    calls = {"per-frame": lambda: twa._twa_scan_cuda(x, gx, w_h, h0, route="twa_step"),
-             "persistent": lambda: twa.twa_scan(x, gx, w_h, h0),
+    packed = twa.pack_twa_weights_bf16(w_h)
+    calls = {"per-frame": lambda: twa._twa_scan_cuda(x, gx, w_h, h0, route="twa_step",
+                                                     packed=packed),
              "library": k1_library(torch, F, x, gx, w_h, h0)}
+    if twa.clip_takes(w, c):
+        calls["persistent"] = lambda: twa.twa_scan(x, gx, w_h, h0)
     windows = {name: [] for name in calls}
     torch.backends.cudnn.benchmark = True
     for name in ("per-frame", "persistent", "library", "library", "persistent", "per-frame"):
+        if name not in calls:
+            continue
         turn = cuda_windows(calls[name], 10)
         windows[name] += turn
-        print(f"K1 V={v} {name}: median {np.median(turn) / s * 1e3:.2f} us/frame, fastest "
-              f"window {min(turn) / s * 1e3:.2f}")
+        print(f"K1 V={v} {h}x{w} {name}: median {np.median(turn) / s * 1e3:.2f} us/frame, "
+              f"fastest window {min(turn) / s * 1e3:.2f}")
     torch.backends.cudnn.benchmark = False
     times = {name: (float(np.median(ws)), min(ws)) for name, ws in windows.items()}
     times["plain"] = (cuda_ms(lambda: twa.twa_scan_ref(x, gx, w_h, h0), 3), None)
@@ -718,17 +808,19 @@ def time_k1_f32(torch, F, twa, rng):
 def check_k1_served(torch, twa, name, taken):
     """K1 where it is served: `taken` holds, per clip of a bf16 main path,
     the arguments `twa_scan` was called with and what it returned. The
-    persistent kernel's served output must be the bits it gives on those
-    inputs alone, agree with the per-frame kernel within one bf16 ulp of the
-    largest value (`TOL_K1_KERNELS` below 4), and hold the plain version
-    computed in f32 on the same bf16 inputs within `TOL_BF16`, which is for
-    values below 2 and grows as a bf16 ulp does. The plain version in bf16,
-    which rounds conv and gate every frame, is read against the same f32
-    result beside it."""
+    served output must be the bits the kernel of its route gives on those
+    inputs alone (the per-frame kernel: from W_h packed here, not the pack
+    ConvTWA made at load), and hold the plain version computed in f32 on
+    the same bf16 inputs within `TOL_BF16`, which is for values below 2 and
+    grows as a bf16 ulp does. On the persistent route it must also agree
+    with the per-frame kernel within one bf16 ulp of the largest value
+    (`TOL_K1_KERNELS` below 4); the persistent kernel does not take the
+    per-frame route's shapes. The plain version in bf16, which rounds conv
+    and gate every frame, is read against the same f32 result beside it."""
     for k, ((x, gx, w_h, h0), (ys, h_last)) in enumerate(taken):
         args = (x, gx, w_h.to(x.dtype), h0.to(x.dtype))
-        alone, alone_last = twa._twa_scan_cuda(*args, route="twa_scan")
-        step, _ = twa._twa_scan_cuda(*args, route="twa_step")
+        route = twa.kernel_route(x.shape, x.dtype)
+        alone, alone_last = twa._twa_scan_cuda(*args, route=route)
         exact = twa.twa_scan_ref(*(a.float() for a in args))[0]
         plain_err = (twa.twa_scan_ref(*args)[0].float() - exact).abs().max().item()
         torch.cuda.synchronize()
@@ -736,11 +828,16 @@ def check_k1_served(torch, twa, name, taken):
         ulp = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
         tol_exact, tol_step = TOL_BF16 * max(1.0, ulp * 2 ** 7), max(TOL_K1_KERNELS, ulp)
         err = (ys.float() - exact).abs().max().item()
-        diff = (ys.float() - step.float()).abs().max().item()
+        diff = 0.0
+        if route == "twa_scan":
+            step, _ = twa._twa_scan_cuda(*args, route="twa_step")
+            diff = (ys.float() - step.float()).abs().max().item()
         same = torch.equal(alone, ys) and torch.equal(alone_last, h_last)
-        print(f"K1 as served, {name}, clip {k}: max |h| {top:.3g}; vs the plain version in f32 "
-              f"{err:.3g} (tolerance {tol_exact:.3g}; the plain version in bf16 {plain_err:.3g}), "
-              f"vs per-frame kernel {diff:.3g} (tolerance {tol_step:.3g}), equal bits alone: {same}")
+        print(f"K1 as served ({route}), {name}, clip {k}: max |h| {top:.3g}; vs the plain "
+              f"version in f32 {err:.3g} (tolerance {tol_exact:.3g}; the plain version in bf16 "
+              f"{plain_err:.3g})"
+              + (f", vs per-frame kernel {diff:.3g} (tolerance {tol_step:.3g})"
+                 if route == "twa_scan" else "") + f", equal bits alone: {same}")
         if not same:
             fail(f"{name} clip {k}: K1's served output is not what it gives on the same inputs")
         if not (err <= tol_exact and diff <= tol_step):
@@ -987,6 +1084,116 @@ def configs_phase(torch, kernels, dwblock, DWBlock, serve, drive, compare, video
     for name, launches in results.items():
         print(f"configuration {name}: launches per path {json.dumps(launches)}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# 3c. The flagship served at UAV2's native 720x1280
+
+
+def native_phase(torch, kernels, twa, serve, drive, compare, flagship):
+    """3c. The flagship served at iosize `NATIVE_IO`, as `cli test --iosize
+    720,1280,90,160` serves UAV2 at its native size: the 90x160x256 state is
+    wider than the persistent K1 takes, so every frame is one launch of the
+    bf16 per-frame kernel. bf16 with K2 off, and f32, one synthetic
+    720x1280 video of 3 carried clips of S=20 through phase 3's checks
+    (`drive`: K1's launches exact, bf16 {twa_scan 0, twa_step 20, dwblock 0}
+    per clip; the graph's kernel nodes the eager run's; graphed equal to
+    eager bit for bit; K1 as served the bits of the kernel alone and within
+    TOL_BF16 of the plain version in f32), bf16 against f32 at CC >= 0.99
+    per frame, and the launches of one bf16 mixed train step at this size
+    (the per-frame kernel once per frame). Then the graphed bf16 step and
+    the runner over `LONG_CLIPS` clips in turns with the flagship's
+    (`flagship` = its graphed step, model, video, native sizes, first clip
+    and zero state), and one eager step profiled
+    (`build/chip_smoke_profile_720p.txt`, K1's share). Returns the launches
+    of each path."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.runners.infer import predict_videos
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
+
+    in_h, in_w, out_h, out_w = NATIVE_IO
+    if twa.kernel_route((V, S, out_h, out_w, 256), torch.bfloat16) != "twa_step":
+        fail(f"K1's gate does not send the {out_h}x{out_w}x256 state to the per-frame kernel")
+    rng = np.random.default_rng(SEED + 12)  # its own: the other phases' draws stay as they were
+    priors = (get_gauss_priors(out_h, out_w, 8),
+              rng.uniform(0.0, 1.0, (out_h, out_w, 20)).astype(np.float32))
+    video = synthetic_video(rng, V * S * CLIPS, in_h, in_w)
+    native = [(in_h, in_w)]
+    name = f"flagship at {in_h}x{in_w}"
+    launches = {}
+    m16, s16, spy16, seen16 = serve(torch.bfloat16, False, priors=priors)
+    launches["bf16"], g16, sal16, _ = drive(f"{name}, K2 off (bf16)", m16, s16, spy16, seen16,
+                                            True, 0, video, native)
+    m32, s32, spy32, seen32 = serve(None, False, priors=priors)
+    launches["f32"], _, sal32, _ = drive(f"{name}, K2 off (f32)", m32, s32, spy32, seen32, False,
+                                         0, video, native)
+    compare(f"{name}: bf16 vs f32 saliency", sal16, sal32)
+    del m32, s32, spy32, seen32, sal32
+    torch.cuda.empty_cache()
+
+    # one bf16 mixed train step at this size
+    cuda = torch.device("cuda")
+    start = init_uavsal(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    model = train_model(torch, start, cuda)
+    step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
+                           compute_dtype=torch.bfloat16)
+    gaze = rng.uniform(0.0, 1.0, (1, TRAIN_S, out_h, out_w, 2)).astype(np.float32)
+    gaze[..., 1] = gaze[..., 1] < 0.01
+    gaze[:, :, out_h // 2, out_w // 2, 1] = 1.0
+    x, y = torch.from_numpy(video[None, :TRAIN_S]).to(cuda), torch.from_numpy(gaze).to(cuda)
+    g, o = (torch.from_numpy(p).to(cuda) for p in priors)
+    zero = torch.zeros((1, out_h, out_w, 256), device=cuda)
+    kernels.reset_launches()
+    loss, _ = step(x, g, o, zero, y)
+    torch.cuda.synchronize()
+    launches["bf16 mixed train step"] = one = dict(kernels.launches)
+    want = {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}
+    print(f"{name}: one bf16 mixed train step (S={TRAIN_S}): loss {float(loss):.6f}, "
+          f"launches {one}")
+    if one != want or not np.isfinite(float(loss)):
+        fail(f"{name}: the bf16 mixed train step launched {one} (expected {want}), loss {loss}")
+    del model, step, x, y, zero
+    torch.cuda.empty_cache()
+
+    # the graphed bf16 steps and the runner over LONG_CLIPS clips, in turns
+    # with the flagship's
+    flag_graphed, flag_model, flag_video, flag_native, flag_clip, flag_zero = flagship
+    clip = torch.from_numpy(video[None, :S]).to(cuda)
+    zero16 = torch.zeros((V, out_h, out_w, 256), dtype=torch.bfloat16, device=cuda)
+    paths = {"flagship at 360x640": (flag_graphed, flag_model, flag_video, flag_native,
+                                     flag_clip, flag_zero),
+             name: (g16, m16, video, native, clip, zero16)}
+    names = list(paths)
+    step_ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        graphed, _, _, _, c, z = paths[n]
+        step_ms[n].append(cuda_ms(lambda: graphed(c, z), 10))
+    secs = {n: [] for n in names}
+    long = {n: np.concatenate([p[2]] * -(-LONG_CLIPS * S // len(p[2])))[:LONG_CLIPS * S]
+            for n, p in paths.items()}
+    for rep in range(E2E_RUNS):
+        for n in (names if rep % 2 == 0 else names[::-1]):
+            graphed, model, _, nat, _, _ = paths[n]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict_videos(graphed, model, [long[n]], nat, batch_size=4)
+            torch.cuda.synchronize()
+            secs[n].append(time.perf_counter() - t0)
+    total, k1 = write_profile(torch, s16, clip, zero16, "chip_smoke_profile_720p.txt")
+    for n in names:
+        a, b = step_ms[n]
+        fps = ", ".join(f"{LONG_CLIPS * S / t:.1f}" for t in secs[n])
+        print(f"{n}: graphed bf16 step (V={V}, S={S}) {a:.3f} and {b:.3f} ms per clip "
+              f"({V * S / a * 1e3:.1f} and {V * S / b * 1e3:.1f} FPS); runner end to end, "
+              f"graphed, over {LONG_CLIPS} clips, {E2E_RUNS} runs in turns: FPS {fps}; median "
+              f"{LONG_CLIPS * S / float(np.median(secs[n])):.1f}")
+    print(f"{name}: one eager bf16 step's device time {total:.3f} ms, K1 (20 per-frame "
+          f"launches) {k1:.3f} ms ({k1 / total:.1%}), {k1 / S * 1e3:.2f} us per frame")
+    del paths, long, g16, m16, s16, spy16, seen16
+    torch.cuda.empty_cache()
+    return launches
 
 
 def config_train_phase(torch, kernels):
@@ -1719,14 +1926,16 @@ def main() -> None:
     video = synthetic_video(rng, V * S * CLIPS)
     native = [(NATIVE_H, NATIVE_W)]
 
-    def serve(compute_dtype, fused, tree=None, config=None):
+    def serve(compute_dtype, fused, tree=None, config=None, priors=None):
         """A served model and its eager step: the flagship, or the UAVSal of
-        `config` (keyword arguments) with the weights `tree`."""
+        `config` (keyword arguments) with the weights `tree`; `priors` are
+        the (Gaussian, observed) priors at another output size."""
         config = config or {}
         bias = config.get("bias_type", (1, 1, 1))
+        g, o = priors or (gauss, ob)
         model = load_model_for_inference(tree or variables, fold_bn=True, device="cuda",
                                          fused_dwblock=fused, **config)
-        step = make_baked_infer_step(model, gauss if bias[0] else None, ob if bias[1] else None,
+        step = make_baked_infer_step(model, g if bias[0] else None, o if bias[1] else None,
                                      compute_dtype=compute_dtype)
         seen = []
 
@@ -1737,12 +1946,16 @@ def main() -> None:
 
         return model, step, spy, seen
 
-    def drive(name, model, step, spy, seen, bf16, k2_launches):
+    def drive(name, model, step, spy, seen, bf16, k2_launches, video=video, native=native):
         """One main path, the eager step: warm-up clip, counts to 0, the whole
         video through `predict_videos`, counts read and held to the expected
-        ones exactly: bf16 takes K1's persistent kernel once per clip, f32 its
-        per-frame kernel once per frame. Then the same path replayed from a
-        CUDA graph (`drive_graphed`)."""
+        ones exactly: K1's persistent kernel once per clip where its gate
+        takes the state (bf16 at 45x80), else its per-frame kernel once per
+        frame (f32; bf16 at a state too wide for the persistent kernel).
+        Then the same path replayed from a CUDA graph (`drive_graphed`)."""
+        out_h, out_w = video.shape[1] // 8, video.shape[2] // 8
+        route = twa.kernel_route((V, S, out_h, out_w, 256),
+                                 torch.bfloat16 if bf16 else torch.float32)
         predict_videos(step, model, [video[:S]], native, batch_size=4)  # warm-up
         torch.cuda.synchronize()
         taken = []
@@ -1759,16 +1972,16 @@ def main() -> None:
         launches = dict(kernels.launches)
         recurrent.twa_scan = twa.twa_scan
         print(f"{name}: {V * S * CLIPS} frames in {CLIPS} clips, launches {launches}")
-        want = {"twa_scan": CLIPS if bf16 else 0, "twa_step": 0 if bf16 else S * CLIPS,
-                "dwblock": k2_launches}
+        want = {"twa_scan": CLIPS if route == "twa_scan" else 0,
+                "twa_step": S * CLIPS if route == "twa_step" else 0, "dwblock": k2_launches}
         if launches != want:
             fail(f"{name}: launched {launches}, expected {want}")
-        if maps.shape != (NATIVE_H, NATIVE_W, 1, V * S * CLIPS) or maps.dtype != np.uint8:
+        if maps.shape != (*native[0], 1, V * S * CLIPS) or maps.dtype != np.uint8:
             fail(f"{name}: postprocessed output has shape {maps.shape} dtype {maps.dtype}")
         if len(seen) != CLIPS:
             fail(f"{name}: expected {CLIPS} serving steps, saw {len(seen)}")
         for k, (out, st_in, st_out) in enumerate(seen):
-            if out.shape != (V, S, OUT_H, OUT_W, 1) or not torch.isfinite(out).all():
+            if out.shape != (V, S, out_h, out_w, 1) or not torch.isfinite(out).all():
                 fail(f"{name} clip {k}: saliency of shape {tuple(out.shape)} is not finite")
             if out.min().item() < 0 or out.max().item() > 1:
                 fail(f"{name} clip {k}: saliency outside [0, 1]")
@@ -1778,11 +1991,11 @@ def main() -> None:
             fail(f"{name}: ConvTWA called K1 {len(taken)} times in {CLIPS} clips")
         if bf16:
             check_k1_served(torch, twa, name, taken)
-        graphed, graphed_maps = drive_graphed(name, model, step, want, seen, maps)
+        graphed, graphed_maps = drive_graphed(name, model, step, want, seen, maps, video, native)
         return (launches, graphed, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double(),
                 graphed_maps)
 
-    def drive_graphed(name, model, step, want, seen, maps):
+    def drive_graphed(name, model, step, want, seen, maps, video, native):
         """The main path as a user runs it: `predict_videos` with the step
         replayed from a CUDA graph (`graph_step`), after one warm-up clip
         that captures it, under the profiler. The kernels that ran on the
@@ -1889,6 +2102,11 @@ def main() -> None:
     # 3b. the other configurations
     config_launches = configs_phase(torch, kernels, dwblock, DWBlock, serve, drive, compare,
                                     video, native, first_clip, (graphed16, model16, ob))
+    # 3c. the flagship at 720x1280
+    zero16 = torch.zeros((V, OUT_H, OUT_W, 256), dtype=torch.bfloat16, device="cuda")
+    native_launches = native_phase(torch, kernels, twa, serve, drive, compare,
+                                   (graphed16, model16, video, native, first_clip, zero16))
+    config_launches[f"flagship at {NATIVE_IO[0]}x{NATIVE_IO[1]}"] = native_launches
 
     # 4. measurements
     clip = first_clip
@@ -1922,6 +2140,9 @@ def main() -> None:
 
     k1_times, k1_bound_ms, k1_bound_by = time_k1(torch, F, twa, rng, 1)
     time_k1(torch, F, twa, rng, 4)
+    # the bf16 per-frame kernel at 720x1280 serving's state, on inputs of its own
+    k1_native, k1_native_bound, k1_native_by = time_k1(torch, F, twa, np.random.default_rng(
+        SEED + 13), 1, NATIVE_IO[2:])
     k2_ms, k2_plain_ms, k2_library_ms, k2_bound_ms, k2_bound_by = time_k2(torch, F, dwblock, rng)
     print(f"K2 bf16 at N,H,W,C,E,Co={K2_FLAGSHIP}, residual: kernel {k2_ms * 1e3:.2f} us/launch, "
           f"plain {k2_plain_ms * 1e3:.2f}, library (three cuDNN convs) {k2_library_ms * 1e3:.2f}, "
@@ -1988,6 +2209,19 @@ def main() -> None:
         "library_ms": k1_f32["library"],
         "frames_per_launch": 1,
         "train_step_launches": train_launches["f32"]["twa_step"],
+        "config_launches": by_config("twa_step"),
+    }, {
+        # the per-frame kernel as bf16 720x1280 serving launches it: one frame of 1x90x160x256
+        "name": "twa_step_bf16", **k1,
+        "launches": native_launches["bf16"]["twa_step"],
+        "max_abs_err": k1_err["twa_step_bf16"],
+        "ms": k1_native["per-frame"][0] / S,
+        "plain_ms": k1_native["plain"][0] / S,
+        "bound_ms": k1_native_bound / S,
+        "bound_by": k1_native_by,
+        "library_ms": k1_native["library"][0] / S,
+        "frames_per_launch": 1,
+        "train_step_launches": native_launches["bf16 mixed train step"]["twa_step"],
         "config_launches": by_config("twa_step"),
     }, {
         "name": "dwblock",

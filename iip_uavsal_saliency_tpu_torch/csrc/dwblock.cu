@@ -303,48 +303,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// d (64 x N, f32) += A (64 x 16, bf16) . B (16 x N, bf16), both K-major in
-// shared memory. Of d, thread t of the warpgroup holds, for each 8 columns
-// j, d[4j], d[4j + 1] at (row 16 * (t / 32) + (t % 32) / 4, columns
-// 8j + 2 * (t % 4) and + 1) and d[4j + 2], d[4j + 3] at the row 8 below.
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // bf16 on wgmma. w1p and w2p are the packed weights of
 // ops/dwblock.py::pack_dwblock_weights. grid = (N * tiles_y * tiles_x,
 // ceil(Co / NP)).
@@ -466,8 +424,8 @@ __global__ void __launch_bounds__(NT, 1)
         const uint64_t db = smem_desc(ring + (qq % R) * L::SLICE_ELEMS, L::EC * 16, 16 * PL);
         if constexpr (runs(EXPAND))
           for (int kk = 0; kk < np; kk += 2)  // 16 channels: two planes
-            wgmma_m64n64(acc, da + (((p0 + kk) * L::XPLANE * 2) >> 4),
-                         db + ((kk * L::EC * 16) >> 4));
+            wgmma_bf16<64>(acc, da + (((p0 + kk) * L::XPLANE * 2) >> 4),
+                           db + ((kk * L::EC * 16) >> 4));
         wgmma_commit();
         if (s > 0) {
           wgmma_wait<1>();
@@ -556,7 +514,7 @@ __global__ void __launch_bounds__(NT, 1)
       if constexpr (runs(PROJECT))
 #pragma unroll
         for (int kk = 0; kk < L::EC / PL; kk += 2)
-          wgmma_m64n128(acc_p, da + ((kk * L::DPLANE * 2) >> 4), db + ((kk * ncol * 16) >> 4));
+          wgmma_bf16<128>(acc_p, da + ((kk * L::DPLANE * 2) >> 4), db + ((kk * ncol * 16) >> 4));
       wgmma_commit();
       wgmma_wait<0>();
       keep(acc_p);

@@ -34,7 +34,7 @@
 //     reads of that one copy: ldmatrix takes an address per row, so a shift
 //     costs nothing. h_{s-1} is read from L2 once per tile, not once per tap.
 //   - Tensor cores through ldmatrix + mma.sync m16n8k16 (f32 accumulators in
-//     registers; 8 warps of 32 rows x 32 columns), not WMMA. Both operands
+//     registers; 8 warps of 32 rows x 32 columns). Both operands
 //     are stored with a 16-byte-chunk XOR swizzle, so the eight rows of an
 //     ldmatrix phase fall on distinct banks whatever the shift, and the
 //     fragments of K step k + 1 are loaded while step k multiplies.
@@ -54,10 +54,56 @@
 //   - No split-K, no atomics on data: a tile's bits do not depend on which
 //     block computes it, so a split of V gives the bits of the whole.
 //
-// twa_step_kernel (bf16 on WMMA 16x16x16; `twa_step_bf16`): one frame per
-// launch, the host launches frames in order (ops/twa.py). It takes the bf16
-// shapes the persistent kernel's gate refuses: C % 8 == 0 with C % 32 != 0,
-// widths whose halo tile does not fit beside the W_h slice.
+// twa_step_bf16_kernel (bf16; `twa_step_bf16`): one frame per launch, the
+// host launches frames in order (ops/twa.py). It takes the bf16 shapes the
+// persistent kernel's gate refuses: C % 8 == 0 with C % 32 != 0, and widths
+// whose halo tile does not fit beside the W_h slice (above 142 at C = 256:
+// the 90x160 state of 720x1280 serving). One 90x160x256 frame is the GEMM
+// of four flagship frames, 17.0 GFLOP: 17.2 us at the 989 TFLOP/s bf16 peak
+// against 30.7 MB (9.2 us at 3.35 TB/s), bound by operations. Design:
+//   - bf16 wgmma m64n256k16, f32 accumulators in registers, one product per
+//     k16 step and no fold: gx is added to the sums in f32 in the epilogue,
+//     and h_s is rounded once, to bf16, at the store.
+//   - The GEMM's rows are positions of the image padded by one zero column
+//     each side (pitch W + 2), so that every tap is one shift of the row
+//     index. A block owns BM = 128 consecutive positions of one video and
+//     BN = 256 output channels (all of them at C = 256), as two consumer
+//     warpgroups of 64 rows; the rows that fall on a pad column (2 / (W + 2)
+//     of the work) are dropped in the epilogue. 114 blocks at 90x160, one
+//     wave on 132 SMs.
+//   - Why 128 x 256: a block reads its columns of the packed W_h (1.18 MB at
+//     C = 256) from L2 once per 128 positions, and every column block stages
+//     h_{s-1} again; a 256-wide block stages it once, and m64n256 reads the
+//     most columns per byte of A from shared memory. On an H100, 128 x 64
+//     and 128 x 128 blocks with a producer warp took 67 to 71 us a frame at
+//     90x160, and two 108 KB blocks an SM without one 68 (PERF.md,
+//     Findings). The 128 accumulators a thread holds need the producer
+//     warpgroup's registers: it keeps 40 (setmaxnreg), the consumers take
+//     232 (with a producer warp instead, ptxas spilled and it ran slower).
+//   - h_{s-1} staged once per tile and chunk of KC = 64 channels: for each
+//     tap row dy the 130 positions from one before the tile's first to one
+//     past its last (whatever W), zeros on pad columns and outside the
+//     image, by 16-byte cp.async into wgmma's K-major layout without
+//     swizzle, planes of 8 channels [dy][plane][131 positions][8] (the pad
+//     position puts the 8 planes of a pixel on distinct banks), two
+//     buffers. A is read by wgmma from shared memory by descriptor: tap
+//     (dy, dx) starts dy rows and dx positions (16 dx bytes) into the
+//     buffer, so h_{s-1} leaves L2 once per tile and chunk, not once per tap.
+//     Chunk ch + 1 is staged once chunk ch's first tap is issued and every
+//     group of chunk ch - 1 has completed, so the wgmma pipeline is never
+//     drained between chunks.
+//   - B: `ops/twa.py::pack_twa_weights_bf16` lays W_h out once, at load, as
+//     [chunk][tap][plane][N padded to 256][8] (C padded to 64), the bits of
+//     the bf16 W_h the persistent kernel reads. One tap of a chunk (KC x BN,
+//     32 KB) is a slot of a 4-deep ring, 8 bulk copies of BN x 16 bytes (one
+//     per plane) on one mbarrier, fed by the producer warpgroup's first
+//     thread.
+//   - Epilogue from registers, on the accumulator's own rows and columns:
+//     gx_s, x_s and h_{s-1} of the block's rows are asked into L2 before the
+//     GEMM (which waits for none of them) and read after it, 8 column groups
+//     at a time beside the 128 accumulators; gate and lerp in f32, one
+//     rounding at the store of h_s.
+//   - No split-K, no atomics: a video's bits do not depend on the others.
 //
 // twa_step_f32_kernel (f32; `twa_step_f32`): one frame per launch, the
 // implicit GEMM on the tensor cores as 3xTF32 on wgmma. Each f32 operand v
@@ -104,13 +150,13 @@
 // Requirements (checked by the Python wrapper): C % 8 == 0 (C % 32 == 0 for
 // the persistent kernel), all pointers 16-byte aligned, tensors contiguous
 // in (V, S, H, W, C) / (V, H, W, C) order, W_h contiguous in HWIO order
-// (3, 3, C, C) for the bf16 kernels and packed by `pack_twa_weights` for
-// the f32 one. Any H, W >= 1 for the per-frame kernels.
+// (3, 3, C, C) for the persistent kernel and packed by `pack_twa_weights_bf16`
+// and `pack_twa_weights` for the per-frame ones. Any H, W >= 1 for the
+// per-frame kernels.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include <map>
 #include <mutex>
@@ -144,257 +190,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---------------------------------------------------------------------------
-// The per-frame kernel in bf16 (WMMA).
-
-constexpr int BM = 64;   // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 32;   // input channels of one tap per K slice
-constexpr int NT = 128;  // threads per block (4 warps)
-
-template <typename T>
-struct Tile {
-  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int LDA = BK + VEC;        // padded rows stay 16B-aligned
-  static constexpr int LDB = BN + VEC;
-  static constexpr int LDC = BN + 4;
-  static constexpr int A_BYTES = BM * LDA * sizeof(T);
-  static constexpr int B_BYTES = BK * LDB * sizeof(T);
-  static constexpr int C_BYTES = BM * LDC * sizeof(float);
-  static constexpr int SMEM =
-      A_BYTES + B_BYTES > C_BYTES ? A_BYTES + B_BYTES : C_BYTES;
-  static constexpr int AV = BM * BK / VEC / NT;  // 16B loads per thread (A)
-  static constexpr int BV = BK * BN / VEC / NT;  // 16B loads per thread (B)
-};
-
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// sigmoid in f32 on the special-function unit (ex2.approx, rcp.approx): a
+// few f32 ulps from expf and a full division, far inside the one rounding to
+// bf16 that follows, at a third of their cost.
+__device__ __forceinline__ float gate(float z) {
+  return __fdividef(1.0f, 1.0f + __expf(-z));
 }
 
-// Global -> registers for K slice `it` (tap = it / kchunks): A is BM pixels
-// x BK channels of h_{s-1} shifted by the tap (zero outside the image, the
-// conv's "same" padding); B is BK rows x BN columns of W_h.
-template <typename T>
-__device__ __forceinline__ void fetch(const T* __restrict__ hprev,
-                                      const T* __restrict__ w, int it,
-                                      int kchunks, int m0, int n0, int H,
-                                      int W, int C, uint4 (&ra)[Tile<T>::AV],
-                                      uint4 (&rb)[Tile<T>::BV]) {
-  using TL = Tile<T>;
-  const int tap = it / kchunks;
-  const int c0 = (it % kchunks) * BK;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int M = H * W;
-#pragma unroll
-  for (int q = 0; q < TL::AV; ++q) {
-    const int i = threadIdx.x + q * NT;
-    const int r = i / (BK / TL::VEC);
-    const int c = c0 + (i % (BK / TL::VEC)) * TL::VEC;
-    const int p = m0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (p < M && c < C) {
-      const int py = p / W + dy, px = p % W + dx;
-      if (py >= 0 && py < H && px >= 0 && px < W)
-        val = *reinterpret_cast<const uint4*>(
-            hprev + (static_cast<long long>(py) * W + px) * C + c);
-    }
-    ra[q] = val;
-  }
-#pragma unroll
-  for (int q = 0; q < TL::BV; ++q) {
-    const int i = threadIdx.x + q * NT;
-    const int c = c0 + i / (BN / TL::VEC);
-    const int n = n0 + (i % (BN / TL::VEC)) * TL::VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (c < C && n < C)
-      val = *reinterpret_cast<const uint4*>(
-          w + (static_cast<long long>(tap) * C + c) * C + n);
-    rb[q] = val;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void stash(T* As, T* Bs,
-                                      const uint4 (&ra)[Tile<T>::AV],
-                                      const uint4 (&rb)[Tile<T>::BV]) {
-  using TL = Tile<T>;
-#pragma unroll
-  for (int q = 0; q < TL::AV; ++q) {
-    const int i = threadIdx.x + q * NT;
-    const int r = i / (BK / TL::VEC), cv = (i % (BK / TL::VEC)) * TL::VEC;
-    *reinterpret_cast<uint4*>(As + r * TL::LDA + cv) = ra[q];
-  }
-#pragma unroll
-  for (int q = 0; q < TL::BV; ++q) {
-    const int i = threadIdx.x + q * NT;
-    const int r = i / (BN / TL::VEC), nv = (i % (BN / TL::VEC)) * TL::VEC;
-    *reinterpret_cast<uint4*>(Bs + r * TL::LDB + nv) = rb[q];
-  }
-}
-
-// The block's BM x BN product, per element type.
-template <typename T>
-struct Acc;
-
-// bf16: 4 warps in a 2x2 grid, each a 32x32 quadrant of 2x2 WMMA tiles.
-template <>
-struct Acc<__nv_bfloat16> {
-  using TL = Tile<__nv_bfloat16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(f[i][j], 0.0f);
-  }
-
-  __device__ void run(const __nv_bfloat16* As, const __nv_bfloat16* Bs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * TL::LDA + kk, TL::LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * TL::LDB + wn * 32 + j * 16, TL::LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(f[i][j], a[i], b[j], f[i][j]);
-    }
-  }
-
-  __device__ void store(float* Cs) {
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            Cs + (wm * 32 + i * 16) * TL::LDC + wn * 32 + j * 16, f[i][j],
-            TL::LDC, nvcuda::wmma::mem_row_major);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&out)[8]) {
-  constexpr int VEC = Tile<T>::VEC;
-#pragma unroll
-  for (int q = 0; q < 8 / VEC; ++q) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p + q * VEC);
-    const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) out[q * VEC + e] = to_f(t[e]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* p, const float (&in)[8]) {
-  constexpr int VEC = Tile<T>::VEC;
-#pragma unroll
-  for (int q = 0; q < 8 / VEC; ++q) {
-    uint4 u;
-    T* t = reinterpret_cast<T*>(&u);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) t[e] = from_f<T>(in[q * VEC + e]);
-    *reinterpret_cast<uint4*>(p + q * VEC) = u;
-  }
-}
-
-// grid = (ceil(H*W / BM), ceil(C / BN), V). `vstride` steps x, gx and out
-// from one video to the next, `hstride` steps h_{s-1}.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    twa_step_kernel(const T* __restrict__ x, const T* __restrict__ gx,
-                    const T* __restrict__ hprev, const T* __restrict__ w,
-                    T* __restrict__ out, long long vstride, long long hstride,
-                    int H, int W, int C) {
-  using TL = Tile<T>;
-  __shared__ __align__(128) unsigned char smem[TL::SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + TL::A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
-
-  const int M = H * W;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long v = blockIdx.z;
-  x += v * vstride;
-  gx += v * vstride;
-  out += v * vstride;
-  hprev += v * hstride;
-
-  Acc<T> acc;
-  acc.zero();
-  const int kchunks = (C + BK - 1) / BK;
-  const int n_iter = 9 * kchunks;
-  uint4 ra[TL::AV], rb[TL::BV];
-  fetch<T>(hprev, w, 0, kchunks, m0, n0, H, W, C, ra, rb);
-  for (int it = 0; it < n_iter; ++it) {
-    stash<T>(As, Bs, ra, rb);
-    __syncthreads();
-    if (it + 1 < n_iter)
-      fetch<T>(hprev, w, it + 1, kchunks, m0, n0, H, W, C, ra, rb);
-    acc.run(As, Bs);
-    __syncthreads();
-  }
-  acc.store(Cs);
-  __syncthreads();
-
-  // Epilogue: gate, lerp, store h_s, 8 channels per step.
-  for (int i = threadIdx.x; i < BM * BN / 8; i += NT) {
-    const int r = i / (BN / 8), nv = (i % (BN / 8)) * 8;
-    const int p = m0 + r, n = n0 + nv;
-    if (p >= M || n >= C) continue;
-    const long long off = static_cast<long long>(p) * C + n;
-    float xv[8], gv[8], hv[8], o[8];
-    load8<T>(x + off, xv);
-    load8<T>(gx + off, gv);
-    load8<T>(hprev + off, hv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float g = 1.0f / (1.0f + expf(-(Cs[r * TL::LDC + nv + e] + gv[e])));
-      o[e] = g * xv[e] + (1.0f - g) * hv[e];
-    }
-    store8<T>(out + off, o);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* gx, const void* hprev, const void* w,
-           void* out, long long vstride, long long hstride, int V, int H,
-           int W, int C, void* stream) {
-  const dim3 grid((H * W + BM - 1) / BM, (C + BN - 1) / BN, V);
-  twa_step_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gx),
-      static_cast<const T*>(hprev), static_cast<const T*>(w),
-      static_cast<T*>(out), vstride, hstride, H, W, C);
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ float2 unpack(unsigned two_bf16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&two_bf16));
 }
 
 // ---------------------------------------------------------------------------
 // The per-frame kernel in f32: 3xTF32 on wgmma (see the header).
 
-// Timing builds only (tools/k1_probe --dtype f32): a bit mask of parts
-// compiled out. Such a build computes wrong values; the port never builds one.
+// Timing builds only (tools/k1_probe --route step): a bit mask of parts of
+// the per-frame kernels compiled out. Such a build computes wrong values; the
+// port never builds one. SPLIT and FOLD are the f32 kernel's alone (the bf16
+// kernel's wgmma reads A from shared memory itself and sums all of K).
 #ifndef STEP_SKIP
 #define STEP_SKIP 0
 #endif
 enum StepPart {
   STEP_MMA = 0,        // the wgmma
-  STEP_SPLIT = 1,      // A's loads from the staged copy and their split
-  STEP_FOLD = 2,       // the partial sums' drain and add (all of K in one sum)
+  STEP_SPLIT = 1,      // A's loads from the staged copy and their split (f32)
+  STEP_FOLD = 2,       // the partial sums' drain and add (all of K in one sum; f32)
   STEP_COPIES = 3,     // the bulk copies of W_h (the producer arrives instead)
   STEP_HANDSHAKE = 4,  // the ring's mbarrier waits and arrivals (and the copies)
   STEP_STAGING = 5,    // the cp.async of h_{s-1}
@@ -651,6 +471,259 @@ int launch_step_f32(const void* x, const void* gx, const void* hprev, const void
 }
 
 // ---------------------------------------------------------------------------
+// The per-frame kernel in bf16: wgmma with A and B from shared memory (see
+// the header).
+
+struct Bf16Step {
+  static constexpr int BM = 128;             // GEMM rows (padded positions) per block
+  static constexpr int BN = 256;             // output channels per block: the pack's column block
+  static constexpr int KC = 64;              // input channels per staged chunk: the pack's chunk
+  static constexpr int PLANE = 8;            // channels per 16-byte core-matrix row
+  static constexpr int PLANES = KC / PLANE;  // planes of a chunk
+  static constexpr int CONSUMERS = 256;      // two warpgroups of 64 rows
+  static constexpr int NT = CONSUMERS + 128; // and the producer warpgroup
+  static constexpr int CONSUMER_REGS = 232;  // registers a thread after setmaxnreg
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int SEG = BM + 2;         // staged positions per tap row
+  // a plane of a tap row, 2096 bytes: the 8 planes of a pixel start 48
+  // bytes apart in the banks, and fill all 8 once
+  static constexpr int PLANE_BYTES = (SEG + 1) * 16;
+  static constexpr int ROW_BYTES = PLANES * PLANE_BYTES;     // a tap row of a chunk
+  static constexpr int A_BYTES = round_up(3 * ROW_BYTES, 128);  // one staged chunk
+  static constexpr int COPIES = 3 * SEG * PLANES;            // 16-byte pieces of a chunk
+  static constexpr int PER_THREAD = (COPIES + CONSUMERS - 1) / CONSUMERS;
+  static constexpr int SLOT_BYTES = KC * BN * 2;             // one tap of a chunk: 32 KB
+  static constexpr int MAX_RING = 8;
+  static constexpr int BAR_BYTES = 256;      // 2 * MAX_RING mbarriers
+  static constexpr int RING = (SMEM_LIMIT - BAR_BYTES - 2 * A_BYTES) / SLOT_BYTES < MAX_RING
+                                  ? (SMEM_LIMIT - BAR_BYTES - 2 * A_BYTES) / SLOT_BYTES
+                                  : MAX_RING;
+  static constexpr int SMEM = BAR_BYTES + 2 * A_BYTES + RING * SLOT_BYTES;
+};
+static_assert(Bf16Step::RING >= 3 && Bf16Step::SMEM <= SMEM_LIMIT &&
+                  Bf16Step::CONSUMERS == F32Step::CONSUMERS &&  // consumers_sync's count
+                  Bf16Step::A_BYTES % 128 == 0 && Bf16Step::CONSUMERS % Bf16Step::PLANES == 0 &&
+                  8 * 2 * Bf16Step::MAX_RING <= Bf16Step::BAR_BYTES &&
+                  Bf16Step::CONSUMER_REGS * Bf16Step::CONSUMERS +
+                          Bf16Step::PRODUCER_REGS * (Bf16Step::NT - Bf16Step::CONSUMERS) <=
+                      65536,
+              "bf16 per-frame layout");
+
+// grid = (ceil(H * (W + 2) / BM), ceil(C / BN), V). `wp` is W_h packed by
+// ops/twa.py::pack_twa_weights_bf16; `vstride` steps x, gx and out from one
+// video to the next, `hstride` steps h_{s-1}.
+__global__ void __launch_bounds__(Bf16Step::NT, 1)
+    twa_step_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ gx,
+                         const __nv_bfloat16* __restrict__ hprev,
+                         const __nv_bfloat16* __restrict__ wp, __nv_bfloat16* __restrict__ out,
+                         long long vstride, long long hstride, int H, int W, int C) {
+  using L = Bf16Step;
+  constexpr int NJ = L::BN / 8;  // 8-column groups of the accumulator
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [RING]: a slot's W_h landed
+  uint64_t* empty = full + L::MAX_RING;                // [RING]: all consumer warps read it
+  unsigned char* abuf = smem + L::BAR_BYTES;           // [2][3 tap rows][PLANES][SEG + 1][8]
+  unsigned char* ring = abuf + 2 * L::A_BYTES;
+
+  const int tid = threadIdx.x;
+  const int WP = W + 2, MP = H * WP;  // the padded image's pitch and positions
+  const int m0 = blockIdx.x * L::BM, n0 = blockIdx.y * L::BN;
+  const long long v = blockIdx.z;
+  const int nchunk = (C + L::KC - 1) / L::KC;
+  const int total = 9 * nchunk;  // ring slots of the tile, one per (chunk, tap)
+  const int npad = (C + L::BN - 1) / L::BN * L::BN;
+
+  if (tid == 0) {
+    for (int i = 0; i < L::RING; ++i) {
+      bar_init(&full[i], 1);                   // the producer's arrival, with the copies' bytes
+      bar_init(&empty[i], L::CONSUMERS / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, read so that every lane of a warp branches alike
+  // (setmaxnreg is executed by whole warpgroups)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == L::CONSUMERS / 128) {
+    // The producer warpgroup gives its registers to the consumers; its
+    // first thread streams the block's columns of the packed W_h through
+    // the ring: slot q is tap q % 9 of chunk q / 9, its PLANES planes of
+    // BN x 8 channels, each slot refilled once released.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS));
+    if (tid != L::CONSUMERS || !step_runs(STEP_HANDSHAKE)) return;
+    Cursor fill;
+    for (int q = 0; q < total; ++q) {
+      if (q >= L::RING) bar_wait(&empty[fill.slot], fill.phase ^ 1);
+      unsigned char* dst = ring + fill.slot * L::SLOT_BYTES;
+      if constexpr (step_runs(STEP_COPIES)) {
+        bar_expect_tx(&full[fill.slot], L::SLOT_BYTES);
+        const __nv_bfloat16* src = wp + (static_cast<long long>(q) * L::PLANES * npad + n0) * L::PLANE;
+        for (int j = 0; j < L::PLANES; ++j)
+          bulk_copy(dst + j * L::BN * 16, src + static_cast<long long>(j) * npad * L::PLANE,
+                    L::BN * 16, &full[fill.slot]);
+      } else {
+        bar_arrive(&full[fill.slot]);
+      }
+      fill.next(L::RING);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
+
+  x += v * vstride;
+  gx += v * vstride;
+  out += v * vstride;
+  hprev += v * hstride;
+  const int wg = tid / 128, warp = tid / 32 % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // The staging: this thread copies plane `piece` of the staged positions
+  // tid / PLANES + i * (CONSUMERS / PLANES); `src` is each one's pixel
+  // offset in h_{s-1}, -1 for the zeros of a pad column or outside the image.
+  const int piece = tid % L::PLANES;
+  int src[L::PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < L::PER_THREAD; ++i) {
+    const int e = tid / L::PLANES + i * (L::CONSUMERS / L::PLANES);
+    const int dy = e / L::SEG;
+    const int p = m0 + (dy - 1) * WP - 1 + (e - dy * L::SEG);  // padded position
+    const int y = p >= 0 ? p / WP : -1, xp = p - y * WP;
+    src[i] = e < 3 * L::SEG && p >= 0 && y < H && xp >= 1 && xp <= W ? (y * W + xp - 1) * C : -1;
+  }
+  auto stage = [&](int chunk) {
+    unsigned char* dst = abuf + (chunk & 1) * L::A_BYTES + piece * L::PLANE_BYTES;
+    const int c = chunk * L::KC + piece * L::PLANE;
+    if constexpr (step_runs(STEP_STAGING))
+#pragma unroll
+      for (int i = 0; i < L::PER_THREAD; ++i) {
+        const int e = tid / L::PLANES + i * (L::CONSUMERS / L::PLANES);
+        if (e >= 3 * L::SEG) continue;
+        const int dy = e / L::SEG;
+        const bool ok = src[i] >= 0 && c < C;
+        cp_async16(dst + dy * L::ROW_BYTES + (e - dy * L::SEG) * 16,
+                   ok ? hprev + src[i] + c : hprev, ok);
+      }
+    cp_async_commit();
+  };
+  stage(0);
+
+  // This thread's accumulator rows r0 and r0 + 8 of the tile as pixels of
+  // the image, -1 on a pad column or past the image. Of an m64n256
+  // accumulator a thread holds, for each 8 columns j, [4j], [4j + 1] at
+  // (row r0, columns 8j + 2t, + 1) and [4j + 2], [4j + 3] at row r0 + 8.
+  // gx_s, x_s and h_{s-1} of the rows are asked into L2 now and read after
+  // the GEMM, beside the 128 accumulators (the GEMM waits for none of them).
+  int pix[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = m0 + wg * 64 + 16 * warp + g + 8 * h;
+    const int y = p / WP, xp = p - y * WP;
+    pix[h] = p < MP && xp >= 1 && xp <= W ? y * W + xp - 1 : -1;
+    // the row's BN channels are 4 lines of 128 bytes: thread t of a quad line t
+    const long long line = static_cast<long long>(pix[h]) * C + n0 + 64 * t;
+    if (step_runs(STEP_EPILOGUE) && pix[h] >= 0 && n0 + 64 * t < C) {
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(gx + line));
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(x + line));
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(hprev + line));
+    }
+  }
+  float acc[L::BN / 2];
+#pragma unroll
+  for (int i = 0; i < L::BN / 2; ++i) acc[i] = 0.0f;
+
+  Cursor taken;      // the consumers' place in the ring
+  int pending = -1;  // the slot of the wgmma group that may still be in flight
+  for (int ch = 0; ch < nchunk; ++ch) {
+    cp_async_wait<0>();  // this thread's part of chunk ch landed
+    fence_async_smem();  // and is visible to wgmma
+    consumers_sync();    // everyone's is
+    // A of this warpgroup's 64 rows: tap (dy, dx) starts at tap row dy,
+    // position dx; a k16 step is two planes
+    const uint64_t da = smem_desc(abuf + (ch & 1) * L::A_BYTES + wg * 64 * 16, L::PLANE_BYTES, 128);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      if (step_runs(STEP_HANDSHAKE)) {
+        bar_wait(&full[taken.slot], taken.phase);
+        __syncwarp();  // the polls diverge; the wgmma is warp-aligned
+      }
+      const uint64_t dt = da + (((tap / 3) * L::ROW_BYTES + (tap % 3) * 16) >> 4);
+      const uint64_t db = smem_desc(ring + taken.slot * L::SLOT_BYTES, L::BN * 16, 128);
+      wgmma_fence();
+      if constexpr (step_runs(STEP_MMA))
+#pragma unroll
+        for (int k = 0; k < L::KC / 16; ++k)
+          wgmma_bf16<L::BN>(acc, dt + ((2 * k * L::PLANE_BYTES) >> 4),
+                            db + ((2 * k * L::BN * 16) >> 4));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tap's group completed: release its slot
+      if (pending >= 0 && step_runs(STEP_HANDSHAKE) && lane == 0) bar_arrive(&empty[pending]);
+      pending = taken.slot;
+      taken.next(L::RING);
+      if (tap == 0 && ch + 1 < nchunk) {
+        // every warpgroup's groups of chunk ch - 1 have completed (its last
+        // was waited for just now): its buffer takes chunk ch + 1, with no
+        // drain of the wgmma pipeline between chunks
+        consumers_sync();
+        stage(ch + 1);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  keep(acc);
+  if (step_runs(STEP_HANDSHAKE) && lane == 0) bar_arrive(&empty[pending]);
+
+  // Epilogue on the accumulator's own rows and columns, 8 column groups at
+  // a time: gate and lerp in f32, one rounding at the store of h_s.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = static_cast<long long>(pix[h]) * C;
+#pragma unroll
+    for (int j0 = 0; j0 < NJ; j0 += 8) {
+      unsigned gr[8], xr[8], hr[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 8 * (j0 + j) + 2 * t;
+        gr[j] = xr[j] = hr[j] = 0u;
+        if (!step_runs(STEP_EPILOGUE) || pix[h] < 0 || n >= C) continue;
+        gr[j] = __ldg(reinterpret_cast<const unsigned*>(gx + row + n));
+        xr[j] = __ldg(reinterpret_cast<const unsigned*>(x + row + n));
+        hr[j] = __ldg(reinterpret_cast<const unsigned*>(hprev + row + n));
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 8 * (j0 + j) + 2 * t, i = 4 * (j0 + j) + 2 * h;
+        if (pix[h] < 0 || n >= C) continue;
+        __nv_bfloat162 o = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+        if constexpr (step_runs(STEP_EPILOGUE)) {
+          const float2 gv = unpack(gr[j]), xv = unpack(xr[j]), hv = unpack(hr[j]);
+          const float g0 = gate(acc[i] + gv.x), g1 = gate(acc[i + 1] + gv.y);
+          o = __floats2bfloat162_rn(g0 * xv.x + (1.0f - g0) * hv.x,
+                                    g1 * xv.y + (1.0f - g1) * hv.y);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + row + n) = o;
+      }
+    }
+  }
+}
+
+int launch_step_bf16(const void* x, const void* gx, const void* hprev, const void* wp, void* out,
+                     long long vstride, long long hstride, int V, int H, int W, int C,
+                     void* stream) {
+  using L = Bf16Step;
+  if (C % L::PLANE) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(twa_step_bf16_kernel, L::SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((H * (W + 2) + L::BM - 1) / L::BM, (C + L::BN - 1) / L::BN, V);
+  twa_step_bf16_kernel<<<grid, L::NT, L::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gx),
+      static_cast<const __nv_bfloat16*>(hprev), static_cast<const __nv_bfloat16*>(wp),
+      static_cast<__nv_bfloat16*>(out), vstride, hstride, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // The persistent kernel: one launch per clip (bf16).
 
 // Timing builds only (tools/k1_probe): a bit mask of parts compiled out.
@@ -708,17 +781,6 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
-}
-
-// sigmoid in f32 on the special-function unit (ex2.approx, rcp.approx): a
-// few f32 ulps from expf and a full division, far inside the one rounding to
-// bf16 that follows, at a third of their cost.
-__device__ __forceinline__ float gate(float z) {
-  return __fdividef(1.0f, 1.0f + __expf(-z));
-}
-
-__device__ __forceinline__ float2 unpack(unsigned two_bf16) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&two_bf16));
 }
 
 // Byte offset of 16-byte chunk `q` (of 4) in row `row` of a swizzled array
@@ -1005,12 +1067,12 @@ int launch_clip(const void* x, const void* gx, const void* h0, const void* w,
 extern "C" {
 
 // Returns cudaGetLastError() right after the launch (0 on success).
+// `w_packed` is W_h packed by ops/twa.py::pack_twa_weights_bf16.
 int twa_step_bf16(const void* x, const void* gx, const void* hprev,
-                  const void* w, void* out, long long vstride,
+                  const void* w_packed, void* out, long long vstride,
                   long long hstride, int V, int H, int W, int C,
                   void* stream) {
-  return launch<__nv_bfloat16>(x, gx, hprev, w, out, vstride, hstride, V, H,
-                               W, C, stream);
+  return launch_step_bf16(x, gx, hprev, w_packed, out, vstride, hstride, V, H, W, C, stream);
 }
 
 // `w_packed` is W_h packed by ops/twa.py::pack_twa_weights.
@@ -1029,6 +1091,15 @@ void twa_f32_layout(int* chunk, int* column_block, int* k_step, int* plane) {
   *column_block = F32Step::BN;
   *k_step = F32Step::KSTEP;
   *plane = F32Step::PLANE;
+}
+
+// The packed-weight layout the bf16 per-frame kernel reads, for the pack to
+// be held against: input channels per chunk (C is padded to it), output
+// channels per block (N is padded to it), channels per plane.
+void twa_bf16_layout(int* chunk, int* columns, int* plane) {
+  *chunk = Bf16Step::KC;
+  *columns = Bf16Step::BN;
+  *plane = Bf16Step::PLANE;
 }
 
 // The whole clip in one cooperative launch (bf16). `done` is a zeroed int32

@@ -39,7 +39,7 @@ SOURCES = ("twa_scan", "dwblock")
 KERNELS = ("twa_scan", "twa_step", "dwblock")
 # the device functions behind each count, by the names a profiler gives them
 SYMBOLS = {"twa_scan": ("twa_clip_kernel",),
-           "twa_step": ("twa_step_f32_kernel", "twa_step_kernel"),
+           "twa_step": ("twa_step_f32_kernel", "twa_step_bf16_kernel"),
            "dwblock": ("dwblock_f32_kernel", "dwblock_bf16_kernel")}
 # a device function's name inside a mangled symbol (after its length)
 _MANGLED_SYMBOL = re.compile(r"(?<![A-Za-z_])(%s)(?![a-z0-9_])"

@@ -7,8 +7,10 @@
 The gate conv is linear, so it splits into conv(x, W[:, :Cin]) +
 conv(h, W[:, Cin:]). The input half runs once over all V*S frames as one
 `F.conv2d`; the scan over frames (`ops/twa.py::twa_scan`, kernel K1 on the
-card) runs only the hidden half and the gate. For the f32 kernel the hidden
-half is also packed (`ops/twa.py::pack_twa_weights`), once for serving.
+card) runs only the hidden half and the gate. Where the scan runs a
+per-frame kernel (f32, and bf16 at shapes the persistent kernel refuses) the
+hidden half is also packed for it (`ops/twa.py::pack_twa_weights`,
+`pack_twa_weights_bf16`), once for serving.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.twa import pack_twa_weights, twa_scan
+from ..ops.twa import kernel_route, pack_twa_weights, pack_twa_weights_bf16, twa_scan
 
 
 class _TWACell(nn.Module):
@@ -31,20 +33,23 @@ class _TWACell(nn.Module):
 
 
 def _packs(w: torch.Tensor) -> bool:
-    """Whether the scan reads this weight's hidden half packed: the f32
-    kernel on the card does; bf16 and the CPU read W_h as it is."""
-    return w.device.type == "cuda" and w.dtype == torch.float32
+    """Whether the scan may read this weight's hidden half packed: the
+    per-frame kernels on the card do (f32 and bf16); the CPU reads W_h as it
+    is. Whether a scan takes the per-frame route is x's to say
+    (`ConvTWA.forward`)."""
+    return w.device.type == "cuda" and w.dtype in (torch.float32, torch.bfloat16)
 
 
 class ConvTWA(nn.Module):
     """x (V, S, H, W, C), state (V, H, W, C) -> (ys (V, S, H, W, C), h_last).
 
     The gate weight is split into its input half (OIHW, for the conv) and
-    its hidden half permuted into the HWIO layout the kernel reads (and, for
-    the f32 kernel, packed: `packed_weight`). For serving (no gradient
-    wanted) the split and the pack are made once and again only when the
-    weight changes (in place, by a load or by a cast); when a gradient is
-    wanted the split is made on the fly, so that it reaches
+    its hidden half permuted into the HWIO layout the kernel reads (and,
+    where x goes to a per-frame kernel, packed: `packed_weight`). For
+    serving (no gradient wanted) the split and the pack are made once and
+    again only when the weight changes (in place, by a load or by a cast):
+    a served graph's warm-up makes them, never its capture. When a gradient
+    is wanted the split is made on the fly, so that it reaches
     `rnn_conv.weight` (on the card the scan's backward recomputes it through
     `twa_scan_ref`), and the scan packs once per call."""
 
@@ -76,16 +81,20 @@ class ConvTWA(nn.Module):
             self._packed = None
         return self._split
 
-    def packed_weight(self) -> Optional[torch.Tensor]:
-        """W_h packed for the f32 kernel (`pack_twa_weights`), made once
-        beside the cached split and dropped with it; None when a gradient
-        is wanted or the weight is not f32 on the card."""
+    def packed_weight(self, dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+        """W_h packed for the per-frame kernel of `dtype` (the weight's by
+        default): `pack_twa_weights` for f32, `pack_twa_weights_bf16` for
+        bf16, of W_h cast to it; made once beside the cached split and
+        dropped with it; None when a gradient is wanted or the weight is not
+        f32 or bf16 on the card."""
         w = self.cell_list[0].rnn_conv.weight
         if (torch.is_grad_enabled() and w.requires_grad) or not _packs(w):
             return None
+        dtype = dtype or w.dtype
         w_h = self.split_weight()[1]
-        if self._packed is None:
-            self._packed = pack_twa_weights(w_h)
+        if self._packed is None or self._packed.dtype != dtype:
+            pack = pack_twa_weights_bf16 if dtype == torch.bfloat16 else pack_twa_weights
+            self._packed = pack(w_h.to(dtype))
         return self._packed
 
     def _apply(self, fn, *args, **kwargs):
@@ -108,4 +117,7 @@ class ConvTWA(nn.Module):
         gx = gx.contiguous().reshape(v, s, h, w, c)
         if self.scan is not None:
             return self.scan(x.contiguous(), gx, w_h, state)
-        return twa_scan(x.contiguous(), gx, w_h, state, packed=self.packed_weight())
+        packed = None
+        if _packs(w_h) and kernel_route(x.shape, x.dtype) == "twa_step":
+            packed = self.packed_weight(x.dtype)
+        return twa_scan(x.contiguous(), gx, w_h, state, packed=packed)

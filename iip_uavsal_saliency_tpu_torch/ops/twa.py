@@ -27,9 +27,12 @@ On a CUDA tensor it launches one of the two hand-written Hopper kernels of
   everything else the kernel takes. f32 runs `twa_step_f32_kernel`, the
   implicit GEMM as 3xTF32 on `wgmma` (small.big + big.small + big.big, f32
   accumulation, the tensor cores' sums folded into f32 every 96 of K), on
-  W_h split into TF32 halves and packed by `pack_twa_weights` (once per
-  call, or once at load by `ConvTWA` for serving); bf16 with C a multiple
-  of 8 but not of 32, or a halo tile too wide, runs the WMMA kernel.
+  W_h split into TF32 halves and packed by `pack_twa_weights`; bf16 with C
+  a multiple of 8 but not of 32, or a halo tile too wide (the 90x160 state
+  of 720x1280 serving), runs `twa_step_bf16_kernel`, the implicit GEMM on
+  bf16 `wgmma` with f32 accumulation, on W_h packed by
+  `pack_twa_weights_bf16`. Either pack is made once per call, or once at
+  load by `ConvTWA` for serving.
 
 Both fuse the sigmoid and the lerp into the GEMM's epilogue in f32 and round
 once, at the store of h_s; frame s reads h_{s-1} from ys[:, s-1]. At the
@@ -73,6 +76,12 @@ F32_CHUNK = 32
 F32_COLUMN_BLOCK = 64
 F32_K_STEP = 8
 F32_PLANE = 4
+# The bf16 per-frame kernel's packed-weight layout (`twa_bf16_layout` in the
+# source): input channels per chunk (C is padded to it), output channels per
+# block (N is padded to it), channels per 16-byte core-matrix row.
+BF16_CHUNK = 64
+BF16_COLUMNS = 256
+BF16_PLANE = 8
 
 
 def clip_takes(w: int, c: int) -> bool:
@@ -153,6 +162,35 @@ def pack_twa_weights(w_h: torch.Tensor) -> torch.Tensor:
     return blob.permute(7, 3, 1, 2, 4, 0, 6, 8, 5).reshape(-1)
 
 
+def packed_twa_bf16_size(c: int) -> int:
+    """Elements of the blob `pack_twa_weights_bf16` makes for C channels."""
+    return 9 * _ceil_to(c, BF16_CHUNK) * _ceil_to(c, BF16_COLUMNS)
+
+
+def pack_twa_weights_bf16(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h (3, 3, C, C) bf16 in HWIO order, in the byte order the bf16
+    per-frame kernel wants in shared memory: the same bits, input channels
+    padded with zeros to a multiple of 64 (a staged chunk) and output
+    channels to a multiple of 256 (a block's columns), so the kernel needs
+    no masks.
+
+    One flat blob, [chunk q][tap ky, kx][plane j][N columns n][k]: element
+    is W_h[ky, kx, 64q + 8j + k, n]. A plane's 8 channels of a column are 16
+    bytes, a core-matrix row of wgmma's K-major layout without swizzle; a
+    block copies its 256 columns of each plane of a tap of a chunk into one
+    slot of its ring."""
+    if w_h.dtype != torch.bfloat16 or w_h.dim() != 4 or w_h.shape[:2] != (3, 3) \
+            or w_h.shape[2] != w_h.shape[3]:
+        raise ValueError(f"pack_twa_weights_bf16 takes bf16 W_h of shape (3, 3, C, C), got "
+                         f"{tuple(w_h.shape)} of {w_h.dtype}")
+    c = w_h.shape[-1]
+    cp, np_ = _ceil_to(c, BF16_CHUNK), _ceil_to(c, BF16_COLUMNS)
+    padded = F.pad(w_h, (0, np_ - c, 0, cp - c))
+    # (ky, kx, q, j, k, n) -> (q, ky, kx, j, n, k)
+    blob = padded.reshape(3, 3, cp // BF16_CHUNK, BF16_CHUNK // BF16_PLANE, BF16_PLANE, np_)
+    return blob.permute(2, 0, 1, 3, 5, 4).reshape(-1)
+
+
 class _TWAScan(torch.autograd.Function):
     """Kernel forward, backward recomputed through the plain version."""
 
@@ -176,9 +214,10 @@ def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor, h0: torch.Ten
              packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TWA scan: kernel K1 on a CUDA tensor, `twa_scan_ref` on a CPU one
     (where autograd differentiates the plain version itself). `packed` is
-    `pack_twa_weights(w_h)` made beforehand, read by the f32 kernel only
-    (without it the wrapper packs once per call); the backward and the plain
-    version read `w_h`."""
+    W_h packed beforehand for the per-frame kernel of x's dtype
+    (`pack_twa_weights` for f32, `pack_twa_weights_bf16` for bf16), read by
+    that kernel only (without it the wrapper packs once per call); the
+    persistent kernel, the backward and the plain version read `w_h`."""
     if x.device.type == "cpu":
         return twa_scan_ref(x, gx, w_h, h0)
     if x.device.type != "cuda":
@@ -202,14 +241,15 @@ def _lib():
         lib.twa_error_string.restype = ctypes.c_char_p
         lib.twa_f32_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
         lib.twa_f32_layout.restype = None
+        lib.twa_bf16_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.twa_bf16_layout.restype = None
     return lib
 
 
 def _twa_scan_cuda(x, gx, w_h, h0, route=None, packed=None):
     """Launch the kernel `kernel_route` names (`route` overrides it, for the
-    checks that hold one kernel against the other) or raise. The f32
-    per-frame kernel reads `packed`, or W_h packed here, once for all
-    frames."""
+    checks that hold one kernel against the other) or raise. The per-frame
+    kernels read `packed`, or W_h packed here, once for all frames."""
     chosen = kernel_route(x.shape, x.dtype)  # raises on what K1 does not take
     route = route or chosen
     v, s, h, w, c = x.shape
@@ -222,16 +262,18 @@ def _twa_scan_cuda(x, gx, w_h, h0, route=None, packed=None):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("twa_scan kernel needs contiguous, 16-byte aligned "
                              "tensors on one device")
-    if route == "twa_step" and x.dtype == torch.float32:
+    if route == "twa_step":
+        bf16 = x.dtype == torch.bfloat16
+        pack = pack_twa_weights_bf16 if bf16 else pack_twa_weights
         if packed is None:
             with torch.no_grad():
-                packed = pack_twa_weights(w_h)
-        size = packed_twa_size(c)
-        if (packed.shape != (size,) or packed.dtype != torch.float32
+                packed = pack(w_h)
+        size = (packed_twa_bf16_size if bf16 else packed_twa_size)(c)
+        if (packed.shape != (size,) or packed.dtype != x.dtype
                 or packed.device != x.device or not packed.is_contiguous()
                 or packed.data_ptr() % 16):
-            raise ValueError(f"packed W_h must be a flat, contiguous, 16-byte aligned f32 "
-                             f"tensor of {size} elements on x's device (pack_twa_weights)")
+            raise ValueError(f"packed W_h must be a flat, contiguous, 16-byte aligned tensor "
+                             f"of x's dtype and device with {size} elements ({pack.__name__})")
         w_h = packed
     lib = _lib()
     ys = torch.empty_like(x)
@@ -265,7 +307,7 @@ def _launch_clip(lib, x, gx, w_h, h0, ys, stream) -> None:
 
 
 def _launch_frames(lib, x, gx, w_h, h0, ys, stream) -> None:
-    """One launch per frame; `w_h` is the packed blob for f32."""
+    """One launch per frame; `w_h` is the packed blob."""
     v, s, h, w, c = x.shape
     fn = lib.twa_step_bf16 if x.dtype == torch.bfloat16 else lib.twa_step_f32
     hwc = h * w * c

@@ -21,7 +21,8 @@ from iip_uavsal_saliency_tpu_torch.ops.dwblock import (dwblock_ref, fused_dwbloc
                                                        fused_dwblock_kernel, pack_dwblock_weights)
 from iip_uavsal_saliency_tpu_torch.ops import twa
 from iip_uavsal_saliency_tpu_torch.ops.twa import (_lib, _twa_scan_cuda, clip_takes,
-                                                    kernel_route, pack_twa_weights, twa_scan,
+                                                    kernel_route, pack_twa_weights,
+                                                    pack_twa_weights_bf16, twa_scan,
                                                     twa_scan_ref)
 from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
 from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
@@ -130,6 +131,88 @@ def test_twa_f32_packs_once_per_scan_and_once_for_serving(card, monkeypatch):
     assert len(made) == 2 and torch.equal(first, again)
     with pytest.raises(ValueError, match="packed W_h"):
         twa_scan(*(a.detach() for a in args), packed=pack_twa_weights(args[2])[:-4])
+
+
+# The bf16 per-frame kernel (wgmma) at the shapes chip_smoke.py holds it
+# at, forced onto it where the persistent kernel would take the shape: the
+# flagship frame at V = 1 and V = 4, 720x1280 serving's 90x160 state, the
+# ragged C = 24, C = 8, and a width the persistent kernel refuses at
+# C = 64 (N and K far below the block's). Against the plain version as above;
+# against the persistent kernel (where it takes the shape) within one bf16
+# ulp of |h| < 4, as the two bf16 kernels are held in chip_smoke.py.
+BF16_STEP_SHAPES = {
+    "flagship_v1": (1, 20, 45, 80, 256),
+    "flagship_v4": (4, 20, 45, 80, 256),
+    "720p_state": (1, 20, 90, 160, 256),
+    "ragged": (2, 3, 13, 7, 24),
+    "c8": (2, 3, 6, 5, 8),
+    "w300_c64": (1, 3, 4, 300, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_STEP_SHAPES))
+def test_twa_bf16_step_kernel_matches_ref(card, name):
+    shape = BF16_STEP_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, torch.bfloat16)
+            for a in _case(*shape)]
+    kernels.reset_launches()
+    ys, last = _twa_scan_cuda(*args, route="twa_step")
+    torch.cuda.synchronize()
+    assert kernels.launches == _launches("twa_step", shape[1])
+    ref, ref_last = twa_scan_ref(*args)
+    torch.testing.assert_close(ys.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(last.float(), ref_last.float(), atol=2e-2, rtol=0)
+    again, _ = _twa_scan_cuda(*args, route="twa_step")
+    packed, _ = _twa_scan_cuda(*args, route="twa_step", packed=pack_twa_weights_bf16(args[2]))
+    assert torch.equal(again, ys) and torch.equal(packed, ys)
+    if clip_takes(shape[3], shape[4]):
+        clip, _ = _twa_scan_cuda(*args, route="twa_scan")
+        torch.testing.assert_close(ys.float(), clip.float(), atol=2.0 ** -6, rtol=0)
+
+
+def test_twa_bf16_layout_constants_are_the_kernels(card):
+    """The bf16 pack's layout constants are the ones the kernel source states."""
+    values = [ctypes.c_int() for _ in range(3)]
+    _lib().twa_bf16_layout(*[ctypes.byref(v) for v in values])
+    assert [v.value for v in values] == [twa.BF16_CHUNK, twa.BF16_COLUMNS, twa.BF16_PLANE]
+
+
+def test_twa_bf16_packs_once_per_scan_and_once_for_serving(card, monkeypatch):
+    """On the bf16 per-frame route a scan with a gradient wanted packs W_h
+    once, not once per frame; a served ConvTWA packs once and reuses the
+    pack, and none on the persistent route; a pack of the wrong size is
+    refused."""
+    from iip_uavsal_saliency_tpu_torch.models import recurrent
+    from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
+
+    made = []
+
+    def counting(w_h):
+        made.append(w_h.shape)
+        return pack_twa_weights_bf16(w_h)
+
+    monkeypatch.setattr(twa, "pack_twa_weights_bf16", counting)
+    monkeypatch.setattr(recurrent, "pack_twa_weights_bf16", counting)
+    args = [torch.tensor(a, dtype=torch.float32).to(card, torch.bfloat16)
+            for a in _case(1, 5, 6, 7, 24)]
+    args[0].requires_grad_()
+    kernels.reset_launches()
+    ys, _ = twa_scan(*args)
+    ys.float().square().sum().backward()
+    assert len(made) == 1 and kernels.launches["twa_step"] == 5
+    tm = ConvTWA(24).to(card, torch.bfloat16)
+    x = args[0].detach()
+    with torch.no_grad():
+        first, _ = tm(x, tm.init_state(6, 7, dtype=torch.bfloat16, device=card))
+        again, _ = tm(x, tm.init_state(6, 7, dtype=torch.bfloat16, device=card))
+    assert len(made) == 2 and torch.equal(first, again)
+    tm32 = ConvTWA(32).to(card, torch.bfloat16)  # the persistent kernel takes 6x7x32
+    x32 = torch.randn(1, 5, 6, 7, 32, device=card).bfloat16()
+    with torch.no_grad():
+        tm32(x32, tm32.init_state(6, 7, dtype=torch.bfloat16, device=card))
+    assert len(made) == 2
+    with pytest.raises(ValueError, match="packed W_h"):
+        twa_scan(*(a.detach() for a in args), packed=pack_twa_weights_bf16(args[2])[:-8])
 
 
 CLIP_SHAPES = {

@@ -161,7 +161,8 @@ def test_trace_shows_graph_reads_each_kernel_of_the_graph(traced, shows):
     ("_ZN43_GLOBAL__N__5031cd55_10_dwblock_cu_57aa294818dwblock_f32_kernelILi64EEEvPKfS3_",
      "dwblock"),
     ("_Z19twa_step_f32_kernelPKfS0_S0_S0_Pfiiii", "twa_step"),
-    ("_Z15twa_step_kernelI13__nv_bfloat16EvPKT_S3_", "twa_step"),
+    ("_ZN12_GLOBAL__N_120twa_step_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_S3_PS1_xxiiii",
+     "twa_step"),
     ("_Z15twa_clip_kernelPK13__nv_bfloat16", "twa_scan"),
     ("void twa_clip_kernel(__nv_bfloat16 const*)", "twa_scan"),
     ("_Z22twa_step_kernel_helperv", None),
@@ -213,7 +214,8 @@ def test_kernel_route(name, dtype, v):
                                        ((7, 50, 64), True), ((2, 80, 256), True),
                                        ((4, 128, 256), True), ((4, 142, 256), True),
                                        ((4, 150, 256), False), ((4, 300, 64), False),
-                                       ((4, 80, 320), False), ((4, 80, 24), False)])
+                                       ((4, 80, 320), False), ((4, 80, 24), False),
+                                       ((90, 160, 256), False)])  # 720x1280 serving's state
 def test_clip_takes(hwc, takes):
     """The persistent kernel's gate: C a multiple of 32 and one image row with
     its halo fits beside the W_h slice; what it refuses goes to the per-frame

@@ -108,7 +108,7 @@
    writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
 5. Trains at full width (360x640, S=10 = batch_size 2 x time_dims 5, V=1)
-   on seeded weights from `init_uavsal`: one f32 train step on the card
+   on seeded weights from `init_model`: one f32 train step on the card
    against the same step on the CPU (TF32 off); the bf16 mixed and the f32
    step with K1 (forward) and its gradient (`_TWAScan`, backward recomputed
    through the plain scan) against the same step with `ConvTWA.scan =
@@ -306,7 +306,7 @@ def random_state_dict(model, rng):
         elif ref.dim() == 1:
             a = rng.normal(0.0, 0.1, ref.shape)
         else:
-            fan_in = ref.shape[1] * ref.shape[2] * ref.shape[3]
+            fan_in = np.prod(ref.shape[1:])  # 4-D kernels, and 5-D ones of the 3-D convs
             a = rng.normal(0.0, np.sqrt(1.0 / fan_in), ref.shape)
         sd[key] = torch.tensor(a, dtype=torch.float32)
     return sd
@@ -1108,7 +1108,7 @@ def native_phase(torch, kernels, twa, serve, drive, compare, flagship):
     (`build/chip_smoke_profile_720p.txt`, K1's share). Returns the launches
     of each path."""
     from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
-    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
     from iip_uavsal_saliency_tpu_torch.runners.infer import predict_videos
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
     from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
@@ -1135,7 +1135,7 @@ def native_phase(torch, kernels, twa, serve, drive, compare, flagship):
 
     # one bf16 mixed train step at this size
     cuda = torch.device("cuda")
-    start = init_uavsal(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    start = init_model(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
     model = train_model(torch, start, cuda)
     step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
                            compute_dtype=torch.bfloat16)
@@ -1196,8 +1196,332 @@ def native_phase(torch, kernels, twa, serve, drive, compare, flagship):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 3d. The ablation zoo at full width (360x640)
+
+# label -> (model_name, st_type): the JAX `MODEL_ZOO`'s 8 other names at the
+# flagship's widths (MobileNetV2, 256 planes, time_dims 5, 2 ST blocks), and
+# `uavsal_stblocks_type` at its other orderings
+ZOO = {"uavsal_spconv": ("uavsal_spconv", "st"), "uavsal_teconv": ("uavsal_teconv", "st"),
+       "uavsal_stblocks": ("uavsal_stblocks", "st"),
+       "uavsal_stblocks_type": ("uavsal_stblocks_type", "st"),
+       "uavsal_stblocks_type s2t": ("uavsal_stblocks_type", "s2t"),
+       "uavsal_stblocks_type t2s": ("uavsal_stblocks_type", "t2s"),
+       "uavsal_stblocks_type s_s2t": ("uavsal_stblocks_type", "s_s2t"),
+       "uavsal_stc3d": ("uavsal_stc3d", "st"), "uavsal_stc2_3d": ("uavsal_stc2_3d", "st"),
+       "uavsal_mp": ("uavsal_mp", "st"), "uavsal_lstm": ("uavsal_lstm", "st")}
+# the f32 clip on the card against the port on the CPU (ConvLSTM's state;
+# STC23D's 2-D and 3-D convs), with cuDNN's convs at TF32 as the control
+# that each bound must catch, as TOL_SERVE_CPU is set. On an H100:
+# uavsal_lstm read 4.17e-7 (saliency) and 1.62e-6 (state, of its largest
+# value) against the control's 1.9e-4 and 8.22e-4; uavsal_stc2_3d 7.75e-7
+# against 3.42e-4 (its state a dummy). The bounds sit between, as 3b's.
+ZOO_CPU = ("uavsal_lstm", "uavsal_stc2_3d")
+TOL_ZOO_CPU = 1.5e-6
+TOL_ZOO_CPU_STATE = 8e-6
+# the pipelined runner over LONG_CLIPS clips, in turns with the flagship's
+ZOO_RUNNER = ("uavsal_lstm", "uavsal_stc3d")
+# the f32 train step, the card against the CPU at TRAIN_SMALL_H x
+# TRAIN_SMALL_W, S=10, as 5b holds ResNet-50's, within the flagship's
+# bounds (TOL_TRAIN_*): each f32 step drifts from the exact answer through
+# some 50 to 100 train-mode BatchNorms as the flagship's does, and
+# tests/test_torch_zoo_train*.py hold every zoo model's f32 step (the JAX
+# package's and the port's) to the port's f64 step within the same bounds
+ZOO_TRAIN = ("uavsal_lstm", "uavsal_stc3d")
+ZOO_TRAIN_STEPS = 10  # bf16 mixed steps of uavsal_lstm on one clip; the loss must fall
+# uavsal_lstm's seeded head expand kernel is drawn this many times larger.
+# ConvLSTM's output, o * tanh(c), is bounded by 1; ConvTWA's carries the
+# features' scale. On an H100 the phase printed their std over one bf16
+# clip as 0.1582 and 0.7543, and this is their ratio: it gives the head the
+# flagship's input scale, as VGG16's factor restores its backbone's
+# (config_variables). Unscaled, the random head left maps of std 0.0023
+# around 0.51, below bf16's output step there (2^-8), and bf16 against f32
+# read CC 0.77 per frame while no value moved by more than 0.0025.
+LSTM_HEAD_GAIN = 4.8
+# bf16 against f32 on each zoo name's maps, besides CC (which says nothing of
+# a near-constant map): the max abs diff over the 3 clips in bf16 steps at
+# the f32 map's largest value (`bf16_step`), a reading that does not depend
+# on the map's spread. The maps are sigmoids in (0, 1) carried in bf16
+# through every layer. For uavsal_lstm a control must exceed the bound: its
+# bf16 clips 2 and 3 each served from a zero state (a recurrence that
+# forgets what it carried) against the f32 clips carried.
+ZOO_BF16_STEPS = 4
+
+
+def zoo_variables(torch, model_name, st_type, seed):
+    """Seeded weights of a zoo model as a JAX-layout tree (numpy ->
+    `random_state_dict` from a generator of its own, uavsal_lstm's head
+    scaled by `LSTM_HEAD_GAIN` -> the model's bridge table), and their sum
+    |w|."""
+    from iip_uavsal_saliency_tpu_torch.models.adapters import build_adapted_model
+    from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
+
+    model = build_adapted_model(model_name, filter_kwargs=True, st_type=st_type)
+    sd = random_state_dict(model, np.random.default_rng(seed))
+    if model_name == "uavsal_lstm":
+        sd["conv_out_st.conv.0.0.weight"].mul_(LSTM_HEAD_GAIN)
+    checksum = sum(t.double().abs().sum().item() for t in sd.values())
+    return to_jax_variables(sd, table_of(model)), checksum
+
+
+def bf16_step(level):
+    """The spacing of bf16 numbers (8 significant bits) at `level` > 0."""
+    return 2.0 ** (np.floor(np.log2(level)) - 7)
+
+
+def zoo_bf16_steps(torch, label, name, step16, zero16, video, sal16, sal32):
+    """`ZOO_BF16_STEPS` on one zoo name (see there), and uavsal_lstm's
+    control."""
+    unit = bf16_step(sal32.abs().max().item())
+    d16 = (sal16 - sal32).abs().max().item()
+    print(f"{label}: bf16 vs f32 max abs diff {d16:.3g} = {d16 / unit:.3g} bf16 steps at the f32 "
+          f"map's largest value (bound {ZOO_BF16_STEPS})")
+    if not d16 <= ZOO_BF16_STEPS * unit:
+        fail(f"{label}: bf16 vs f32 max abs diff {d16} > {ZOO_BF16_STEPS} bf16 steps ({unit})")
+    if name != "uavsal_lstm":
+        return
+    forgot = []
+    for k in range(1, CLIPS):
+        clip = torch.from_numpy(video[None, k * S:(k + 1) * S]).cuda()
+        forgot.append(step16(clip, zero16)[0][0, :, :, :, 0].double())
+    d_c = (torch.cat(forgot) - sal32[S:]).abs().max().item()
+    print(f"{label}: control, bf16 clips 2 and 3 each from a zero state against f32 carried: "
+          f"max abs diff {d_c:.3g} = {d_c / unit:.3g} bf16 steps")
+    if not d_c > ZOO_BF16_STEPS * unit:
+        fail(f"{label}: the bf16 steps bound does not catch a recurrence that forgets its state")
+
+
+def zoo_phase(torch, kernels, serve, drive, compare, video, native, first_clip, flagship):
+    """3d. The ablation zoo at 360x640 on seeded weights (numpy -> the
+    model's bridge table -> JAX-layout tree -> `load_model_for_inference(
+    model_name=, st_type=)`), every name of `ZOO`: bf16 and f32, 3 carried
+    clips of S=20 through phase 3's checks (`drive`: launches exact, here
+    neither K1 nor K2, and ConvTWA never called; finite maps in [0, 1];
+    ConvLSTM's state changing every clip, the others' dummy zeros passed
+    through; graphed equal to eager bit for bit, the graph holding no K1 or
+    K2 node), bf16 against f32 at CC >= 0.99 per frame and within
+    `ZOO_BF16_STEPS` (uavsal_lstm with its control); the f32 clip of
+    `ZOO_CPU` against the port on the CPU (with a TF32 control); each
+    eager bf16 step profiled (its top ops), the graphed bf16 steps timed in
+    turns with the flagship's (`flagship` = its graphed step, model, ob
+    prior and eager step), the runner over `LONG_CLIPS` clips for `ZOO_RUNNER`; then the
+    f32 train step of `ZOO_TRAIN` on the card against the CPU at the reduced
+    size and `ZOO_TRAIN_STEPS` bf16 mixed steps of uavsal_lstm at 360x640
+    (no K1 or K2 launch; the loss falls). Returns the launches of each path,
+    and of the train steps."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.runners.infer import (load_model_for_inference,
+                                                             predict_videos)
+    from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+
+    t_phase = time.perf_counter()
+    none = {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
+    results, timed, profiles = {}, {"flagship (uavsal)": (flagship[0], flagship[1], None)}, {}
+    gauss, ob = get_gauss_priors(OUT_H, OUT_W, 8), flagship[2]
+    for k, (label, (name, st_type)) in enumerate(ZOO.items()):
+        tree, checksum = zoo_variables(torch, name, st_type, SEED + 50 + k)
+        config = {"model_name": name, "st_type": st_type}
+        print(f"{label}: seeded weights, sum |w| {checksum:.6f}")
+        launches = {}
+        m16, s16, spy16, seen16 = serve(torch.bfloat16, False, tree, config)
+        launches["bf16"], g16, sal16, _ = drive(f"{label} (bf16)", m16, s16, spy16, seen16,
+                                                True, 0, k1=False)
+        m32, s32, spy32, seen32 = serve(None, False, tree, config)
+        launches["f32"], g32, sal32, _ = drive(f"{label} (f32)", m32, s32, spy32, seen32,
+                                               False, 0, k1=False)
+        if launches != {"bf16": none, "f32": none}:
+            fail(f"{label}: launched {launches}; a zoo model but uavsal launches no kernel")
+        zero16 = m16.init_state(IN_H, IN_W, V, dtype=torch.bfloat16, device="cuda")
+        if name == "uavsal_lstm":
+            zero = torch.zeros((V, OUT_H, OUT_W, 256), dtype=torch.bfloat16, device="cuda")
+            twa = rnn_spread(torch, flagship[1], flagship[3], first_clip, zero)
+            lstm = rnn_spread(torch, m16, s16, first_clip, zero16)
+            print(f"the recurrence's output std over one bf16 clip from a zero state: flagship "
+                  f"(ConvTWA) {twa:.4g}, {label} (ConvLSTM; its head's expand kernel drawn "
+                  f"{LSTM_HEAD_GAIN} times larger) {lstm:.4g}")
+        print(f"{label}: f32 map mean {sal32.mean().item():.4g} std {sal32.std().item():.4g}")
+        compare(f"{label}: bf16 vs f32 saliency", sal16, sal32)
+        zoo_bf16_steps(torch, label, name, s16, zero16, video, sal16, sal32)
+        if label in ZOO_CPU:
+            zoo_against_cpu(torch, label, tree, config, s32, seen32, first_clip, gauss, ob)
+        del m32, s32, spy32, seen32, g32
+        profiles[label] = write_profile(torch, s16, first_clip, zero16,
+                                        f"chip_smoke_profile_zoo_{label.replace(' ', '_')}.txt",
+                                        top=4)
+        results[label] = launches
+        timed[label] = (g16, m16, zero16)
+        torch.cuda.empty_cache()
+
+    # the graphed bf16 steps in turns with the flagship's, and the runner
+    names = list(timed)
+    zero_flag = torch.zeros((V, OUT_H, OUT_W, 256), dtype=torch.bfloat16, device="cuda")
+    step_ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        graphed, _, zero = timed[n]
+        z = zero_flag if zero is None else zero
+        step_ms[n].append(cuda_ms(lambda: graphed(first_clip, z), 10))
+    long_video = np.concatenate([video] * -(-LONG_CLIPS * S // len(video)))[:LONG_CLIPS * S]
+    runner = [names[0]] + list(ZOO_RUNNER)
+    secs = {n: [] for n in runner}
+    for rep in range(E2E_RUNS):
+        for n in (runner if rep % 2 == 0 else runner[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict_videos(timed[n][0], timed[n][1], [long_video], native, batch_size=4)
+            torch.cuda.synchronize()
+            secs[n].append(time.perf_counter() - t0)
+    n_frames = len(long_video)
+    for n in names:
+        a, b = step_ms[n]
+        line = (f"{n}: graphed bf16 step (V={V}, S={S}, 360x640) {a:.3f} and {b:.3f} ms per clip "
+                f"({V * S / a * 1e3:.1f} and {V * S / b * 1e3:.1f} FPS)")
+        if n in secs:
+            line += (f"; runner end to end, graphed, over {LONG_CLIPS} clips, {E2E_RUNS} runs in "
+                     f"turns: FPS {', '.join(f'{n_frames / t:.1f}' for t in secs[n])}; median "
+                     f"{n_frames / float(np.median(secs[n])):.1f}")
+        if n in profiles:
+            line += f"; one eager step's device time {profiles[n][0]:.3f} ms"
+        print(line)
+    del timed, step_ms
+    torch.cuda.empty_cache()
+    results["train steps"] = zoo_train(torch, kernels)
+    print(f"phase 3d (the zoo) took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def rnn_spread(torch, model, step, clip, state):
+    """The std of the recurrence's output over one eager step."""
+    seen = []
+    hook = model.rnn.register_forward_hook(lambda m, i, out: seen.append(out[0].float().std()))
+    step(clip, state)
+    torch.cuda.synchronize()
+    hook.remove()
+    return seen[0].item()
+
+
+def zoo_against_cpu(torch, label, tree, config, step32, seen32, first_clip, gauss, ob):
+    """The card's f32 first clip (`seen32[0]`, from a zero state) against the
+    port on the CPU: the saliency absolute, a recurrent state relative to
+    its largest value (a dummy state must be zeros on both); and the same
+    clip with cuDNN's convs at TF32 as the control the bounds must catch."""
+    from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference
+    from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+
+    cpu_model = load_model_for_inference(tree, fold_bn=True, device="cpu", **config)
+    cpu_step = make_baked_infer_step(cpu_model, gauss, ob)
+    t0 = time.perf_counter()
+    out_c, st_c = cpu_step(first_clip.cpu(), cpu_model.init_state(IN_H, IN_W, V))
+    cpu_s = time.perf_counter() - t0
+    top = st_c.abs().max().item()
+
+    def from_cpu(out_g, st_g):
+        d_st = (st_c - st_g.float().cpu()).abs().max().item()
+        return (out_c - out_g.float().cpu()).abs().max().item(), d_st / top if top else d_st
+
+    out_g, _, st_g = seen32[0]
+    d_sal, d_st = from_cpu(out_g, st_g)
+    print(f"{label}: f32 clip on the card against the CPU ({cpu_s:.1f} s there): saliency max "
+          f"abs diff {d_sal:.3g} (tolerance {TOL_ZOO_CPU}), state {d_st:.3g}"
+          + (f" of its largest value {top:.3g} (tolerance {TOL_ZOO_CPU_STATE})" if top
+             else " (a dummy: must be 0)"))
+    if not (d_sal <= TOL_ZOO_CPU and d_st <= (TOL_ZOO_CPU_STATE if top else 0.0)):
+        fail(f"{label}: the card's f32 clip disagrees with the CPU's")
+    zero = cpu_model.init_state(IN_H, IN_W, V, device="cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sal_t, st_t = step32(first_clip, zero)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    c_sal, c_st = from_cpu(sal_t, st_t)
+    print(f"{label}: control, cuDNN's convs at TF32: saliency {c_sal:.3g}, state {c_st:.3g} "
+          "against the CPU")
+    if not (c_sal > TOL_ZOO_CPU and (c_st > TOL_ZOO_CPU_STATE or not top)):
+        fail(f"{label}: the bounds on the f32 clip do not catch cuDNN's convs at TF32")
+
+
+def zoo_train(torch, kernels):
+    """The zoo's training on seeded `init_model` weights: for `ZOO_TRAIN`,
+    one f32 train step on the card against the same step on the CPU at
+    TRAIN_SMALL_H x TRAIN_SMALL_W, S=10 (held as 5b holds ResNet-50's, to
+    the flagship's bounds);
+    then `ZOO_TRAIN_STEPS` bf16 mixed steps of uavsal_lstm on one clip at
+    360x640, S=10 (the loss must fall). No step launches K1 or K2. Returns
+    the launches of each step."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.adapters import build_adapted_model
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_model
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    none = {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
+    rng = np.random.default_rng(SEED + 60)
+    launches = {}
+    h, w = TRAIN_SMALL_H, TRAIN_SMALL_W
+    for name in ZOO_TRAIN:
+        config = {"model_name": name}
+        shape_of = build_adapted_model(name, filter_kwargs=True)
+        start = init_model(shape_of, torch.Generator().manual_seed(SEED)).state_dict()
+        x = torch.from_numpy(rng.integers(0, 256, (1, TRAIN_S, h, w, 3)).astype(np.uint8))
+        ymap = rng.uniform(0.0, 1.0, (1, TRAIN_S, h // 8, w // 8, 1))
+        ypts = rng.uniform(0.0, 1.0, (1, TRAIN_S, h // 8, w // 8, 1)) < 0.05
+        ypts[:, :, 3, 4] = True
+        y = torch.from_numpy(np.concatenate([ymap, ypts], -1).astype(np.float32))
+        state = shape_of.init_state(h, w, 1)
+        if state.dim() == 5:  # ConvLSTM's h and c, seeded
+            state = torch.from_numpy(rng.normal(0.0, 0.5, tuple(state.shape)).astype(np.float32))
+        small = (x, y, torch.from_numpy(get_gauss_priors(h // 8, w // 8, 8)),
+                 torch.from_numpy(rng.uniform(0.0, 1.0, (h // 8, w // 8, 20)).astype(np.float32)),
+                 state)
+        t0 = time.perf_counter()
+        on_cpu = one_train_step(torch, kernels, start, small, cpu, config=config)
+        cpu_s = time.perf_counter() - t0
+        on_card = one_train_step(torch, kernels, start, small, cuda, config=config)
+        print(f"{name} train step f32 at {h}x{w}, S={TRAIN_S}: {cpu_s:.1f} s on the CPU; loss "
+              f"CPU {on_cpu[0]:.6f}, card {on_card[0]:.6f}; card launches {on_card[4]}")
+        held_train(f"{name} train step f32 at {h}x{w}, card vs CPU",
+                   train_diffs(on_cpu, on_card), TOL_TRAIN_LOSS, TOL_TRAIN_GRAD,
+                   TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+        if on_card[4] != none:
+            fail(f"{name} train step f32 launched {on_card[4]}")
+        launches[f"{name}, f32"] = on_card[4]
+        del on_cpu, on_card
+
+    # bf16 mixed steps of uavsal_lstm on one clip at 360x640
+    frames, gaze = train_video(rng, TRAIN_S)
+    x, y = torch.from_numpy(frames[None]).to(cuda), torch.from_numpy(gaze[None]).to(cuda)
+    g = torch.from_numpy(get_gauss_priors(OUT_H, OUT_W, 8)).to(cuda)
+    o = torch.from_numpy(rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)).to(cuda)
+    config = {"model_name": "uavsal_lstm"}
+    start = init_model(build_adapted_model("uavsal_lstm"),
+                       torch.Generator().manual_seed(SEED)).state_dict()
+    model = train_model(torch, start, cuda, config=config)
+    step = make_train_step(create_train_state(model, make_optimizer(model, 1e-3, TRAIN_WD)),
+                           compute_dtype=torch.bfloat16)
+    zero = model.init_state(IN_H, IN_W, 1, device=cuda)
+    kernels.reset_launches()
+    losses = [float(step(x, g, o, zero, y)[0])]
+    torch.cuda.synchronize()
+    launches["uavsal_lstm, bf16 mixed"] = one = dict(kernels.launches)
+    losses += [float(step(x, g, o, zero, y)[0]) for _ in range(ZOO_TRAIN_STEPS - 1)]
+    windows = cuda_windows(lambda: step(x, g, o, zero, y), 2, windows=3)
+    print(f"uavsal_lstm train step bf16 mixed (360x640, S={TRAIN_S}): launches {one}; "
+          f"{ZOO_TRAIN_STEPS} steps on one clip (Adam lr 1e-3): loss "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; median {float(np.median(windows)):.3f} ms per step over 3 windows of 2")
+    if one != none:
+        fail(f"uavsal_lstm bf16 mixed train step launched {one}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("uavsal_lstm bf16 mixed train step: the loss did not fall")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def config_train_phase(torch, kernels):
-    """5b. ResNet-50 UAVSal trained on seeded `init_uavsal` weights: (1) one
+    """5b. ResNet-50 UAVSal trained on seeded `init_model` weights: (1) one
     f32 train step on the card against the same step on the CPU at
     128x224, S=10; (2) at 360x640, S=10, the f32 and the bf16 mixed step:
     K1's launches in one step exactly (f32 the per-frame kernel once per
@@ -1209,7 +1533,7 @@ def config_train_phase(torch, kernels):
     from torch.profiler import ProfilerActivity, profile
 
     from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
-    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
     from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
 
@@ -1219,7 +1543,7 @@ def config_train_phase(torch, kernels):
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     config = {"cnn_type": "resnet50"}
     rng = np.random.default_rng(SEED + 40)
-    start = init_uavsal(UAVSal(**config), torch.Generator().manual_seed(SEED)).state_dict()
+    start = init_model(UAVSal(**config), torch.Generator().manual_seed(SEED)).state_dict()
 
     # (1) the card against the CPU, f32, at the reduced size
     h, w = TRAIN_SMALL_H, TRAIN_SMALL_W
@@ -1332,15 +1656,20 @@ def train_video(rng, n):
 
 
 def train_model(torch, start, device, fused=False, scan=None, config=None):
-    """The flagship (or the UAVSal of `config`, its keyword arguments) with
-    the weights `start`, channels-last on `device`; `scan` is ConvTWA's scan
-    (None: K1 on the card)."""
-    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
+    """The flagship (or the zoo model of `config`, the keyword arguments of
+    `build_adapted_model`: a UAVSal configuration, or `model_name` and
+    `st_type`) with the weights `start`, channels-last on `device`; `scan`
+    is ConvTWA's scan (None: K1 on the card)."""
+    from iip_uavsal_saliency_tpu_torch.models.adapters import build_adapted_model
+    from iip_uavsal_saliency_tpu_torch.ops.layers import to_channels_last
 
-    model = UAVSal(fused_dwblock=fused, **(config or {}))
+    config = dict(config or {})
+    model = build_adapted_model(config.pop("model_name", "uavsal"), filter_kwargs=True,
+                                fused_dwblock=fused, **config)
     model.load_state_dict(start, strict=True)
-    model.rnn.scan = scan
-    return model.to(device, memory_format=torch.channels_last)
+    if scan is not None:
+        model.rnn.scan = scan
+    return to_channels_last(model, device)
 
 
 def one_train_step(torch, kernels, start, batch, device, dtype=None, fused=False, scan=None,
@@ -1393,9 +1722,9 @@ def train_diffs(a, b):
                 for n in ga)
     bn, bn_name = max(((bb[n] - ba[n]).abs().max().item() / bn_scale(ba, n), n)
                       for n in ba if "running" in n)
-    rnn = [n for n in ga if n.startswith("rnn.")]
+    rnn = [n for n in ga if n.startswith("rnn.")]  # none in a model without a recurrence
     rnn_err = np.sqrt(sum(((gb[n] - ga[n]) ** 2).sum().item() for n in rnn)
-                      / sum((ga[n] ** 2).sum().item() for n in rnn))
+                      / sum((ga[n] ** 2).sum().item() for n in rnn)) if rnn else 0.0
     return {"loss": abs(lb - la) / abs(la), "grad": grad, "leaf": leaf, "leaf_name": leaf_name,
             "rnn": rnn_err, "entry": entry, "bn": bn, "bn_name": bn_name,
             "state": (sb - sa).abs().max().item()}
@@ -1406,7 +1735,7 @@ def held_train(name, d, tol_loss, tol_grad, tol_leaf, tol_bn, tol_state):
     unless each lies within its tolerance (`tol_leaf` None: not held)."""
     print(f"{name}: loss {d['loss']:.3g} (tolerance {tol_loss}), gradient {d['grad']:.3g} "
           f"(tolerance {tol_grad}), worst leaf {d['leaf']:.3g} ({d['leaf_name']}"
-          + (f", tolerance {tol_leaf}" if tol_leaf else ", not held") + "), ConvTWA's "
+          + (f", tolerance {tol_leaf}" if tol_leaf else ", not held") + "), the recurrence's "
           f"leaves {d['rnn']:.3g}, worst leaf's largest error {d['entry']:.3g} of its largest "
           f"entry, BN stats {d['bn']:.3g} ({d['bn_name']}, tolerance {tol_bn}), state "
           f"{d['state']:.3g} (tolerance {tol_state})")
@@ -1418,7 +1747,7 @@ def held_train(name, d, tol_loss, tol_grad, tol_leaf, tol_bn, tol_state):
 
 def train_phase(torch, kernels, twa):
     """Training at 360x640, S=10, V=1 on seeded random weights from
-    `init_uavsal`: (1) one f32 train step on the card against the same step
+    `init_model`: (1) one f32 train step on the card against the same step
     on the CPU; (2) the bf16 mixed and the f32 step with K1 against the same
     step with the plain scan (`ConvTWA.scan = twa_scan_ref`); (3) the launches
     of one step, with the fused dwBlock off and on; (4) TBPTT over 3 carried
@@ -1430,7 +1759,7 @@ def train_phase(torch, kernels, twa):
     from torch.profiler import ProfilerActivity, profile
 
     from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
-    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
     from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference
     from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
@@ -1444,7 +1773,7 @@ def train_phase(torch, kernels, twa):
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     rng = np.random.default_rng(SEED + 7)  # its own: the serving phases' draws stay as they were
-    start = init_uavsal(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    start = init_model(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
     gauss = torch.from_numpy(get_gauss_priors(OUT_H, OUT_W, 8))
     ob = torch.from_numpy(rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32))
     frames, gaze = train_video(rng, 3 * TRAIN_S)
@@ -1882,6 +2211,7 @@ def main() -> None:
         from iip_uavsal_saliency_tpu_torch import kernels
         from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
         from iip_uavsal_saliency_tpu_torch.models import recurrent
+        from iip_uavsal_saliency_tpu_torch.models.adapters import ZooModelAdapter
         from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
         from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
         from iip_uavsal_saliency_tpu_torch.ops import dwblock, twa
@@ -1946,16 +2276,21 @@ def main() -> None:
 
         return model, step, spy, seen
 
-    def drive(name, model, step, spy, seen, bf16, k2_launches, video=video, native=native):
+    def drive(name, model, step, spy, seen, bf16, k2_launches, video=video, native=native,
+              k1=True):
         """One main path, the eager step: warm-up clip, counts to 0, the whole
         video through `predict_videos`, counts read and held to the expected
         ones exactly: K1's persistent kernel once per clip where its gate
         takes the state (bf16 at 45x80), else its per-frame kernel once per
-        frame (f32; bf16 at a state too wide for the persistent kernel).
+        frame (f32; bf16 at a state too wide for the persistent kernel); a
+        zoo model without ConvTWA (`k1=False`) neither, and ConvTWA is never
+        called. A model with a recurrent state must change it every clip; a
+        model without one carries its dummy zeros unchanged.
         Then the same path replayed from a CUDA graph (`drive_graphed`)."""
         out_h, out_w = video.shape[1] // 8, video.shape[2] // 8
         route = twa.kernel_route((V, S, out_h, out_w, 256),
-                                 torch.bfloat16 if bf16 else torch.float32)
+                                 torch.bfloat16 if bf16 else torch.float32) if k1 else None
+        stateful = not isinstance(model, ZooModelAdapter)
         predict_videos(step, model, [video[:S]], native, batch_size=4)  # warm-up
         torch.cuda.synchronize()
         taken = []
@@ -1985,11 +2320,13 @@ def main() -> None:
                 fail(f"{name} clip {k}: saliency of shape {tuple(out.shape)} is not finite")
             if out.min().item() < 0 or out.max().item() > 1:
                 fail(f"{name} clip {k}: saliency outside [0, 1]")
-            if not torch.isfinite(st_out).all() or torch.equal(st_in, st_out):
+            if stateful and (not torch.isfinite(st_out).all() or torch.equal(st_in, st_out)):
                 fail(f"{name} clip {k}: the carried state did not change or is not finite")
-        if len(taken) != CLIPS:
+            if not stateful and (st_out.any() or not torch.equal(st_in, st_out)):
+                fail(f"{name} clip {k}: the dummy state did not pass through as zeros")
+        if len(taken) != (CLIPS if k1 else 0):
             fail(f"{name}: ConvTWA called K1 {len(taken)} times in {CLIPS} clips")
-        if bf16:
+        if bf16 and k1:
             check_k1_served(torch, twa, name, taken)
         graphed, graphed_maps = drive_graphed(name, model, step, want, seen, maps, video, native)
         return (launches, graphed, torch.cat([o[0, :, :, :, 0] for o, _, _ in seen]).double(),
@@ -2107,6 +2444,9 @@ def main() -> None:
     native_launches = native_phase(torch, kernels, twa, serve, drive, compare,
                                    (graphed16, model16, video, native, first_clip, zero16))
     config_launches[f"flagship at {NATIVE_IO[0]}x{NATIVE_IO[1]}"] = native_launches
+    # 3d. the ablation zoo
+    config_launches.update(zoo_phase(torch, kernels, serve, drive, compare, video, native,
+                                     first_clip, (graphed16, model16, ob, step16)))
 
     # 4. measurements
     clip = first_clip
@@ -2254,6 +2594,7 @@ def main() -> None:
         "admitted_blocks_ms": k2_f32_sums[0],
         "admitted_blocks_library_ms": k2_f32_sums[1],
         "train_step_launches": train_launches["f32 fused"]["dwblock"],
+        "config_launches": by_config("dwblock"),
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2358,9 +2699,10 @@ def runner_costs(torch, graphed, model, video, native) -> None:
         f.write(table)
 
 
-def write_profile(torch, step, clip, state, filename: str):
+def write_profile(torch, step, clip, state, filename: str, top: int = 0):
     """Device time by kernel for one serving step, into build/. Returns the
-    step's device time and K1's part of it (its two kernels), in ms."""
+    step's device time and K1's part of it (its two kernels), in ms; with
+    `top`, also prints the `top` ATen ops that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2379,6 +2721,11 @@ def write_profile(torch, step, clip, state, filename: str):
         f.write(table)
     print(f"profile of one serving step: build/{filename}; device time {total:.3f} ms, K1 "
           f"{k1:.3f} ms ({k1 / total:.1%})")
+    if top:  # the ATen ops, each with the device time of the kernels it launched
+        ranked = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                        key=lambda e: -e.self_device_time_total)[:top]
+        print("  top ops by device time: " + "; ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.3f} ms ({e.count}x)" for e in ranked))
     return total, k1
 
 

@@ -11,9 +11,9 @@
     python -m iip_uavsal_saliency_tpu_torch.cli modelsize [--config cfg.json]
         [--key value ...]
 
-`train` trains UAVSal on `<data_dir>/<train_dataset>` (its txt
-splits, videos and ground truth in the reference's layout) as the JAX
-package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
+`train` trains the model `model_name` on `<data_dir>/<train_dataset>`
+(its txt splits, videos and ground truth in the reference's layout) as the
+JAX package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
 checkpoints, `_best.ckpt` and `_final.ckpt`; `--model-path` is a video-model
 `.ckpt` to start from (warm start), else the weights are drawn from seed 0.
 
@@ -23,14 +23,20 @@ as the JAX package's `test` does: the checkpoint is `--model-path`, else
 `<save_model_dir>/<method_name>/<method_name>_final.ckpt`; `serve_bf16`
 selects bf16; the device is CUDA unless `--device cpu` is given. The
 configuration is the JAX package's (utils/config.py): both commands build
-the `uavsal` model of `cnn_type` (mobilenet_v2, resnet18/34/50/101/152,
-vgg16), `num_stblock`, `bias_type` and `s2d_stem`; values the port does
-not implement yet (the other `model_name`s and `st_type`s, `dp_devices`
-above 1) raise NotImplementedError naming their ROADMAP item.
+any `model_name` of the JAX `MODEL_ZOO` (`uavsal`, the flagship, and the
+ablations `uavsal_spconv`, `uavsal_teconv`, `uavsal_stblocks`,
+`uavsal_stblocks_type`, `uavsal_stc3d`, `uavsal_stc2_3d`, `uavsal_mp`,
+`uavsal_lstm`), with `cnn_type` (mobilenet_v2, resnet18/34/50/101/152,
+vgg16), `num_stblock`, `bias_type`, `st_type` (the ordering of
+`uavsal_stblocks_type`: st, s2t, t2s, s_s2t) and `s2d_stem`; a model takes
+the keywords its class has and ignores the rest, as the JAX CLI's
+`filter_kwargs` does, and an unknown `model_name` raises KeyError.
+`dp_devices` above 1 raises NotImplementedError naming ROADMAP A.11.
 
 `modelsize` prints the bytes of the configured UAVSal's parameters and
 BatchNorm statistics per top-level part of the JAX variable tree, as the
-JAX package's `modelsize` does (no device is used).
+JAX package's `modelsize` does (the flagship class whatever `model_name`
+says, as there; no device is used).
 
 `eval` scores the `.mat` files of each method (`--methods`, else
 `method_name`) under `<data_dir>/<test_dataset>/Results/Results_<method_name>/
@@ -56,9 +62,6 @@ from .utils.config import Config, load_config
 from .utils.logging import get_logger
 
 log = get_logger("cli")
-
-# the model the port builds (models/uavsal.py), as the JAX Config names it
-SUPPORTED = {"model_name": "uavsal", "st_type": "st"}
 
 
 def _split_cli(argv: Sequence[str]
@@ -94,12 +97,6 @@ def _final_ckpt(cfg: Config) -> str:
 
 
 def _check_supported(cfg: Config) -> None:
-    for key, want in SUPPORTED.items():
-        value = getattr(cfg, key)
-        if value != want:
-            raise NotImplementedError(
-                f"{key}={value!r}: the port runs the `uavsal` model with sum-fusion "
-                f"STBlocks only ({key}={want!r}); the zoo is ROADMAP A.10")
     if cfg.dp_devices > 1:
         raise NotImplementedError(f"dp_devices={cfg.dp_devices}: multi-GPU serving and "
                                   "training are ROADMAP A.11")
@@ -118,7 +115,10 @@ def cmd_train(cfg: Config, device: Optional[str] = None):
     pre_vars = None
     if cfg.pre_model_path:
         ckpt = load_checkpoint(cfg.pre_model_path)
-        if "params" not in ckpt or "trunk" not in ckpt["params"]:
+        # the image stage's tree is exactly {sfnet, conv_out} (JAX
+        # `is_image_stage_variables`); the zoo's flat trees also hold `sfnet`
+        params = ckpt.get("params")
+        if params is None or set(params) == {"sfnet", "conv_out"}:
             raise NotImplementedError(
                 f"{cfg.pre_model_path} is not a video-model checkpoint; warm starts from the "
                 "image stage (train-img) are ROADMAP A.9b")
@@ -138,7 +138,8 @@ def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
     model = load_model_for_inference(_final_ckpt(cfg), time_dims=cfg.time_dims,
                                      fold_bn=cfg.fold_bn, device=device,
                                      cnn_type=cfg.cnn_type, num_stblock=cfg.num_stblock,
-                                     bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem)
+                                     bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem,
+                                     model_name=cfg.model_name, st_type=cfg.st_type)
     test_videos(
         cfg.test_input_path,
         cfg.test_output_path,
@@ -196,7 +197,6 @@ def cmd_modelsize(cfg: Config, device: Optional[str] = None) -> str:
     from .models.uavsal import UAVSal
     from .ops.stats import model_size_report
 
-    _check_supported(cfg)
     model = UAVSal(time_dims=cfg.time_dims, cnn_type=cfg.cnn_type, num_stblock=cfg.num_stblock,
                    bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem)
     report = model_size_report(to_jax_variables(model.state_dict(), table_of(model)))

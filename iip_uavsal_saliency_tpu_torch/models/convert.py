@@ -5,14 +5,16 @@ nested numpy arrays (a `.ckpt` read by `training/checkpoint.py`, or JAX
 variables passed through `np.asarray`) and returns a state_dict under the
 reference's key names. For the flagship these are the same keys and values,
 in the same order, that the JAX package's
-`models/convert.py::export_uavsal_state_dict` produces. It loads into the
-`models.uavsal.UAVSal` of the same configuration with
-`load_state_dict(strict=True)`. `to_jax_variables` reads the same table the
-other way.
+`models/convert.py::export_uavsal_state_dict` produces; for the other zoo
+models the keys that the JAX `convert_zoo_state_dict` reads, so that
+`to_jax_variables` is the zoo exporter that the JAX package lacks. It loads
+into the model of the same name and configuration (`models/uavsal.py`,
+or its `ZooModelAdapter`) with `load_state_dict(strict=True)`.
+`to_jax_variables` reads the same table the other way.
 
-This module keeps its own copy of that name map, built per configuration
-by `table_for(cnn_type, num_stblock, bias_type)` (`table_of(model)` for a
-model, `TABLE` for the flagship):
+This module keeps its own copy of that name map, built per model and
+configuration by `table_for(cnn_type, num_stblock, bias_type, model_name)`
+(`table_of(model)` for a model, `TABLE` for the flagship):
 
   trunk/sfnet/features/features_{i}  -> sfnet.features.features.{i}  (MobileNetV2)
   trunk/sfnet/features/stem          -> sfnet.features.conv1, .bn1   (ResNet)
@@ -27,10 +29,21 @@ model, `TABLE` for the flagship):
   mp/cxt_cb_prior_{j}                -> cxt_cb_prior.{j}          (stream on)
   mp/{fucb,fucbst}_layer             -> {fucb,fucbst}_layer.0     (any stream on)
   rnn/kernel                         -> rnn.cell_list.0.rnn_conv.weight
+                                        (ConvTWA; ConvLSTM's i, f, o, g gates)
   conv_out_st                        -> conv_out_st
 
-Conv kernels go from HWIO to OIHW; BN scale/bias -> weight/bias and
-mean/var -> running_mean/running_var. `s2d_stem` changes no key.
+The zoo's other names: `uavsal_spconv` and `uavsal_teconv` have no `trunk`
+(sfnet/..., st_layer_{i} -> st_layer.{i}, the DWBlock or the temporal
+branch itself, fust_layer -> fust_layer.0); the rest have the trunk, with
+the ST blocks of their kind (STC3D: `stconv_te`, a 3-D ConvBNAct; STC23D:
+`stconv_sp`, `stconv_te`, `stconv_last`; every ordering of
+`uavsal_stblocks_type` has STBlock's names, so `st_type` changes no row),
+`mp/...` for `uavsal_mp` and `uavsal_lstm`, and `rnn/kernel` for
+`uavsal_lstm`.
+
+Conv kernels go from HWIO to OIHW (DHWIO to OIDHW in 3-D); BN scale/bias
+-> weight/bias and mean/var -> running_mean/running_var. `s2d_stem`
+changes no key.
 """
 
 from __future__ import annotations
@@ -49,7 +62,8 @@ from .uavsal import NUM_STBLOCK
 
 StateDict = Dict[str, torch.Tensor]
 # (path in the JAX tree, starting at "params" or "batch_stats"; state_dict
-# key; whether the leaf is a conv kernel, HWIO in JAX and OIHW here)
+# key; whether the leaf is a conv kernel, HWIO (DHWIO) in JAX and OIHW
+# (OIDHW) here)
 Row = Tuple[Tuple[str, ...], str, bool]
 
 
@@ -115,9 +129,41 @@ def _backbone(cnn_type: str) -> List[Row]:
     return rows
 
 
+def _teconv(path, pre) -> List[Row]:
+    """Rows of one `TeConvSub`."""
+    return (_conv_bn(path + ("reduce_conv",), f"{pre}.reduce_conv.0", f"{pre}.reduce_conv.1")
+            + _dwblock(path + ("sub_conv",), f"{pre}.sub_conv")
+            + _conv_bn(path + ("last_conv",), f"{pre}.last_conv.0", f"{pre}.last_conv.1"))
+
+
+def _st_block(path, pre, kind: str) -> List[Row]:
+    """Rows of one ST block: "st" (any ordering of `ST_TYPES`: they share
+    their names), "stc3d" or "stc2_3d"."""
+    if kind == "stc3d":
+        return _conv_bn(path + ("stconv_te",), f"{pre}.stconv_te.0", f"{pre}.stconv_te.1")
+    last = _conv_bn(path + ("stconv_last",), f"{pre}.stconv_last.0", f"{pre}.stconv_last.1")
+    if kind == "stc2_3d":
+        return (_conv_bn(path + ("stconv_sp",), f"{pre}.stconv_sp.0", f"{pre}.stconv_sp.1")
+                + _conv_bn(path + ("stconv_te",), f"{pre}.stconv_te.0", f"{pre}.stconv_te.1")
+                + last)
+    return (_dwblock(path + ("stconv_sp", "spconv"), f"{pre}.stconv_sp.spconv")
+            + _teconv(path + ("stconv_te",), f"{pre}.stconv_te") + last)
+
+
+# the ST block of each zoo name with a trunk
+_ST_KIND = {"uavsal": "st", "uavsal_stblocks": "st", "uavsal_stblocks_type": "st",
+            "uavsal_stc3d": "stc3d", "uavsal_stc2_3d": "stc2_3d", "uavsal_mp": "st",
+            "uavsal_lstm": "st"}
+
+
 @functools.lru_cache(maxsize=None)
-def _table(cnn_type: str, num_stblock: int, bias_type: Tuple[int, int, int]) -> Tuple[Row, ...]:
-    rows: List[Row] = _backbone(cnn_type)
+def _table(cnn_type: str, num_stblock: int, bias_type: Tuple[int, int, int],
+           model_name: str) -> Tuple[Row, ...]:
+    flat = model_name in ("uavsal_spconv", "uavsal_teconv")
+    root = () if flat else ("trunk",)
+    # the backbone's rows drop "trunk" from their paths where there is none
+    rows: List[Row] = [(path[:1] + path[2:] if flat else path, key, is_kernel)
+                       for path, key, is_kernel in _backbone(cnn_type)]
 
     def conv_bn(*args):
         rows.extend(_conv_bn(*args))
@@ -125,46 +171,55 @@ def _table(cnn_type: str, num_stblock: int, bias_type: Tuple[int, int, int]) -> 
     def dwblock(*args):
         rows.extend(_dwblock(*args))
 
-    sf = ("trunk", "sfnet")
+    sf = root + ("sfnet",)
     for name in ("conv_lv3", "conv_lv4", "lv5_aspp1", "conv_lv5", "conv_last"):
         conv_bn(sf + (name,), f"sfnet.{name}.0", f"sfnet.{name}.1")
     for name in ("lv5_aspp2", "lv5_aspp3", "lv5_aspp4"):
         dwblock(sf + (name,), f"sfnet.{name}")
 
     for i in range(num_stblock):
-        path, pre = ("trunk", f"st_layer_{i}"), f"st_layer.{i}"
-        dwblock(path + ("stconv_sp", "spconv"), f"{pre}.stconv_sp.spconv")
-        te, te_key = path + ("stconv_te",), f"{pre}.stconv_te"
-        conv_bn(te + ("reduce_conv",), f"{te_key}.reduce_conv.0", f"{te_key}.reduce_conv.1")
-        dwblock(te + ("sub_conv",), f"{te_key}.sub_conv")
-        conv_bn(te + ("last_conv",), f"{te_key}.last_conv.0", f"{te_key}.last_conv.1")
-        conv_bn(path + ("stconv_last",), f"{pre}.stconv_last.0", f"{pre}.stconv_last.1")
-    dwblock(("trunk", "fust_layer"), "fust_layer.0")
+        path, pre = root + (f"st_layer_{i}",), f"st_layer.{i}"
+        if model_name == "uavsal_spconv":
+            dwblock(path, pre)
+        elif model_name == "uavsal_teconv":
+            rows.extend(_teconv(path, pre))
+        else:
+            rows.extend(_st_block(path, pre, _ST_KIND[model_name]))
+    dwblock(root + ("fust_layer",), "fust_layer.0")
 
-    for name, on in zip(("gauss_cb_layer", "ob_cb_layer", "cxt_cb_prior"), bias_type):
-        for j in range(2 if on else 0):
-            dwblock(("mp", f"{name}_{j}"), f"{name}.{j}")
-    if any(bias_type):
-        dwblock(("mp", "fucb_layer"), "fucb_layer.0")
-        dwblock(("mp", "fucbst_layer"), "fucbst_layer.0")
-
-    rows.append((("params", "rnn", "kernel"), "rnn.cell_list.0.rnn_conv.weight", True))
+    if model_name in ("uavsal", "uavsal_mp", "uavsal_lstm"):
+        for name, on in zip(("gauss_cb_layer", "ob_cb_layer", "cxt_cb_prior"), bias_type):
+            for j in range(2 if on else 0):
+                dwblock(("mp", f"{name}_{j}"), f"{name}.{j}")
+        if any(bias_type):
+            dwblock(("mp", "fucb_layer"), "fucb_layer.0")
+            dwblock(("mp", "fucbst_layer"), "fucbst_layer.0")
+    if model_name in ("uavsal", "uavsal_lstm"):
+        rows.append((("params", "rnn", "kernel"), "rnn.cell_list.0.rnn_conv.weight", True))
     dwblock(("conv_out_st",), "conv_out_st")
     return tuple(rows)
 
 
 def table_for(cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
-              bias_type: Sequence[int] = (1, 1, 1)) -> List[Row]:
-    """The rows of the UAVSal of this configuration, in the order of the
-    JAX package's `export_uavsal_state_dict` (backbone, neck, STBlocks,
-    fuse block, prior streams, fusion, TWA gate, head)."""
+              bias_type: Sequence[int] = (1, 1, 1), model_name: str = "uavsal") -> List[Row]:
+    """The rows of the zoo model `model_name` of this configuration (for
+    "uavsal" in the order of the JAX package's `export_uavsal_state_dict`:
+    backbone, neck, ST blocks, fuse block, prior streams, fusion, TWA gate,
+    head; the other names in the same order, without the parts they lack).
+    `bias_type` matters only where the model has priors. An unknown name
+    raises KeyError."""
+    model_name = model_name.lower()
+    if model_name not in _ST_KIND and model_name not in ("uavsal_spconv", "uavsal_teconv"):
+        raise KeyError(model_name)
     return list(_table(cnn_type.lower(), int(num_stblock),
-                       tuple(int(bool(b)) for b in bias_type)))
+                       tuple(int(bool(b)) for b in bias_type), model_name))
 
 
 def table_of(model) -> List[Row]:
-    """The rows of `model`'s own configuration (a `models.uavsal.UAVSal`)."""
-    return table_for(model.cnn_type, model.num_stblock, model.bias_type)
+    """The rows of `model`'s own name and configuration (a model of
+    `models/uavsal.py` or its `ZooModelAdapter`)."""
+    return table_for(model.cnn_type, model.num_stblock,
+                     getattr(model, "bias_type", None) or (0, 0, 0), model.model_name)
 
 
 TABLE: List[Row] = table_for()
@@ -189,7 +244,7 @@ def _check_same(what: str, have, table_has) -> None:
 
 
 def from_jax_variables(variables: Mapping[str, Any], table: List[Row] = TABLE) -> StateDict:
-    """JAX UAVSal variables -> this port's UAVSal state_dict (f32 tensors).
+    """JAX variables of a zoo model -> this port's state_dict (f32 tensors).
     `table` is the model's own (`table_of`; the flagship's by default) or
     the rows of a part; the leaves under its collections ("params",
     "batch_stats") must be its rows exactly. Other top-level entries (a
@@ -204,8 +259,9 @@ def from_jax_variables(variables: Mapping[str, Any], table: List[Row] = TABLE) -
         for p in path:
             leaf = leaf[p]
         a = np.asarray(leaf)
-        out[key] = torch.from_numpy(np.array(a.transpose(3, 2, 0, 1) if is_kernel else a,
-                                             np.float32, order="C"))
+        if is_kernel:  # (..., I, O) -> (O, I, ...)
+            a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return out
 
 
@@ -222,5 +278,5 @@ def to_jax_variables(state_dict: Mapping[str, Any], table: List[Row] = TABLE) ->
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = a.transpose(2, 3, 1, 0) if is_kernel else a
+        node[path[-1]] = a.transpose(*range(2, a.ndim), 1, 0) if is_kernel else a
     return tree

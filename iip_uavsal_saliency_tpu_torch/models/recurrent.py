@@ -1,5 +1,7 @@
-"""ConvTWA, the temporal-weighted-average recurrence (counterpart of
-`iip_uavsal_saliency_tpu/models/recurrent.py::ConvTWA`).
+"""The stateful recurrences (counterparts of
+`iip_uavsal_saliency_tpu/models/recurrent.py`): ConvTWA, the
+temporal-weighted-average cell of the flagship, and the ablations'
+ConvLSTM, ConvSimGRU and ConvTWADW (below).
 
     i_t = sigmoid(conv([x_t, h_{t-1}], W))
     h_t = i_t * x_t + (1 - i_t) * h_{t-1}
@@ -21,15 +23,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layers import DWBlock, laid_out_as
 from ..ops.twa import kernel_route, pack_twa_weights, pack_twa_weights_bf16, twa_scan
 
 
-class _TWACell(nn.Module):
-    """Holds the gate conv under the reference's key `rnn_conv`."""
+class _GateCell(nn.Module):
+    """Holds a gate conv over concat([x, h]) (`hidden_dim` channels each)
+    with `gates` * hidden_dim outputs under the reference's key
+    `rnn_conv`."""
 
-    def __init__(self, hidden_dim: int):
+    def __init__(self, hidden_dim: int, gates: int = 1):
         super().__init__()
-        self.rnn_conv = nn.Conv2d(2 * hidden_dim, hidden_dim, 3, padding=1, bias=False)
+        self.rnn_conv = nn.Conv2d(2 * hidden_dim, gates * hidden_dim, 3, padding=1, bias=False)
 
 
 def _packs(w: torch.Tensor) -> bool:
@@ -56,7 +61,7 @@ class ConvTWA(nn.Module):
     def __init__(self, hidden_dim: int = 256):
         super().__init__()
         self.hidden_dim = hidden_dim
-        self.cell_list = nn.ModuleList([_TWACell(hidden_dim)])
+        self.cell_list = nn.ModuleList([_GateCell(hidden_dim)])
         self._split: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._split_key = None
         self._packed: Optional[torch.Tensor] = None
@@ -121,3 +126,140 @@ class ConvTWA(nn.Module):
         if _packs(w_h) and kernel_route(x.shape, x.dtype) == "twa_step":
             packed = self.packed_weight(x.dtype)
         return twa_scan(x.contiguous(), gx, w_h, state, packed=packed)
+
+
+class _GatedScan(nn.Module):
+    """The split-gate recurrences of the ablations: a gate conv over
+    concat([x_t, h_{t-1}]) with `gates` * C outputs (reference key
+    `cell_list.0.rnn_conv`), its input half run once over all V*S frames
+    as one conv and its hidden half per frame, as in the JAX cells. Plain
+    PyTorch (cuDNN convs): no TPU kernel of the JAX package runs these.
+    x (V, S, H, W, C); the carried state is (V, H, W, C) per tensor it
+    holds; the frames and the state are NCHW views of channels-last memory
+    inside."""
+
+    gates = 1
+
+    def __init__(self, hidden_dim: int = 256):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.cell_list = nn.ModuleList([_GateCell(hidden_dim, self.gates)])
+
+    def step(self, gates: torch.Tensor, carry):
+        """One frame: (the new carry, the frame's output) from the summed
+        gate pre-activations (V, gates * C, H, W) and the carry."""
+        raise NotImplementedError
+
+    def scan(self, x: torch.Tensor, carry):
+        """(ys (V, S, H, W, C), the last carry)."""
+        v, s, h, w, c = x.shape
+        weight = self.cell_list[0].rnn_conv.weight
+        # each half laid out once per call, not once per frame
+        w_x, w_h = (half.contiguous(memory_format=torch.channels_last)
+                    for half in (weight[:, :c], weight[:, c:]))
+        frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
+        gx = F.conv2d(frames, w_x, padding=1)
+        gx = gx.reshape(v, s, *gx.shape[1:])
+        ys = []
+        for t in range(s):
+            carry, y = self.step(gx[:, t] + F.conv2d(carry[0], w_h, padding=1), carry)
+            ys.append(y.permute(0, 2, 3, 1))
+        return torch.stack(ys, 1), carry
+
+
+class ConvLSTM(_GatedScan):
+    """x (V, S, H, W, C), state (V, 2, H, W, C) = (h, c) -> (ys, new state).
+
+        [i, f, o, g] = conv([x_t, h_{t-1}], W), in that channel order
+        c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
+        h_t = sigmoid(o) * tanh(c_t)"""
+
+    gates = 4
+
+    def init_state(self, height: int, width: int, n_videos: int = 1,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.zeros(n_videos, 2, height, width, self.hidden_dim, dtype=dtype,
+                           device=device)
+
+    def step(self, gates, carry):
+        ci, cf, co, cg = gates.chunk(4, dim=1)
+        c = torch.sigmoid(cf) * carry[1] + torch.sigmoid(ci) * torch.tanh(cg)
+        h = torch.sigmoid(co) * torch.tanh(c)
+        return (h, c), h
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        ys, (h, c) = self.scan(x, (state[:, 0].permute(0, 3, 1, 2),
+                                   state[:, 1].permute(0, 3, 1, 2)))
+        return ys, torch.stack([h.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)], 1)
+
+
+class ConvSimGRU(_GatedScan):
+    """x (V, S, H, W, C), state (V, H, W, C) -> (ys, h_last).
+
+        [i, g] = conv([x_t, h_{t-1}], W)
+        h_t = sigmoid(i) * tanh(g) + (1 - sigmoid(i)) * h_{t-1}"""
+
+    gates = 2
+
+    def init_state(self, height: int, width: int, n_videos: int = 1,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.zeros(n_videos, height, width, self.hidden_dim, dtype=dtype, device=device)
+
+    def step(self, gates, carry):
+        ci, cg = gates.chunk(2, dim=1)
+        i = torch.sigmoid(ci)
+        h = i * torch.tanh(cg) + (1.0 - i) * carry[0]
+        return (h,), h
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        ys, (h,) = self.scan(x, (state.permute(0, 3, 1, 2),))
+        return ys, h.permute(0, 2, 3, 1)
+
+
+class _EvalDWBlock(DWBlock):
+    """A DWBlock that stays in eval form: `train(True)` leaves it in eval
+    mode, so its BatchNorms always normalize with their running stats,
+    which never move. The JAX `_TWADWCell` calls its gate block with
+    `train=False`, also while the model trains."""
+
+    def train(self, mode: bool = True):
+        return super().train(False)
+
+
+class _TWADWCell(nn.Module):
+    def __init__(self, hidden_dim: int):
+        super().__init__()
+        self.rnn_conv = _EvalDWBlock(2 * hidden_dim, hidden_dim, 3, expand_ratio=4,
+                                     res_connect=False)
+
+
+class ConvTWADW(nn.Module):
+    """TWA with a depthwise-separable gate: x (V, S, H, W, C), state
+    (V, H, W, C) -> (ys, h_last).
+
+        i_t = sigmoid(DWBlock(concat([x_t, h_{t-1}])))   (2C -> C, expand 4)
+        h_t = i_t * x_t + (1 - i_t) * h_{t-1}
+
+    The block's expand conv is not separable across the concat, so the
+    whole block runs every frame. Its BatchNorms are always in eval form
+    (`_EvalDWBlock`)."""
+
+    def __init__(self, hidden_dim: int = 256):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.cell_list = nn.ModuleList([_TWADWCell(hidden_dim)])
+
+    def init_state(self, height: int, width: int, n_videos: int = 1,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.zeros(n_videos, height, width, self.hidden_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        gate_block = self.cell_list[0].rnn_conv
+        h = state.permute(0, 3, 1, 2)
+        ys = []
+        for t in range(x.shape[1]):
+            x_t = x[:, t].permute(0, 3, 1, 2)
+            gate = torch.sigmoid(gate_block(laid_out_as(torch.cat([x_t, h], 1), x_t)))
+            h = gate * x_t + (1.0 - gate) * h
+            ys.append(h.permute(0, 2, 3, 1))
+        return torch.stack(ys, 1), ys[-1]

@@ -1,13 +1,19 @@
-"""UAVSal, the full stateful video saliency model (counterpart of
-`iip_uavsal_saliency_tpu/models/uavsal.py::UAVSal`), and `init_uavsal`, its
-initialization from scratch.
+"""UAVSal, the full stateful video saliency model, and the ablation zoo
+(counterparts of `iip_uavsal_saliency_tpu/models/uavsal.py`: `UAVSal`,
+the 8 other `MODEL_ZOO` classes, `build_model`), and `init_model`, the
+initialization of any of them from scratch.
 
-trunk (SRF-Net -> STBlocks -> fuse DWBlock) -> MultiPriors -> ConvTWA ->
-1-channel DWBlock head -> sigmoid, with the JAX model's knobs: the backbone
-(`cnn_type`, and `s2d_stem` for MobileNetV2), the number of STBlocks
-(`num_stblock`) and the prior streams (`bias_type` = (gauss, ob, context),
-each 0 or 1). The flagship is MobileNetV2, 2 STBlocks and all three
-streams.
+UAVSal is trunk (SRF-Net -> STBlocks -> fuse DWBlock) -> MultiPriors ->
+ConvTWA -> 1-channel DWBlock head -> sigmoid, with the JAX model's knobs:
+the backbone (`cnn_type`, and `s2d_stem` for MobileNetV2), the number of
+STBlocks (`num_stblock`) and the prior streams (`bias_type` = (gauss, ob,
+context), each 0 or 1). The flagship is MobileNetV2, 2 STBlocks and all
+three streams. The ablations keep the trunk and swap or drop a part (the
+reference's ablation study): the ST stage (`UAVSalSpConv`: DWBlocks,
+`UAVSalTeConv`: temporal branches only, `UAVSalSTBlocksType`: another
+ordering of the branches, `UAVSalSTC3D`/`UAVSalSTC23D`: 3-D convs), the
+recurrence (`UAVSalLSTM`: ConvLSTM; `UAVSalMP`: none) or the priors and
+the recurrence both (`UAVSalSTBlocks`, the others but `UAVSalLSTM`).
 
 The submodules carry the reference's state_dict names (`sfnet`,
 `st_layer.{i}`, `fust_layer.0`, `gauss_cb_layer.{j}`, `ob_cb_layer.{j}`,
@@ -16,21 +22,31 @@ The submodules carry the reference's state_dict names (`sfnet`,
 are methods here (`trunk`, `multi_priors`) rather than nested modules. A
 prior stream that is off has no layers, and with all three off neither
 has `fucb_layer` nor `fucbst_layer`, as in the JAX model.
+
+Call signatures are the JAX classes': UAVSal and UAVSalLSTM take (V, S,
+H, W, 3) frames, the priors and the carried state and return (saliency
+(V, S, H/8, W/8, 1), new state); UAVSalMP takes (S, H, W, 3) frames and
+the priors; the others (S, H, W, 3) frames alone; those return (S, H/8,
+W/8, 1) (UAVSalSTBlocks with the trunk's (S, H/8, W/8, 256) features).
+`models/adapters.py` gives them all UAVSal's interface. Where the JAX
+classes set `diff_group` (and UAVSalMP `compat_cxt_tile`) as fields that
+the adapter clones, these take them as arguments of `forward`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.initializers import kaiming_normal_, lecun_normal_
+from ..ops.initializers import kaiming_normal_, lecun_normal_, xavier_uniform_
 from ..ops.layers import BatchNorm, DWBlock, laid_out_as
 from ..ops.resize import resize_bilinear_align_corners
-from .recurrent import ConvTWA
+from .recurrent import ConvLSTM, ConvTWA
 from .srfnet import SRFNet
-from .stblock import STBlock
+from .stblock import ST_TYPES, STC23D, STC3D, STBlock, TeConvSub
 
 PLANES = 256
 NUM_STBLOCK = 2
@@ -39,7 +55,7 @@ NB_OB = 20
 CB_OUPLANES = (64, 64, 64)
 # the modules whose conv kernels the JAX package draws with kaiming fan_in
 # (ConvBNAct's default; VGG16's plain convs take flax's lecun_normal); every
-# other conv takes fan_out (its `_FAN_OUT`)
+# other conv takes fan_out (its `_FAN_OUT`) but ConvLSTM's gate (xavier_uniform)
 FAN_IN_PREFIXES = ("sfnet.features.", "gauss_cb_layer.", "ob_cb_layer.", "cxt_cb_prior.",
                    "fucb_layer.", "fucbst_layer.")
 
@@ -49,41 +65,49 @@ def _prior_nchw(prior: torch.Tensor) -> torch.Tensor:
     return prior.permute(2, 0, 1).unsqueeze(0)
 
 
-class UAVSal(nn.Module):
-    """forward(x, gauss_prior, ob_prior, state) -> (saliency, new_state)
+def _frames_nchw(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) frames -> an (N, 3, H, W) view whose memory stays
+    channels-last."""
+    return x.permute(0, 3, 1, 2)
 
-    The module's `training` flag is the JAX model's `train`: BatchNorm takes
-    batch statistics and moves its running stats, and MultiPriors runs its
-    train form.
 
-    x           : (V, S, H, W, 3) normalized frames, S % time_dims == 0
-    gauss_prior : (H/8, W/8, 8), or None when bias_type[0] == 0
-    ob_prior    : (H/8, W/8, 20), or None when bias_type[1] == 0
-    state       : (V, H/8, W/8, 256) carried TWA hidden state
-    saliency    : (V, S, H/8, W/8, 1)
+class _Zoo(nn.Module):
+    """What the zoo's models share: the configuration, SRF-Net
+    (`sfnet`), and the methods over the parts a model builds: `trunk`
+    (`sfnet` -> `st_layer` -> `fust_layer`), `multi_priors` (the prior
+    streams) and `head` (`conv_out_st` and the sigmoid). `model_name` is
+    the class's `MODEL_ZOO` name."""
 
-    `fused_dwblock=True` switches `use_kernel` on for every DWBlock of the
-    model; each block then runs as one fused kernel call (K2 on the card)
-    wherever `ops/dwblock.py::supports_fused_dwblock` admits it, and as
-    three convs elsewhere. Off by default, as in the JAX package.
-    """
+    model_name = ""
 
-    def __init__(self, time_dims: int = 5, fused_dwblock: bool = False,
-                 cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
-                 bias_type: Sequence[int] = (1, 1, 1), s2d_stem: bool = False):
+    def __init__(self, cnn_type: str, time_dims: Optional[int], num_stblock: int,
+                 s2d_stem: bool = False):
         super().__init__()
         self.time_dims = time_dims
         self.cnn_type = cnn_type.lower()
         self.num_stblock = num_stblock
-        self.bias_type = tuple(int(bool(b)) for b in bias_type)
         self.s2d_stem = s2d_stem
-        planes = PLANES
-        use_gauss, use_ob, use_cxt = self.bias_type
-
         self.sfnet = SRFNet(self.cnn_type, s2d_stem)
-        self.st_layer = nn.ModuleList(
-            [STBlock(planes, planes, reduction=planes // 32) for _ in range(num_stblock)])
-        self.fust_layer = nn.Sequential(DWBlock(planes, planes, 3))
+
+    def _add_trunk(self, block) -> None:
+        """`st_layer` of `num_stblock` blocks made by `block()`, and
+        `fust_layer`."""
+        self.st_layer = nn.ModuleList([block() for _ in range(self.num_stblock)])
+        self.fust_layer = nn.Sequential(DWBlock(PLANES, PLANES, 3))
+
+    def _st_block(self, block_cls):
+        """A maker of `block_cls` as the JAX `_Trunk` builds it: 256 -> 256
+        with the identity residual, and a temporal width of 256 / 8 where it
+        has a temporal branch; the 3-D blocks take `time_dims` instead."""
+        if block_cls in (STC3D, STC23D):
+            return functools.partial(block_cls, PLANES, PLANES, self.time_dims)
+        return functools.partial(block_cls, PLANES, PLANES, reduction=PLANES // 32)
+
+    def _add_priors(self, bias_type: Sequence[int]) -> None:
+        """The prior streams that `bias_type` switches on, and with any on
+        `fucb_layer` and `fucbst_layer`."""
+        self.bias_type = tuple(int(bool(b)) for b in bias_type)
+        use_gauss, use_ob, use_cxt = self.bias_type
         self.gauss_cb_layer = nn.ModuleList(
             [DWBlock(NB_GAUSSIAN, CB_OUPLANES[0]),
              DWBlock(CB_OUPLANES[0], CB_OUPLANES[0])]) if use_gauss else None
@@ -91,26 +115,15 @@ class UAVSal(nn.Module):
             [DWBlock(NB_OB, CB_OUPLANES[1]),
              DWBlock(CB_OUPLANES[1], CB_OUPLANES[1])]) if use_ob else None
         self.cxt_cb_prior = nn.ModuleList(
-            [DWBlock(planes, CB_OUPLANES[2], stride=2),
+            [DWBlock(PLANES, CB_OUPLANES[2], stride=2),
              DWBlock(CB_OUPLANES[2], CB_OUPLANES[2], stride=2)]) if use_cxt else None
         if any(self.bias_type):
             width = sum(c for c, on in zip(CB_OUPLANES, self.bias_type) if on)
-            self.fucb_layer = nn.Sequential(DWBlock(width, planes // 4))
-            self.fucbst_layer = nn.Sequential(DWBlock(planes + planes // 4, planes))
-        self.rnn = ConvTWA(planes)
-        self.conv_out_st = DWBlock(planes, 1, 3)
-        if fused_dwblock:
-            for module in self.modules():
-                if isinstance(module, DWBlock):
-                    module.use_kernel = True
-
-    def init_state(self, height: int, width: int, n_videos: int = 1,
-                   dtype=torch.float32, device=None) -> torch.Tensor:
-        """Zero TWA state for inputs of (height, width) pixels."""
-        return self.rnn.init_state(height // 8, width // 8, n_videos, dtype, device)
+            self.fucb_layer = nn.Sequential(DWBlock(width, PLANES // 4))
+            self.fucbst_layer = nn.Sequential(DWBlock(PLANES + PLANES // 4, PLANES))
 
     def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
-        """SRF-Net -> STBlocks -> fuse DWBlock over (N, 3, H, W) frames."""
+        """SRF-Net -> ST blocks -> fuse DWBlock over (N, 3, H, W) frames."""
         x = self.sfnet(x)
         for block in self.st_layer:
             x = block(x, diff_group)
@@ -165,34 +178,247 @@ class UAVSal(nn.Module):
             x_cb = tile(x_cb) if use_cxt else x_cb.expand(s, -1, -1, -1)
         return self.fucbst_layer(torch.cat([x, laid_out_as(x_cb, x)], dim=1))
 
+    def head(self, feats: torch.Tensor) -> torch.Tensor:
+        """(N, 256, Ho, Wo) features -> saliency (N, Ho, Wo, 1)."""
+        return torch.sigmoid(self.conv_out_st(feats)).permute(0, 2, 3, 1)
+
+    def _check_clip(self, s: int) -> None:
+        if s % self.time_dims:
+            raise ValueError(f"S={s} is not a multiple of time_dims={self.time_dims}")
+
+
+class _Stateful(_Zoo):
+    """UAVSal and UAVSalLSTM: trunk -> MultiPriors -> a recurrence `rnn`
+    over (V, S, Ho, Wo, 256) -> head, on (V, S, H, W, 3) frames with the
+    carried state. `compat_cxt_tile` holds for one video: with V > 1 the
+    context is tiled frame-aligned and the temporal differences are bounded
+    per video, as in the JAX classes."""
+
+    compat_cxt_tile = True
+
     def forward(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
                 ob_prior: Optional[torch.Tensor],
                 state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         v, s, h, w, c = x.shape
-        if s % self.time_dims:
-            raise ValueError(f"S={s} is not a multiple of time_dims={self.time_dims}")
-        # (V*S, 3, H, W) view whose memory stays channels-last
-        frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
-        feats = self.trunk(frames, diff_group=s if v > 1 else None)
-        feats = self.multi_priors(feats, gauss_prior, ob_prior, compat_cxt_tile=v == 1)
+        self._check_clip(s)
+        feats = self.trunk(_frames_nchw(x.reshape(v * s, h, w, c)),
+                           diff_group=s if v > 1 else None)
+        feats = self.multi_priors(feats, gauss_prior, ob_prior,
+                                  compat_cxt_tile=self.compat_cxt_tile and v == 1)
         ho, wo = feats.shape[-2], feats.shape[-1]
         seq = feats.permute(0, 2, 3, 1).reshape(v, s, ho, wo, PLANES)
         ys, new_state = self.rnn(seq, state)
-        out = self.conv_out_st(ys.reshape(v * s, ho, wo, PLANES).permute(0, 3, 1, 2))
-        return torch.sigmoid(out).permute(0, 2, 3, 1).reshape(v, s, ho, wo, 1), new_state
+        out = self.head(_frames_nchw(ys.reshape(v * s, ho, wo, PLANES)))
+        return out.reshape(v, s, ho, wo, 1), new_state
+
+    def init_state(self, height: int, width: int, n_videos: int = 1,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+        """Zero recurrent state for inputs of (height, width) pixels."""
+        return self.rnn.init_state(height // 8, width // 8, n_videos, dtype, device)
 
 
-def init_uavsal(model: UAVSal, generator: torch.Generator) -> UAVSal:
-    """Initialize `model` from scratch, in place, as the JAX package's
-    `init_variables` does layer by layer: every conv kernel kaiming-normal
-    with fan_in in the backbone (MobileNetV2, ResNet) and the prior streams
-    and fan_out elsewhere (the SRF-Net neck, the STBlocks, the fuse block,
-    the TWA gate and the head); VGG16's convs as flax's plain `nn.Conv`
-    draws them, `lecun_normal` kernels and zero biases; BatchNorm scale 1,
-    bias 0, running mean 0 and var 1. The draws come from `generator` (a
-    CPU generator for a model on the CPU), in the order of
-    `named_parameters`."""
-    vgg = model.cnn_type == "vgg16"
+class UAVSal(_Stateful):
+    """forward(x, gauss_prior, ob_prior, state) -> (saliency, new_state)
+
+    The module's `training` flag is the JAX model's `train`: BatchNorm takes
+    batch statistics and moves its running stats, and MultiPriors runs its
+    train form.
+
+    x           : (V, S, H, W, 3) normalized frames, S % time_dims == 0
+    gauss_prior : (H/8, W/8, 8), or None when bias_type[0] == 0
+    ob_prior    : (H/8, W/8, 20), or None when bias_type[1] == 0
+    state       : (V, H/8, W/8, 256) carried TWA hidden state
+    saliency    : (V, S, H/8, W/8, 1)
+
+    `fused_dwblock=True` switches `use_kernel` on for every DWBlock of the
+    model; each block then runs as one fused kernel call (K2 on the card)
+    wherever `ops/dwblock.py::supports_fused_dwblock` admits it, and as
+    three convs elsewhere. Off by default, as in the JAX package.
+    """
+
+    model_name = "uavsal"
+
+    def __init__(self, time_dims: int = 5, fused_dwblock: bool = False,
+                 cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
+                 bias_type: Sequence[int] = (1, 1, 1), s2d_stem: bool = False):
+        super().__init__(cnn_type, time_dims, num_stblock, s2d_stem)
+        self._add_trunk(self._st_block(STBlock))
+        self._add_priors(bias_type)
+        self.rnn = ConvTWA(PLANES)
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        if fused_dwblock:
+            for module in self.modules():
+                if isinstance(module, DWBlock):
+                    module.use_kernel = True
+
+
+class UAVSalLSTM(_Stateful):
+    """UAVSal with a ConvLSTM for the TWA cell: the same call, a state of
+    (V, 2, H/8, W/8, 256) (h and c)."""
+
+    model_name = "uavsal_lstm"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK, bias_type: Sequence[int] = (1, 1, 1),
+                 compat_cxt_tile: bool = True):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self.compat_cxt_tile = compat_cxt_tile
+        self._add_trunk(self._st_block(STBlock))
+        self._add_priors(bias_type)
+        self.rnn = ConvLSTM(PLANES)
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+
+class _Stateless(_Zoo):
+    """Trunk -> head over (S, H, W, 3) frames -> (S, H/8, W/8, 1)."""
+
+    def forward(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
+        return self.head(self.trunk(_frames_nchw(x), diff_group))
+
+
+class UAVSalSpConv(_Stateless):
+    """Sp-Net: the ST blocks are plain DWBlocks with the identity residual
+    (`st_layer.{i}` is the block itself). No temporal op: `diff_group` is
+    taken and not needed."""
+
+    model_name = "uavsal_spconv"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK):
+        super().__init__(cnn_type, None, num_stblock)  # no temporal op, no time_dims
+        self._add_trunk(functools.partial(DWBlock, PLANES, PLANES, 3, res_connect=True))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+    def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
+        x = self.sfnet(x)
+        for block in self.st_layer:
+            x = block(x)
+        return self.fust_layer(x)
+
+
+class UAVSalTeConv(_Stateless):
+    """Te-Net: the ST blocks are temporal branches alone (`TeConvSub` with
+    the identity residual; `st_layer.{i}` is the branch itself)."""
+
+    model_name = "uavsal_teconv"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self._add_trunk(functools.partial(TeConvSub, PLANES, PLANES, PLANES // 32,
+                                          res_connect=True))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+
+class UAVSalSTBlocks(_Stateless):
+    """ST-Net: the trunk and the head, no priors, no recurrence. Returns
+    (saliency, the trunk's features (S, H/8, W/8, 256))."""
+
+    model_name = "uavsal_stblocks"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self._add_trunk(self._st_block(STBlock))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+    def forward(self, x: torch.Tensor,
+                diff_group: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.trunk(_frames_nchw(x), diff_group)
+        return self.head(feats), feats.permute(0, 2, 3, 1)
+
+
+class UAVSalSTBlocksType(_Stateless):
+    """ST-Net with the branches in the order `st_type` names (`ST_TYPES`:
+    "st" parallel, "s2t", "t2s", "s_s2t")."""
+
+    model_name = "uavsal_stblocks_type"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK, st_type: str = "st"):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self.st_type = st_type
+        self._add_trunk(self._st_block(ST_TYPES[st_type]))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+
+class UAVSalSTC3D(_Stateless):
+    """The ST blocks are one 3x3x3 ConvBNAct3D each (`STC3D`), over runs of
+    `time_dims` frames, which never cross videos: `diff_group` is taken and
+    not needed."""
+
+    model_name = "uavsal_stc3d"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self._add_trunk(self._st_block(STC3D))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+
+class UAVSalSTC23D(_Stateless):
+    """The ST blocks are parallel 2-D and 3-D convs (`STC23D`), as
+    `UAVSalSTC3D` for the videos."""
+
+    model_name = "uavsal_stc2_3d"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self._add_trunk(self._st_block(STC23D))
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+
+class UAVSalMP(_Zoo):
+    """MP-Net: the trunk, MultiPriors and the head, no recurrence, over
+    (S, H, W, 3) frames: forward(x, gauss_prior, ob_prior, diff_group=None,
+    compat_cxt_tile=None) -> (S, H/8, W/8, 1). `compat_cxt_tile` None is
+    the model's own (the reference's t-major tile by default)."""
+
+    model_name = "uavsal_mp"
+
+    def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
+                 num_stblock: int = NUM_STBLOCK, bias_type: Sequence[int] = (1, 1, 1),
+                 compat_cxt_tile: bool = True):
+        super().__init__(cnn_type, time_dims, num_stblock)
+        self.compat_cxt_tile = compat_cxt_tile
+        self._add_trunk(self._st_block(STBlock))
+        self._add_priors(bias_type)
+        self.conv_out_st = DWBlock(PLANES, 1, 3)
+
+    def forward(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
+                ob_prior: Optional[torch.Tensor], diff_group: Optional[int] = None,
+                compat_cxt_tile: Optional[bool] = None) -> torch.Tensor:
+        self._check_clip(x.shape[0])
+        tile = self.compat_cxt_tile if compat_cxt_tile is None else compat_cxt_tile
+        feats = self.multi_priors(self.trunk(_frames_nchw(x), diff_group), gauss_prior,
+                                  ob_prior, tile)
+        return self.head(feats)
+
+
+MODEL_ZOO = {cls.model_name: cls for cls in (
+    UAVSal, UAVSalSpConv, UAVSalTeConv, UAVSalSTBlocks, UAVSalSTBlocksType, UAVSalSTC3D,
+    UAVSalSTC23D, UAVSalMP, UAVSalLSTM)}
+
+
+def build_model(name: str = "uavsal", **kwargs) -> nn.Module:
+    """The `MODEL_ZOO` class of `name` (a KeyError for any other name)."""
+    return MODEL_ZOO[name.lower()](**kwargs)
+
+
+def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialize any model of the zoo (or a part of one) from scratch, in
+    place, as the JAX package's `init_variables` does layer by layer:
+    every conv kernel kaiming-normal with fan_in in the backbone
+    (MobileNetV2, ResNet) and the prior streams and fan_out elsewhere (the
+    SRF-Net neck, the ST blocks and their 3-D convs, the fuse block, the
+    TWA and SimGRU gates, ConvTWADW's gate block and the head); ConvLSTM's
+    gate xavier-uniform; VGG16's convs as flax's plain `nn.Conv` draws
+    them, `lecun_normal` kernels and zero biases; BatchNorm scale 1, bias
+    0, running mean 0 and var 1. The draws come from `generator` (a CPU
+    generator for a model on the CPU), in the order of `named_parameters`."""
+    vgg = getattr(model, "cnn_type", None) == "vgg16"
+    xavier = {id(m.cell_list[0].rnn_conv.weight) for m in model.modules()
+              if isinstance(m, ConvLSTM)}
     for name, p in model.named_parameters():
         if vgg and name.startswith("sfnet.features."):
             if p.dim() == 4:
@@ -200,7 +426,9 @@ def init_uavsal(model: UAVSal, generator: torch.Generator) -> UAVSal:
             else:
                 with torch.no_grad():
                     p.zero_()
-        elif p.dim() == 4:
+        elif id(p) in xavier:
+            xavier_uniform_(p, generator=generator)
+        elif p.dim() >= 4:
             mode = "fan_in" if name.startswith(FAN_IN_PREFIXES) else "fan_out"
             kaiming_normal_(p, mode=mode, generator=generator)
     with torch.no_grad():

@@ -8,18 +8,20 @@ affine, so it folds into the preceding conv:
   port's modules. Each conv gains a bias and its BatchNorm becomes an
   identity, so a step runs one pass per conv. It folds every pair that
   the JAX `fold_batchnorm` folds: the ConvBNAct-style `nn.Sequential`s
-  (the S2D stem among them, and ResNet's `downsample`) and the pairs a
-  module names in `conv_bn_pairs` (ResNet's `conv{k}`/`bn{k}` and its
-  stem). VGG16's convs, which carry a bias and no BatchNorm, stay as they
-  are.
+  (the S2D stem among them, ResNet's `downsample`, and `ConvBNAct3D`'s
+  Conv3d) and the pairs a module names in `conv_bn_pairs` (ResNet's
+  `conv{k}`/`bn{k}` and its stem). VGG16's convs, which carry a bias and
+  no BatchNorm, stay as they are.
 - `looks_folded(state_dict)`: whether weights carry that fold's signature.
 - `fold_batchnorm(variables)`: own copy of the JAX package's
   `ops/fold.py::fold_batchnorm` on the numpy variable tree, for trees
-  handed to other tools. Every Conv+BN pair (`{conv: {kernel}, bn: ...}` and a DWBlock's
-`{project, project_bn}`) gets its HWIO kernel pre-scaled and its BN reduced
-to an identity plus bias (mean 0, var 1, scale sqrt(1 + eps)). The tree
-keeps its structure, so folded and unfolded variables load into the same
-model. Do not train on folded variables.
+  handed to other tools. Every Conv+BN pair (`{conv: {kernel}, bn: ...}`,
+  the kernel HWIO or, for `ConvBNAct3D`, DHWIO, and a DWBlock's
+  `{project, project_bn}`) gets its kernel pre-scaled on its last
+  (output) axis and its BN reduced to an identity plus bias (mean 0, var
+  1, scale sqrt(1 + eps)). The tree keeps its structure, so folded and
+  unfolded variables load into the same model. Do not train on folded
+  variables.
 """
 
 from __future__ import annotations
@@ -106,7 +108,8 @@ def looks_folded(state_dict, eps: float = BN_EPS) -> bool:
 
 @torch.no_grad()
 def fold_conv_bn(model: nn.Module) -> None:
-    """Fold every BatchNorm that follows a Conv2d into that conv, in place:
+    """Fold every BatchNorm that follows a Conv2d or Conv3d into that conv,
+    in place:
     W' = W * s, bias' = b (+ W's old bias * s), and the BatchNorm becomes an
     identity. The pairs are the neighbours of an nn.Sequential and the
     (conv name, BatchNorm name) pairs of a module's `conv_bn_pairs`."""
@@ -116,11 +119,11 @@ def fold_conv_bn(model: nn.Module) -> None:
             pairs += [(str(i), str(i + 1)) for i in range(len(module) - 1)]
         for conv_name, bn_name in pairs:
             conv, bn = module._modules[conv_name], module._modules[bn_name]
-            if not (isinstance(conv, nn.Conv2d) and isinstance(bn, BatchNorm)):
+            if not (isinstance(conv, (nn.Conv2d, nn.Conv3d)) and isinstance(bn, BatchNorm)):
                 continue
             s, b = bn.affine()
             w = conv.weight.to(s.dtype)
             bias = b if conv.bias is None else b + conv.bias.to(s.dtype) * s
-            conv.weight.copy_((w * s.view(-1, 1, 1, 1)).to(conv.weight.dtype))
+            conv.weight.copy_((w * s.view((-1,) + (1,) * (w.dim() - 1))).to(conv.weight.dtype))
             conv.bias = nn.Parameter(bias.to(conv.weight.dtype), requires_grad=False)
             setattr(module, bn_name, nn.Identity())

@@ -10,6 +10,9 @@ Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
   `dilation * (k - 1) // 2` padding. The JAX package computes the ASPP
   rate-18 depthwise conv as an exact pad-add sum; here it is the same
   dilated depthwise conv.
+- `ConvBNAct3D` == ConvBNAct3D: Conv3d(bias=False) -> BatchNorm -> ReLU6
+  over (N, C, T, H, W), the same padding on all three axes (the 3-D
+  ablation blocks).
 - `S2DStem` == S2DStem: the 3x3 stride-2 stem computed exactly as a 2x2
   conv over the 2x2 space-to-depth input (`space_to_depth`), with the
   plain stem's weights and keys.
@@ -38,19 +41,41 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's convention, new = m * old + (1 - m) * batch (torch's 0.1)
 
 
+def channels_last_format(t: torch.Tensor) -> torch.memory_format:
+    """The channels-last memory format of a tensor of t's rank:
+    `channels_last` for 4-D (N, C, H, W), `channels_last_3d` for 5-D
+    (N, C, T, H, W), else the plain contiguous format."""
+    return {4: torch.channels_last, 5: torch.channels_last_3d}.get(
+        t.dim(), torch.contiguous_format)
+
+
 def laid_out_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """`t` in channels-last memory where `ref` lies so (as activations do on
     the card), else `t` as it is. `cat`, `repeat` and reshapes give up the
     layout; the fused dwBlock kernel needs it and cuDNN is faster with it."""
-    if ref.is_contiguous(memory_format=torch.channels_last) and not ref.is_contiguous():
-        return t.contiguous(memory_format=torch.channels_last)
+    if ref.is_contiguous(memory_format=channels_last_format(ref)) and not ref.is_contiguous():
+        return t.contiguous(memory_format=channels_last_format(t))
     return t
 
 
+def to_channels_last(model: nn.Module, device=None) -> nn.Module:
+    """`model` moved to `device` (where given) with every 4-D parameter and
+    buffer in `channels_last` memory and every 5-D one (a Conv3d kernel) in
+    `channels_last_3d`, in place, as `Module.to(memory_format=channels_last)`
+    lays out 4-D ones (it raises on a 5-D tensor). `Tensor.to`, not
+    `contiguous`: a 1x1 or depthwise kernel's default strides already count
+    as channels-last contiguous, but only the canonical ones make cuDNN
+    give channels-last outputs (which the fused dwBlock kernel needs)."""
+    if device is not None:
+        model.to(device)
+    return model._apply(lambda t: t.to(memory_format=channels_last_format(t))
+                        if t.dim() in (4, 5) else t)
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm2d over dim 1 with the torch key layout (`weight`, `bias`,
-    `running_mean`, `running_var`); the module's `training` flag picks the
-    mode.
+    """BatchNorm over dim 1 of a 4-D or 5-D input with the torch key layout
+    (`weight`, `bias`, `running_mean`, `running_var`); the module's
+    `training` flag picks the mode.
 
     Train mode (the JAX package's TorchBatchNorm): the statistics come from
     the batch over N*H*W in at least f32 (bf16 activations are not widened
@@ -83,6 +108,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dt = self.running_mean.dtype
+            layout = channels_last_format(x)
             cpu_channels_last = x.device.type == "cpu" and not x.is_contiguous()
             if cpu_channels_last:
                 # torch's CPU kernel sums a channels-last batch's statistics
@@ -93,9 +119,10 @@ class BatchNorm(nn.Module):
                 x = x.contiguous()
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight.to(dt),
                              self.bias.to(dt), True, 1.0 - BN_MOMENTUM, self.eps)
-            return y.contiguous(memory_format=torch.channels_last) if cpu_channels_last else y
+            return y.contiguous(memory_format=layout) if cpu_channels_last else y
         s, b = self.affine()
-        return torch.addcmul(b.to(x.dtype).view(1, -1, 1, 1), x, s.to(x.dtype).view(1, -1, 1, 1))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return torch.addcmul(b.to(x.dtype).view(shape), x, s.to(x.dtype).view(shape))
 
 
 class ConvBNAct(nn.Sequential):
@@ -113,6 +140,20 @@ class ConvBNAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU6())
         super().__init__(*layers)
+
+
+class ConvBNAct3D(nn.Sequential):
+    """Conv3d(bias=False) -> BatchNorm -> ReLU6 over (N, C, T, H, W), padded
+    by `dilation * (k - 1) // 2` on all three axes; keys `0.weight`, `1.*`."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 dilation: int = 1):
+        pad = dilation * (kernel_size - 1) // 2
+        super().__init__(
+            nn.Conv3d(in_ch, out_ch, kernel_size, stride, pad, dilation, bias=False),
+            BatchNorm(out_ch),
+            nn.ReLU6(),
+        )
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:

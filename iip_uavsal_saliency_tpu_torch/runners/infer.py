@@ -2,8 +2,9 @@
 `iip_uavsal_saliency_tpu/runners/infer.py`).
 
 - `load_model_for_inference`: a `.ckpt` path or a JAX variables tree ->
-  `UAVSal` with BatchNorm folded into the convs (the serving default), on
-  the device.
+  the zoo model of `model_name` (`UAVSal`, `UAVSalLSTM`, or another
+  behind its `ZooModelAdapter`) with BatchNorm folded into the convs (the
+  serving default), on the device.
 - `test_videos`: every video of a directory to a `.mat` file
   `{'salmap': (H, W, 1, T) uint8}` at its native size; resumable (a video
   whose `.mat` exists is skipped), group g+1 decoded on a worker thread
@@ -41,9 +42,10 @@ from ..data.matio import savemat
 from ..data.priors import get_gauss_priors, get_ob_priors
 from ..data.video import preprocess_videos
 from ..device import resolve_device
+from ..models.adapters import build_adapted_model
 from ..models.convert import from_jax_variables, table_of
-from ..models.uavsal import UAVSal
 from ..ops.fold import fold_conv_bn
+from ..ops.layers import to_channels_last
 from ..serving.steps import graph_step, make_baked_infer_step
 from ..training.checkpoint import load_checkpoint
 from ..utils.logging import get_logger
@@ -63,29 +65,43 @@ def load_model_for_inference(
     num_stblock: int = 2,
     bias_type: Sequence[int] = (1, 1, 1),
     s2d_stem: bool = False,
-) -> UAVSal:
-    """The `uavsal` model of this configuration in eval form on `device`
-    (CUDA by default).
+    model_name: str = "uavsal",
+    st_type: str = "st",
+) -> torch.nn.Module:
+    """The zoo model `model_name` of this configuration in eval form on
+    `device` (CUDA by default): `UAVSal` for "uavsal", `UAVSalLSTM` for
+    "uavsal_lstm", else the model behind a `ZooModelAdapter`
+    (`build_adapted_model(filter_kwargs=True)`: each class takes the keywords it has; `st_type` is read by
+    `uavsal_stblocks_type` alone), as the JAX loader builds it.
 
     Loads an unfolded tree or one the JAX package folded alike, through the
-    configuration's own bridge table. `fold_bn` folds every BatchNorm into
-    the conv before it (`ops/fold.py::fold_conv_bn`), as serving does by
-    default. `fused_dwblock` serves every DWBlock the fused kernel takes
-    through it (`UAVSal(fused_dwblock=True)`). `s2d_stem` (MobileNetV2
-    only) computes the stem as its space-to-depth form from the same
-    weights."""
+    model's own bridge table. `fold_bn` folds every BatchNorm into the conv
+    before it (`ops/fold.py::fold_conv_bn`, 3-D convs included), as serving
+    does by default. `fused_dwblock` serves every DWBlock the fused kernel
+    takes through it (`UAVSal(fused_dwblock=True)`). `s2d_stem`
+    (MobileNetV2 only) computes the stem as its space-to-depth form from
+    the same weights. Both are the flagship's: another `model_name` with
+    either raises NotImplementedError, as the JAX loader refuses
+    `s2d_stem` there (the JAX zoo has no fused dwBlock path)."""
+    if model_name.lower() != "uavsal" and (s2d_stem or fused_dwblock):
+        raise NotImplementedError(
+            f"s2d_stem and fused_dwblock are only implemented for the flagship 'uavsal' "
+            f"model (got model_name={model_name!r})")
     device = resolve_device(device)
+    # built first: an unknown name raises KeyError before any file is read
+    model = build_adapted_model(model_name, filter_kwargs=True, time_dims=time_dims,
+                                cnn_type=cnn_type, num_stblock=num_stblock,
+                                bias_type=bias_type, st_type=st_type,
+                                fused_dwblock=fused_dwblock, s2d_stem=s2d_stem)
     if isinstance(model_path_or_variables, (str, os.PathLike)):
         tree = load_checkpoint(os.fspath(model_path_or_variables))
     else:
         tree = model_path_or_variables
-    model = UAVSal(time_dims=time_dims, fused_dwblock=fused_dwblock, cnn_type=cnn_type,
-                   num_stblock=num_stblock, bias_type=bias_type, s2d_stem=s2d_stem)
     model.load_state_dict(from_jax_variables(tree, table_of(model)), strict=True)
     model.eval().requires_grad_(False)
     if fold_bn:
         fold_conv_bn(model)
-    return model.to(device, memory_format=torch.channels_last)
+    return to_channels_last(model, device)
 
 
 def run_group(step, videos: Sequence[np.ndarray], clip_len: int, state: torch.Tensor,
@@ -191,7 +207,7 @@ def run_group(step, videos: Sequence[np.ndarray], clip_len: int, state: torch.Te
     return results, state
 
 
-def _serve_group(step, model: UAVSal, members: Sequence[np.ndarray],
+def _serve_group(step, model: torch.nn.Module, members: Sequence[np.ndarray],
                 native_sizes: Sequence[Tuple[int, int]], clip_len: int,
                 pad_to: int) -> List[np.ndarray]:
     """One group through `run_group` from a zero state (in the model's
@@ -209,7 +225,7 @@ def _serve_group(step, model: UAVSal, members: Sequence[np.ndarray],
 
 def predict_videos(
     step,
-    model: UAVSal,
+    model: torch.nn.Module,
     videos: Sequence[np.ndarray],
     native_sizes: Sequence[Tuple[int, int]],
     batch_size: int = 4,
@@ -240,7 +256,7 @@ def predict_videos(
 def test_videos(
     input_path: str,
     output_path: str,
-    model: UAVSal,
+    model: torch.nn.Module,
     iosize: Tuple[int, int, int, int] = (360, 640, 45, 80),
     batch_size: int = 4,
     time_dims: int = 5,
@@ -258,19 +274,22 @@ def test_videos(
     `{'salmap': (H, W, 1, min(T, save_frames))}` uint8 at the video's
     native size, T its decoded frames cut to a multiple of `time_dims`.
 
-    `model` is the port's `UAVSal` as `load_model_for_inference` returns
-    it, on the device to serve on (CUDA unless `device="cpu"` was asked
-    for there); it is taken over as `make_baked_infer_step` says, and cast
-    to `compute_dtype` (None: f32). The Gaussian priors are analytic, the
+    `model` is a zoo model as `load_model_for_inference` returns it, on the
+    device to serve on (CUDA unless `device="cpu"` was asked for there); it
+    is taken over as `make_baked_infer_step` says, and cast to
+    `compute_dtype` (None: f32). The Gaussian priors are analytic, the
     observed ones come from `train_data_dir`'s training split (cached in
     `priors_cache_dir`); only the priors `bias_type` switches on are
-    built, and it must be the model's. A video whose `.mat` exists is
+    built, and it must be the model's where the model has priors (a model
+    without them is served them and ignores them, as in the JAX runner).
+    A video whose `.mat` exists is
     skipped; one shorter than `time_dims` gets an empty (H, W, 1, 0) map.
     Groups of `videos_per_batch` videos are served in lock-step while the
     next group is decoded on a worker thread."""
-    if tuple(int(bool(b)) for b in bias_type) != model.bias_type:
+    model_bias = getattr(model, "bias_type", None)
+    if model_bias is not None and tuple(int(bool(b)) for b in bias_type) != model_bias:
         raise ValueError(f"bias_type={tuple(bias_type)} but the model was built with "
-                         f"{model.bias_type}")
+                         f"{model_bias}")
     if method_name:
         output_path = os.path.join(output_path, method_name)
     os.makedirs(output_path, exist_ok=True)

@@ -17,7 +17,7 @@ from torch import nn
 
 from .. import kernels
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
-from ..ops.layers import DWBlock
+from ..ops.layers import DWBlock, to_channels_last
 
 Step = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -55,15 +55,18 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
     cast once and frozen.
 
     Takes `model` over: it is cast to `compute_dtype` in place with its 4-D
-    weights stored channels-last (and, with the fused dwBlock on, packed
-    for its kernel), and must not be trained or loaded afterwards. Give it a model from `load_model_for_inference`, whose
-    BatchNorms are already folded into the convs. The priors are moved to
-    the model's device and cast once."""
+    weights stored channels-last and its 5-D ones channels-last-3d (and,
+    with the fused dwBlock on, packed for its kernel), and must not be
+    trained or loaded afterwards. Give it a model from
+    `load_model_for_inference` (any zoo name), whose BatchNorms are already
+    folded into the convs. The priors are moved to the model's device and
+    cast once. A model without priors or state is given them and ignores
+    them; its dummy state goes through as it came."""
     device = _model_device(model)
     model.eval().requires_grad_(False)
     if compute_dtype is not None:
         model.to(compute_dtype)
-    model.to(memory_format=torch.channels_last)
+    to_channels_last(model)
     dtype = compute_dtype or torch.float32
     for block in model.modules():
         if isinstance(block, DWBlock) and block.use_kernel:

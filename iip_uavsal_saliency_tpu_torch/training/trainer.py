@@ -16,10 +16,12 @@ single-video path).
 
 The clip loop takes videos as paths (decoded one video ahead on a worker
 thread) or as arrays already decoded (`videos=`), which is how a machine
-without OpenCV or h5py drives it. The model is the `uavsal` of the
-configuration (`cnn_type`, `num_stblock`, `bias_type`, `s2d_stem`); the
-rest of the zoo, several videos per step and `remat` raise
-NotImplementedError naming their ROADMAP item.
+without OpenCV or h5py drives it. The model is the zoo model
+`model_name` of the configuration (`cnn_type`, `num_stblock`, `bias_type`,
+`s2d_stem`, `st_type`; `models/adapters.py::build_adapted_model`, each
+class taking the keywords it has, as the JAX trainer builds it); several
+videos per step and `remat` raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ import torch
 from ..data.lists import read_video_list
 from ..data.priors import get_gauss_priors, get_ob_priors
 from ..device import resolve_device
+from ..models.adapters import build_adapted_model
 from ..models.convert import from_jax_variables, table_of, to_jax_variables
-from ..models.uavsal import UAVSal, init_uavsal
+from ..models.uavsal import init_model
 from ..ops.fold import looks_folded
+from ..ops.layers import to_channels_last
 from ..utils.logging import get_logger
 from ..utils.metrics_log import MetricsLogger
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -85,9 +89,8 @@ class TrainConfig:
     prefetch_decode: bool = True  # decode video k+1 while video k trains
 
 
-# what the port trains (models/uavsal.py), and the ROADMAP item of the rest
-_SUPPORTED = {"model_name": ("uavsal", "A.10"), "st_type": ("st", "A.10"),
-              "videos_per_step": (1, "A.9b"), "remat": (False, "A.9b")}
+# what the port trains, and the ROADMAP item of the rest
+_SUPPORTED = {"videos_per_step": (1, "A.9b"), "remat": (False, "A.9b")}
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -95,9 +98,8 @@ def check_supported(cfg: TrainConfig) -> None:
         value = getattr(cfg, key)
         if value != want:
             raise NotImplementedError(
-                f"{key}={value!r}: the port trains the `uavsal` model with sum-fusion "
-                f"STBlocks, one video per step, without remat ({key}={want!r}); this is "
-                f"ROADMAP {item}")
+                f"{key}={value!r}: the port trains one video per step, without remat "
+                f"({key}={want!r}); this is ROADMAP {item}")
 
 
 def _masked_loss(loss_fn: Callable):
@@ -144,8 +146,9 @@ class Trainer:
     """Train and val epochs with TBPTT over clips, on `device` (CUDA unless
     "cpu" is passed).
 
-    `pre_variables`: a JAX `{params, batch_stats}` tree to start from (warm
-    start); else the weights are drawn by `init_uavsal` from seed 0.
+    `pre_variables`: a JAX `{params, batch_stats}` tree of the model to
+    start from (warm start); else the weights are drawn by `init_model`
+    from seed 0.
     `ob_prior`: the (Ho, Wo, 20) observed-prior map; else it is built from
     the train split as the JAX trainer builds it (neither when `bias_type`
     leaves the stream off). `videos`: {"train": [...],
@@ -167,6 +170,11 @@ class Trainer:
         self.prefix = os.path.join(self.model_dir, config.method_name)
         self.metrics = MetricsLogger(self.model_dir)
 
+        model = build_adapted_model(config.model_name, filter_kwargs=True,
+                                    time_dims=config.time_dims, cnn_type=config.cnn_type,
+                                    num_stblock=config.num_stblock, bias_type=config.bias_type,
+                                    s2d_stem=config.s2d_stem, st_type=config.st_type)
+        self.table = table_of(model)
         _, _, out_r, out_c = config.iosize
         use_gauss, use_ob, _ = config.bias_type
         if use_ob and ob_prior is None:
@@ -176,13 +184,8 @@ class Trainer:
                       if use_gauss else None)
         self.ob = (torch.as_tensor(np.asarray(ob_prior, np.float32)).to(self.device)
                    if use_ob else None)
-
-        model = UAVSal(time_dims=config.time_dims, cnn_type=config.cnn_type,
-                       num_stblock=config.num_stblock, bias_type=config.bias_type,
-                       s2d_stem=config.s2d_stem)
-        self.table = table_of(model)
         if pre_variables is None:
-            init_uavsal(model, torch.Generator().manual_seed(0))
+            init_model(model, torch.Generator().manual_seed(0))
         else:
             sd = from_jax_variables(pre_variables, self.table)
             if looks_folded(sd):
@@ -191,7 +194,7 @@ class Trainer:
                     "the convs); training on them would count the BN scale twice under live "
                     "batch statistics. Load the unfolded checkpoint instead.")
             model.load_state_dict(sd, strict=True)
-        model.to(self.device, memory_format=torch.channels_last)
+        to_channels_last(model, self.device)
         mask = make_frozen_mask(model, config.freeze) if config.freeze else None
         optimizer = make_optimizer(model, config.learning_rate, config.weight_decay,
                                    trainable_mask=mask)
@@ -202,7 +205,7 @@ class Trainer:
         self.eval_step = make_eval_step(model, loss)
 
     @property
-    def model(self) -> UAVSal:
+    def model(self) -> torch.nn.Module:
         return self.state.model
 
     # ------------------------------------------------------------------ #

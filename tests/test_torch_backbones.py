@@ -21,7 +21,7 @@ from iip_uavsal_saliency_tpu.models import backbone as jbackbone
 from iip_uavsal_saliency_tpu.ops import layers as jl
 from iip_uavsal_saliency_tpu_torch.models import backbone as tbackbone
 from iip_uavsal_saliency_tpu_torch.models import convert
-from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
 from iip_uavsal_saliency_tpu_torch.ops import layers as tl
 from iip_uavsal_saliency_tpu_torch.ops.fold import fold_conv_bn
 from test_torch_train_step import few_threads, randomized  # noqa: F401
@@ -144,7 +144,7 @@ def test_build_backbone_refuses_what_the_jax_package_refuses():
 
 @pytest.mark.parametrize("cnn_type", ["resnet18", "vgg16"])
 def test_init_moments_match_jax(cnn_type):
-    """`init_uavsal`'s draws of the backbone against the JAX pyramid's init,
+    """`init_model`'s draws of the backbone against the JAX pyramid's init,
     layer by layer: each kernel's std within 10% of the JAX init's (or 4
     sampling errors on a kernel too small for 10%), means near 0; VGG16's
     biases 0 (flax's default), BatchNorm at ones and zeros. ResNet draws
@@ -158,7 +158,7 @@ def test_init_moments_match_jax(cnn_type):
         jax.jit(_jax_pyramid(cnn_type).init)(jax.random.PRNGKey(1), x)))
     rows = _rows(cnn_type)
     want = convert.from_jax_variables(jv, rows)
-    model = init_uavsal(UAVSal(cnn_type=cnn_type), torch.Generator().manual_seed(0))
+    model = init_model(UAVSal(cnn_type=cnn_type), torch.Generator().manual_seed(0))
     got = {k[len("sfnet.features."):]: t for k, t in model.state_dict().items()
            if k.startswith("sfnet.features.")}
     assert set(got) == set(want)
@@ -175,6 +175,6 @@ def test_init_moments_match_jax(cnn_type):
                 assert g.abs().max().item() <= limit * (1 + 1e-6), k
         else:
             assert torch.equal(g, w), k
-    again = init_uavsal(UAVSal(cnn_type=cnn_type), torch.Generator().manual_seed(0))
+    again = init_model(UAVSal(cnn_type=cnn_type), torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                  again.state_dict().values()))

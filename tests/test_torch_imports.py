@@ -39,6 +39,34 @@ def test_importing_every_port_module_loads_no_jax():
     assert bad == "[]", f"importing the port loaded {bad}"
 
 
+_ZOO_PROBE = """
+import sys
+import torch
+from iip_uavsal_saliency_tpu_torch.models.adapters import build_adapted_model
+from iip_uavsal_saliency_tpu_torch.models.convert import table_of
+from iip_uavsal_saliency_tpu_torch.models.uavsal import MODEL_ZOO
+with torch.device("meta"):
+    models = [build_adapted_model(n, filter_kwargs=True, st_type="s2t") for n in MODEL_ZOO]
+rows = sum(len(table_of(m)) for m in models)
+forbidden = {forbidden!r}
+print(len(models), rows, sorted(m for m in sys.modules if m.split(".")[0] in forbidden))
+"""
+
+
+def test_the_zoo_loads_no_jax():
+    """The zoo's modules (`models/adapters.py`, the blocks and recurrences
+    in `models/stblock.py` and `models/recurrent.py`, the bridge's zoo
+    tables): building every `MODEL_ZOO` model and its table loads no JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _ZOO_PROBE.format(forbidden=FORBIDDEN)],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, rows, bad = out.stdout.strip().split(" ", 2)
+    assert int(count) == 9 and int(rows) > 9 * 300, out.stdout
+    assert bad == "[]", f"building the zoo loaded {bad}"
+
+
 def _sources():
     for dirpath, _, files in os.walk(PORT):
         for f in sorted(files):

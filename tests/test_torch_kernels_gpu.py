@@ -638,6 +638,55 @@ def test_pipelined_runner_graphed_equals_eager(card, seeded_variables, k2):
 
 
 # ---------------------------------------------------------------------------
+# The ablation zoo served: no zoo model but `uavsal` runs K1 or K2
+
+# (model_name, st_type): the 8 other names and the orderings of
+# `uavsal_stblocks_type`
+ZOO_CASES = [(n, "st") for n in ("uavsal_spconv", "uavsal_teconv", "uavsal_stblocks",
+                                 "uavsal_stblocks_type", "uavsal_stc3d", "uavsal_stc2_3d",
+                                 "uavsal_mp", "uavsal_lstm")] + [
+    ("uavsal_stblocks_type", st) for st in ("s2t", "t2s", "s_s2t")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,st_type", ZOO_CASES,
+                         ids=[n + ("" if st == "st" else f"-{st}") for n, st in ZOO_CASES])
+def test_zoo_graph_step_equals_eager_step_without_k1_or_k2(card, name, st_type, dtype):
+    """A zoo model on seeded weights served at 64x128: over two carried
+    clips the replayed step gives the eager step's bits (saliency and
+    state: ConvLSTM's, or the dummy passed through unchanged); the eager
+    step launches neither K1 nor K2, and the graph holds no node of
+    either."""
+    from iip_uavsal_saliency_tpu_torch.models.adapters import build_adapted_model
+
+    with torch.device("meta"):
+        shape_of = build_adapted_model(name, filter_kwargs=True, st_type=st_type)
+    tree = _seeded_tree(shape_of, 16)
+    model = load_model_for_inference(tree, device="cuda", model_name=name, st_type=st_type)
+    rng = np.random.RandomState(17)
+    step = make_baked_infer_step(model, get_gauss_priors(8, 16, 8),
+                                 rng.rand(8, 16, 20).astype(np.float32), compute_dtype=dtype)
+    graphed = graph_step(step)
+    eager_state = graphed_state = model.init_state(64, 128, 1, dtype=dtype, device=card)
+    for k, x in enumerate(_clips((64, 128), 2)):
+        kernels.reset_launches()
+        want, eager_state = step(x, eager_state)
+        torch.cuda.synchronize()
+        assert not any(kernels.launches.values()), kernels.launches
+        got, graphed_state = graphed(x, graphed_state)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"clip {k}: saliency differs"
+        assert torch.equal(graphed_state, eager_state), f"clip {k}: state differs"
+        assert torch.isfinite(got).all() and got.std() > 0
+        assert 0 <= got.min().item() and got.max().item() <= 1
+    assert not any(graphed.graph_launches().values())
+    if name == "uavsal_lstm":
+        assert eager_state.shape == (1, 2, 8, 16, 256) and eager_state.abs().max() > 0
+    else:
+        assert eager_state.shape == (1, 8, 8, 1) and not eager_state.any()
+
+
+# ---------------------------------------------------------------------------
 # Training: K1 and its gradient under autograd, and the train step's launches
 
 # relative L2 of each gradient against autograd through the plain version:
@@ -693,7 +742,7 @@ def test_train_step_launches(card, fused):
     or once per frame (f32), and K2 never, even on a model built with the
     fused dwBlock on: the kernel is refused in train mode. The eval step of
     that model, in eval mode, does take K2."""
-    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_uavsal
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_model
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
     from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state,
                                                              make_eval_step, make_train_step)
@@ -701,7 +750,7 @@ def test_train_step_launches(card, fused):
     x, gauss, ob, y = _train_batch(card)
     for dtype, want in ((torch.bfloat16, {"twa_scan": 1, "twa_step": 0, "dwblock": 0}),
                         (None, {"twa_scan": 0, "twa_step": 10, "dwblock": 0})):
-        model = init_uavsal(UAVSal(fused_dwblock=fused), torch.Generator().manual_seed(0))
+        model = init_model(UAVSal(fused_dwblock=fused), torch.Generator().manual_seed(0))
         model.to(card, memory_format=torch.channels_last)
         state = create_train_state(model, make_optimizer(model))
         step = make_train_step(state, compute_dtype=dtype)

@@ -332,9 +332,35 @@ def test_cli_test_matches_test_videos(world, port_maps, tmp_path):
 
 @pytest.mark.parametrize("flag,value", [("model_name", "uavsal_srf"), ("st_type", "s2t"),
                                         ("dp_devices", "2")])
-def test_cli_refuses_what_the_port_does_not_have(flag, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1[01]"):
-        cli.main(["test", f"--{flag}", value, "--device", "cpu"])
+def test_cli_refuses_what_the_port_does_not_have(flag, value, world, port_maps, tmp_path):
+    """What the JAX CLI does with each: a `model_name` outside `MODEL_ZOO`
+    raises KeyError before any file is read; `st_type` on `uavsal` is
+    accepted and ignored (the files of the run without it, bit for bit);
+    `dp_devices` above 1 is still refused, naming ROADMAP A.11."""
+    if flag == "model_name":
+        with pytest.raises(KeyError, match=value):
+            cli.main(["test", f"--{flag}", value, "--device", "cpu"])
+    elif flag == "st_type":
+        ckpt = str(tmp_path / "m.ckpt")
+        save_checkpoint(ckpt, {"params": world["variables"]["params"],
+                               "batch_stats": world["variables"]["batch_stats"]})
+        data_dir = str(tmp_path / "data")
+        shutil.copytree(world["port_root"], os.path.join(data_dir, DATASET),
+                        ignore=shutil.ignore_patterns("priors"))
+        assert cli.main(["test", "--data_dir", data_dir, "--train_dataset", DATASET,
+                         "--test_dataset", DATASET, "--iosize", ",".join(map(str, IOSIZE)),
+                         "--time_dims", str(T), "--test_batch_size", str(BATCH),
+                         "--serve_bf16", "false", "--priors_cache_dir", str(tmp_path),
+                         "--method_name", "ST", "--model-path", ckpt, f"--{flag}", value,
+                         "--device", "cpu"]) == 0
+        got = _read_dir(os.path.join(data_dir, DATASET, "Results", "Results_ST", "Saliency",
+                                     "ST"))
+        assert sorted(got) == sorted(port_maps)
+        for name, maps in got.items():
+            np.testing.assert_array_equal(maps, port_maps[name])
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+            cli.main(["test", f"--{flag}", value, "--device", "cpu"])
 
 
 def test_cli_only_registers_test():

@@ -1,7 +1,7 @@
 """The training slice's building blocks against the JAX package, on the CPU:
 the losses and their per-frame and masked forms, train-mode BatchNorm, the
 train-mode UAVSal forward (MultiPriors' train form, batch statistics over
-all V*S frames), `init_uavsal`, the optimizer and the freeze mask, and the
+all V*S frames), `init_model`, the optimizer and the freeze mask, and the
 fused dwBlock's refusal of train mode."""
 
 import jax
@@ -19,7 +19,7 @@ from iip_uavsal_saliency_tpu.training.optim import make_frozen_mask as j_frozen_
 from iip_uavsal_saliency_tpu.training.optim import make_optimizer as j_make_optimizer
 from iip_uavsal_saliency_tpu.training.trainer import _masked_loss as j_masked_loss
 from iip_uavsal_saliency_tpu_torch.models.convert import from_jax_variables, to_jax_variables
-from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
 from iip_uavsal_saliency_tpu_torch.ops import layers as tl
 from iip_uavsal_saliency_tpu_torch.training import losses as tlosses
 from iip_uavsal_saliency_tpu_torch.training import optim as toptim
@@ -234,7 +234,7 @@ def test_init_uavsal_matches_the_jax_init_per_layer(variables):
     fresh = init_variables(jm, jax.random.PRNGKey(1), jnp.zeros((1, S, H, W, 3)), g, o,
                            jm.init_state(H, W, 1))
     want = from_jax_variables(jax.tree_util.tree_map(np.asarray, dict(fresh)))
-    model = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
+    model = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
     got = model.state_dict()
     assert set(got) == set(want)
     worst = 0.0
@@ -249,7 +249,7 @@ def test_init_uavsal_matches_the_jax_init_per_layer(variables):
         else:
             assert torch.equal(got[k], w), k
     assert worst > 0  # drawn, not copied
-    again = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
+    again = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(got.values(), again.state_dict().values()))
 
 
@@ -313,7 +313,7 @@ def test_optimizer_matches_optax(variables, freeze):
 def test_jax_tree_round_trip_of_a_trained_model():
     """`to_jax_variables` of a model after train-mode forwards is what
     `from_jax_variables` reads back (the `_final.ckpt` tree)."""
-    m = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(3)).train()
+    m = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(3)).train()
     with torch.no_grad():
         m(torch.randn(1, S, H, W, 3), *(torch.from_numpy(a) for a in priors()),
           m.init_state(H, W))
@@ -344,7 +344,7 @@ def test_training_after_serving_in_one_process():
     from iip_uavsal_saliency_tpu_torch.serving.steps import build_infer_fn
     from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
 
-    model = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(4))
+    model = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(4))
     g, o = (torch.from_numpy(a) for a in priors())
     x, y = clip_data(9)
     x = torch.from_numpy(x)

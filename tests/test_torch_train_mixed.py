@@ -7,7 +7,7 @@ the same size. On the CPU at 64x128, T=5, batch_size=2 (S=10)."""
 import numpy as np
 import torch
 
-from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_uavsal
+from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
 from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
 from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
 from test_torch_train_step import H, HO, S, T, W, WO, few_threads, priors  # noqa: F401
@@ -23,7 +23,7 @@ def _batch(seed=0):
 
 
 def _run(compute_dtype):
-    model = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
+    model = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
     state = create_train_state(model, make_optimizer(model, 1e-3, 5e-5))
     step = make_train_step(state, compute_dtype=compute_dtype)
     g, o = (torch.from_numpy(a) for a in priors())
@@ -51,7 +51,7 @@ def test_mixed_precision_tracks_f32(few_threads):  # noqa: F811
 
     # update magnitudes match (per-weight values do not: Adam normalizes each
     # coordinate, so bf16 gradient noise flips single steps)
-    init = init_uavsal(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
+    init = init_model(UAVSal(time_dims=T), torch.Generator().manual_seed(0))
     start = dict(init.named_parameters())
     d32 = np.mean([(p - start[n]).abs().mean().item()
                    for n, p in state32.model.named_parameters()])

@@ -129,6 +129,24 @@
    K1's launches exact (10 and 1), the loss falling over 10 steps on one
    clip, ms per step in turns, peak memory and K1's share of a profiled
    bf16 step.
+5c. Runs the reference's three-stage recipe on synthetic SALICON arrays
+   at 480x640 (8 train and 4 val images, batch 2; the machine has no cv2,
+   so `data/images.py`'s array entry): one f32 image train step of
+   `SRFNetImage` on the card against the CPU at full size (TF32 off,
+   `TOL_TRAIN_*`; the parameters after Adam within 2 lr), `train_salicon`
+   over 2 epochs with its `_final.ckpt` read back, the image train step
+   and `predict_images` on 8 images timed (median of 7 windows, ms and
+   images/s, peak memory; one step profiled, its device time and top ops,
+   `build/chip_smoke_profile_recipe.txt`), `predict_images` on the card
+   against the CPU (uint8 within one level, the pixels that differ
+   counted), the trained
+   neck transplanted into the flagship video `Trainer` (360x640, S=10:
+   the trainer's own bf16 mixed epoch of 3 steps and its f32 val clip,
+   launches exactly {twa_scan 3, twa_step 10, dwblock 0}; 3 f32 steps,
+   {0, 10, 0} each; the neck's parameters the image checkpoint's bits),
+   and the trained video `_final.ckpt` served graphed in bf16 over 3
+   carried clips of S=20 (the replays' tally {3, 0, 0}); then its wall
+   time.
 6. Evaluates (`evaluation/scorer.py::_score_video`, all seven metrics; no
    kernel of ours): phase 3's graphed K2-off maps (540x960, 60 frames)
    against seeded synthetic ground truth with one frame without fixations,
@@ -149,7 +167,7 @@ for K2 in bf16 and `dwblock_f32` for K2 in f32, each with
 `train_step_launches`, its launches counted in one train step of the dtype
 it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
 dwBlock on, and `config_launches`, its launches on each path of phase 3b,
-3c and 5b); the
+3c and 5b, and under `recipe` those of 5c); the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -160,6 +178,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1952,6 +1971,299 @@ def train_phase(torch, kernels, twa):
     return launches
 
 
+# the recipe (phase 5c): SALICON's size (`img_iosize`, the reference's
+# dataset.py), the CLI's batch, the synthetic dataset's counts
+RECIPE_IO = (480, 640, 60, 80)
+RECIPE_BATCH = 2
+RECIPE_TRAIN, RECIPE_VAL = 8, 4
+RECIPE_PREDICT = 8  # images served by `predict_images` at once (`test_images`' default)
+RECIPE_STEPS = 3    # video train steps from the transplanted neck, per dtype
+
+
+def salicon_arrays(rng, n):
+    """n synthetic SALICON examples at `RECIPE_IO`: uint8 images (n, 480,
+    640, 3) with a bright disk over a noisy gradient, and targets (n, 60,
+    80, 2) f32: 3 fixations (one on the disk) and their blurred map, peak 1."""
+    in_h, in_w, out_h, out_w = RECIPE_IO
+    images = np.empty((n, in_h, in_w, 3), np.uint8)
+    targets = np.zeros((n, out_h, out_w, 2), np.float32)
+    yy, xx = np.mgrid[0:out_h, 0:out_w]
+    for i in range(n):
+        images[i] = synthetic_video(rng, 1, in_h, in_w)[0]
+        points = [(int(rng.integers(out_h)), int(rng.integers(out_w))) for _ in range(3)]
+        blur = np.zeros((out_h, out_w))
+        for py, px in points:
+            targets[i, py, px, 1] = 1.0
+            blur += np.exp(-((yy - py) ** 2 + (xx - px) ** 2) / (2 * 3.0 ** 2))
+        targets[i, :, :, 0] = blur / blur.max()
+    return images, targets
+
+
+def image_train_step(torch, kernels, start, x, y, device):
+    """One image train step (Adam, nothing frozen) from the weights `start`:
+    (loss, {name: gradient}, {name: buffer after}, a placeholder state, the
+    launches, {name: parameter after}), all on the host in f64."""
+    from iip_uavsal_saliency_tpu_torch.models.srfnet_image import SRFNetImage
+    from iip_uavsal_saliency_tpu_torch.ops.layers import to_channels_last
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state,
+                                                             make_image_train_step)
+
+    model = SRFNetImage()
+    model.load_state_dict(start, strict=True)
+    to_channels_last(model, device)
+    step = make_image_train_step(create_train_state(
+        model, make_optimizer(model, TRAIN_LR, TRAIN_WD)))
+    kernels.reset_launches()
+    loss = step(x.to(device), y.to(device))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    bufs = {n: b.detach().double().cpu() for n, b in model.named_buffers()}
+    params = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    return float(loss), grads, bufs, torch.zeros(1, dtype=torch.float64), launches, params
+
+
+def recipe_phase(torch, kernels):
+    """5c. The reference's three-stage recipe on the card, on synthetic
+    SALICON arrays at 480x640 (the machine has no cv2: the array entry of
+    `data/images.py`) and seeded `init_model` weights: (1) one f32 image
+    train step on the card against the CPU (TF32 off), at full size;
+    (2) `train_salicon` over 2 epochs, its `_final.ckpt` read back; (3) the
+    image train step and `predict_images` timed; (4) `predict_images` on the
+    card against the CPU; (5) the trained neck transplanted into the
+    flagship video `Trainer` at 360x640, S=10: a bf16 mixed epoch of
+    `RECIPE_STEPS` steps and its val clip (the trainer's loop, which writes
+    `_final.ckpt`) and `RECIPE_STEPS` f32 steps, K1's and K2's launches
+    exact, the neck's parameters the image checkpoint's bits; (6) the
+    video `_final.ckpt` served through `load_model_for_inference` and the
+    graphed bf16 step over 3 carried clips of S=20. Returns the launches of
+    each path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.convert import from_jax_variables, table_of
+    from iip_uavsal_saliency_tpu_torch.models.srfnet_image import (SRFNetImage,
+                                                                   is_image_stage_variables)
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_model
+    from iip_uavsal_saliency_tpu_torch.runners.infer import (load_model_for_inference,
+                                                             predict_videos)
+    from iip_uavsal_saliency_tpu_torch.runners.infer_images import (load_image_model,
+                                                                    predict_images)
+    from iip_uavsal_saliency_tpu_torch.serving.steps import graph_step, make_baked_infer_step
+    from iip_uavsal_saliency_tpu_torch.training.checkpoint import load_checkpoint
+    from iip_uavsal_saliency_tpu_torch.training.image_trainer import (ImageTrainConfig,
+                                                                      train_salicon)
+    from iip_uavsal_saliency_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng(SEED + 14)  # its own: the other phases' draws stay as they were
+    in_h, in_w = RECIPE_IO[:2]
+    images, targets = salicon_arrays(rng, RECIPE_TRAIN + RECIPE_VAL)
+    start = init_model(SRFNetImage(), torch.Generator().manual_seed(SEED)).state_dict()
+    zero = {"twa_scan": 0, "twa_step": 0, "dwblock": 0}
+    launches = {}
+
+    # (1) one f32 image train step, card against CPU, at 480x640
+    x, y = torch.from_numpy(images[:RECIPE_BATCH]), torch.from_numpy(targets[:RECIPE_BATCH])
+    t0 = time.perf_counter()
+    on_cpu = image_train_step(torch, kernels, start, x, y, cpu)
+    cpu_s = time.perf_counter() - t0
+    on_card = image_train_step(torch, kernels, start, x, y, cuda)
+    print(f"recipe: image train step f32 ({RECIPE_BATCH}x{in_h}x{in_w}) on the CPU took "
+          f"{cpu_s:.1f} s; loss CPU {on_cpu[0]:.6f}, card {on_card[0]:.6f}; launches {on_card[4]}")
+    held_train("recipe: image train step f32, card vs CPU", train_diffs(on_cpu[:5], on_card[:5]),
+               TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+    # Adam's first step moves a coordinate by less than lr; one whose gradient
+    # sits at the noise level may step the other way (tests/test_torch_train_step.py):
+    # 2 lr, and the rounding of the f32 values the step lands on
+    over = {n: (on_card[5][n] - on_cpu[5][n]).abs().max().item()
+            - 2 * np.spacing(np.float32(on_cpu[5][n].abs().max().item()))
+            for n in on_cpu[5]}
+    moved = max(over.values())
+    print(f"recipe: parameters after Adam, card vs CPU: max abs diff less the rounding of the "
+          f"values {moved:.3g} (bound {2 * TRAIN_LR:.3g}, 2 lr)")
+    if moved > 2 * TRAIN_LR or on_card[4] != zero:
+        fail(f"recipe: the image step's update differs by {moved} or it launched {on_card[4]}")
+    launches["image train step"] = on_card[4]
+    del on_cpu, on_card
+
+    # (2) train_salicon over 2 epochs on the arrays
+    save_dir = os.path.join(HERE, "build", "chip_smoke_recipe")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    n = RECIPE_TRAIN
+    cfg = ImageTrainConfig(method_name="ChipSmoke_srfnet", iosize=RECIPE_IO,
+                           batch_size=RECIPE_BATCH, epochs=2)
+    t0 = time.perf_counter()
+    model, variables = train_salicon(cfg, "", save_dir, device="cuda", arrays={
+        "train": (images[:n], targets[:n]), "val": (images[n:], targets[n:])})
+    salicon_s = time.perf_counter() - t0
+    model_dir = os.path.join(save_dir, cfg.method_name)
+    names = sorted(os.listdir(model_dir))
+    pattern = re.compile(re.escape(cfg.method_name) + r"_\d\d_(.+)\.ckpt$")
+    epochs = [float(m.group(1)) for m in map(pattern.match, names) if m]
+    image_final = os.path.join(model_dir, f"{cfg.method_name}_final.ckpt")
+    read = load_checkpoint(image_final) if os.path.exists(image_final) else {}
+    same = is_image_stage_variables(read) and all(
+        np.array_equal(a, b) for a, b in zip(_leaves(read), _leaves(variables)))
+    print(f"recipe: train_salicon, 2 epochs of {n // RECIPE_BATCH} steps, in {salicon_s:.1f} s: "
+          f"{names}; the final checkpoint read back as an image-stage tree equal to the "
+          f"returned weights: {same}")
+    if len(epochs) != 2 or not np.all(np.isfinite(epochs)) or not same:
+        fail(f"recipe: train_salicon wrote {names}")
+
+    # (3) numbers: the image train step, predict_images, peak memory
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state,
+                                                             make_image_train_step)
+
+    step = make_image_train_step(create_train_state(model, make_optimizer(model)))
+    xs, ys = x.to(cuda), y.to(cuda)
+    train_windows = cuda_windows(lambda: step(xs, ys), 3)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(xs, ys)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    served = load_image_model(image_final, device="cuda")
+    x8 = torch.from_numpy(images[:RECIPE_PREDICT]).to(cuda)
+    sizes = [(in_h, in_w)] * RECIPE_PREDICT
+    predict_windows = cuda_windows(lambda: predict_images(served, x8, sizes), 3)
+    train_ms, predict_ms = float(np.median(train_windows)), float(np.median(predict_windows))
+    print(f"recipe: image train step f32 ({RECIPE_BATCH}x{in_h}x{in_w}, uint8 on the card, TF32 "
+          f"off): median {train_ms:.3f} ms over 7 windows of 3 steps, fastest "
+          f"{min(train_windows):.3f}; {RECIPE_BATCH / train_ms * 1e3:.1f} images/s; memory "
+          f"allocated {before / 2**30:.3f} GiB before the step, peak {peak / 2**30:.3f} GiB in it")
+    print(f"recipe: eval forward + predict_images ({RECIPE_PREDICT}x{in_h}x{in_w} f32, BatchNorm "
+          f"folded, maps back on the host): median {predict_ms:.3f} ms, fastest "
+          f"{min(predict_windows):.3f}; {RECIPE_PREDICT / predict_ms * 1e3:.1f} images/s")
+    # where a step's time goes: the card's share of it, and its top ops
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(xs, ys)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    annotations = [e for e in events if getattr(e, "is_user_annotation", False)]
+    kept = [e for e in events if e not in annotations]
+    device_ms = sum(e.self_device_time_total for e in kept) / 1e3
+    top = sorted(kept, key=lambda e: -e.self_device_time_total)[:4]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke_profile_recipe.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"recipe: profile of one image train step (build/chip_smoke_profile_recipe.txt): "
+          f"device time {device_ms:.3f} ms, {device_ms / train_ms:.1%} of the step's median; "
+          "top: " + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+
+    # (4) predict_images, card against CPU, on the same weights
+    maps = predict_images(served, x8, sizes)
+    cpu_maps = predict_images(load_image_model(image_final, device="cpu"),
+                              images[:RECIPE_PREDICT], sizes)
+    diff = [np.abs(a.astype(np.int16) - b.astype(np.int16)) for a, b in zip(maps, cpu_maps)]
+    worst, differ = max(int(d.max()) for d in diff), sum(int((d > 0).sum()) for d in diff)
+    print(f"recipe: predict_images card vs CPU: {len(maps)} maps of {maps[0].shape} uint8, max "
+          f"diff {worst} level(s), {differ} of {RECIPE_PREDICT * in_h * in_w} pixels differ")
+    if worst > 1 or any(m.shape != (in_h, in_w) or m.max() != 255 for m in maps):
+        fail("recipe: predict_images on the card is not the CPU's within one uint8 level")
+    del model, step, served
+
+    # (5) the neck transplanted into the flagship video Trainer, 360x640, S=10
+    vrng = np.random.default_rng(SEED + 15)
+    frames, gaze = train_video(vrng, RECIPE_STEPS * TRAIN_S)
+    val_frames, val_gaze = train_video(vrng, TRAIN_S)
+    ob = vrng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)
+
+    def array_video(name, f, gz):
+        return (name, f, (gz[..., :1] * 255).astype(np.uint8), gz[..., 1:].astype(np.uint8))
+
+    videos = {"train": [array_video("train", frames, gaze)],
+              "val": [array_video("val", val_frames, val_gaze)]}
+    neck = {k: v for k, v in from_jax_variables(read, table_of(SRFNetImage())).items()
+            if k.startswith("sfnet.") and "running" not in k}
+    for mixed in (True, False):
+        name = "bf16 mixed" if mixed else "f32"
+        tc = TrainConfig(method_name=f"ChipSmokeRecipe{'16' if mixed else '32'}",
+                         iosize=(IN_H, IN_W, OUT_H, OUT_W), epochs=1, mixed_precision=mixed)
+        trainer = Trainer(tc, "", "synthetic", save_dir, device="cuda", ob_prior=ob,
+                          pre_variables=read, videos=videos)
+        counts = []
+        if mixed:  # the trainer's own loop: RECIPE_STEPS train clips, then the val clip in f32
+            kernels.reset_launches()
+            trainer.train()
+            torch.cuda.synchronize()
+            counts.append(dict(kernels.launches))
+            want = {"twa_scan": RECIPE_STEPS, "twa_step": TRAIN_S, "dwblock": 0}
+            steps = trainer.state.step
+        else:
+            clips = trainer._clips(*videos["train"][0][1:])
+            rnn = trainer.model.init_state(IN_H, IN_W, device=cuda)
+            for xc, yc in clips:
+                kernels.reset_launches()
+                _, rnn = trainer.train_step(torch.from_numpy(xc)[None].to(cuda), trainer.gauss,
+                                            trainer.ob, rnn, torch.from_numpy(yc)[None].to(cuda))
+                torch.cuda.synchronize()
+                counts.append(dict(kernels.launches))
+            want = {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}
+            steps = trainer.state.step
+        params = dict(trainer.model.named_parameters())
+        kept = all(torch.equal(params[k].detach().cpu(), v) for k, v in neck.items())
+        print(f"recipe: video train {name} from the image checkpoint ({IN_H}x{IN_W}, S={TRAIN_S}): "
+              f"{steps} steps, launches {counts}; the transplanted neck's {len(neck)} parameters "
+              f"the image checkpoint's bits after training: {kept}")
+        if steps != RECIPE_STEPS or any(c != want for c in counts) or not kept:
+            fail(f"recipe: video train {name} took {steps} steps, launched {counts} (expected "
+                 f"{want} each), neck kept: {kept}")
+        launches[f"video train {name}, " + ("epoch of 3 steps and its val clip" if mixed
+                                            else "one step")] = counts[0]
+        del trainer
+
+    # (6) the trained video model served, graphed bf16, 3 carried clips of S=20
+    video_final = os.path.join(save_dir, "ChipSmokeRecipe16", "ChipSmokeRecipe16_final.ckpt")
+    model = load_model_for_inference(video_final, device="cuda")
+    graphed = graph_step(make_baked_infer_step(model, get_gauss_priors(OUT_H, OUT_W, 8), ob,
+                                               compute_dtype=torch.bfloat16))
+    video = synthetic_video(vrng, S * CLIPS)
+    predict_videos(graphed, model, [video[:S]], [(NATIVE_H, NATIVE_W)], batch_size=4)  # capture
+    torch.cuda.synchronize()
+    tally = dict(graphed.replayed)
+    kept_maps = []
+
+    def keep(xc, state):
+        out, new_state = graphed(xc, state)
+        kept_maps.append(out.clone())
+        return out, new_state
+
+    served_maps = predict_videos(keep, model, [video], [(NATIVE_H, NATIVE_W)], batch_size=4)[0]
+    torch.cuda.synchronize()
+    tally = {k: v - tally[k] for k, v in graphed.replayed.items()}
+    sal = torch.cat(kept_maps)
+    print(f"recipe: {video_final} served graphed in bf16, {CLIPS} carried clips of S={S}: the "
+          f"replays' launches {tally}, the graph's nodes {graphed.graph_launches()}; saliency "
+          f"{tuple(sal.shape)} in [{sal.min().item():.4f}, {sal.max().item():.4f}]; maps "
+          f"{served_maps.shape} {served_maps.dtype}")
+    if (tally != {"twa_scan": CLIPS, "twa_step": 0, "dwblock": 0} or len(kept_maps) != CLIPS
+            or not torch.isfinite(sal).all() or sal.min() < 0 or sal.max() > 1
+            or served_maps.shape != (NATIVE_H, NATIVE_W, 1, S * CLIPS)):
+        fail("recipe: the trained video model was not served as expected")
+    launches[f"served graphed bf16, {CLIPS} clips"] = tally
+    print(f"phase 5c (the recipe) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _leaves(tree):
+    """The array leaves of a nested dict, in key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k])
+        else:
+            yield np.asarray(tree[k])
+
+
 EVAL_H, EVAL_W = 720, 1280  # UAV2-TE's ground truth, the size users evaluate at
 EVAL_FRAMES = 300
 EVAL_BATCH = 32      # eval_batch_size's default
@@ -2506,17 +2818,21 @@ def main() -> None:
     # 5. training
     train_launches = train_phase(torch, kernels, twa)
     config_train_launches = config_train_phase(torch, kernels)
+    # 5c. the reference's three-stage recipe
+    recipe_launches = recipe_phase(torch, kernels)
 
     # 6. evaluation
     eval_phase(torch, maps16)
 
     def by_config(kernel):
         """The kernel's launches on each path of each configuration of phase
-        3b (serving: per 3 clips or one clip; ResNet-50 training: per step)."""
+        3b (serving: per 3 clips or one clip; ResNet-50 training: per step),
+        and under "recipe" on each path of phase 5c."""
         counts = {f"{name}, {path}": n[kernel] for name, paths in config_launches.items()
                   for path, n in paths.items()}
         counts.update({f"ResNet-50 train step, {dtype}": n[kernel]
                        for dtype, n in config_train_launches.items()})
+        counts["recipe"] = {path: n[kernel] for path, n in recipe_launches.items()}
         return counts
 
     print(smi)

@@ -2,12 +2,19 @@
 
     python -m iip_uavsal_saliency_tpu_torch.cli train [--config cfg.json]
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli train-img [--config cfg.json]
+        [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli test [--config cfg.json]
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli eval [--config cfg.json]
         [--methods A,B] [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli eval-img [--config cfg.json]
         [--methods A,B] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli vis [--config cfg.json]
+        [--methods A,B|GT] [--frames 0,5,10] [--with-fix] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli pipeline [--config cfg.json]
+        [--model-path ckpt] [--methods A,B] [--frames ...] [--with-fix]
+        [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli modelsize [--config cfg.json]
         [--key value ...]
 
@@ -15,7 +22,15 @@
 (its txt splits, videos and ground truth in the reference's layout) as the
 JAX package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
 checkpoints, `_best.ckpt` and `_final.ckpt`; `--model-path` is a video-model
-`.ckpt` to start from (warm start), else the weights are drawn from seed 0.
+`.ckpt` to start from (warm start), or an image-stage `.ckpt` from
+`train-img`, whose SRF-Net is transplanted into the video model drawn from
+seed 0; else the weights are drawn from seed 0.
+
+`train-img` is the reference recipe's SALICON stage: `SRFNetImage`
+trained on `<data_dir>/salicon-15/{train,val}` at `img_iosize` with
+`batch_size`, `epochs`, `learning_rate`, `weight_decay` and early stop,
+writing `<save_model_dir>/<method_name>_srfnet/<method_name>_srfnet_final.ckpt`
+for `train --model-path`.
 
 `test` serves every video of `<data_dir>/<test_dataset>/Videos` to `.mat`
 files under `<...>/Results/Results_<method_name>/Saliency/<method_name>`,
@@ -47,13 +62,22 @@ batch is `eval_batch_size`; AUC-Borji and AUC-shuffled run on the device
 unless `device_auc` is false. `eval-img` scores the PNGs of
 `<data_dir>/salicon-15/val/Results/Results_<method_name>/Saliency/<method>`
 (`Scores/Score_<method>.mat`, means logged; `device_auc` unset picks the
-path by the device's round trip). The other subcommands of the JAX CLI
-(`train-img`, `vis`, `convert`, `export`, `test-aot`, `pipeline`) are
-ROADMAP A.9b and A.11.
+path by the device's round trip).
+
+`vis` overlays each method's `.mat` maps (`--methods`, else `method_name`;
+"GT" for the ground-truth fixMaps) on the test videos as DIVX videos
+under the maps' directory, or with `--frames i,j,k` those frames as PNGs
+under `Saliency/<method>/Visual_frames`; `--with-fix` burns in the
+fixation points. It is host work (cv2) and takes no device. `pipeline`
+runs `train`, then `test`, `eval` and `vis` on the checkpoint it trained.
+`--frames` and `--with-fix` are refused by every other command.
+
+The JAX CLI's `convert`, `export` and `test-aot` are ROADMAP A.11b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 from typing import List, Optional, Sequence, Tuple
@@ -64,30 +88,45 @@ from .utils.logging import get_logger
 log = get_logger("cli")
 
 
-def _split_cli(argv: Sequence[str]
-               ) -> Tuple[Optional[str], Optional[str], Optional[List[str]], List[str]]:
-    """(--config path, --device, --methods split at commas, the rest with
-    --model-path as --pre_model_path) for `load_config`."""
+def _split_cli(argv: Sequence[str], cmd: str = "vis"):
+    """(--config path, --device, --methods split at commas, the vis options
+    {"frames": --frames as ints or None, "with_fix": 0 or 1}, the rest with
+    --model-path as --pre_model_path) for `load_config`. --frames and
+    --with-fix are only taken where vis runs (`VIS`); elsewhere they end the
+    run, as an unknown flag does: dropping one silently would start a long
+    run without it."""
     cfg_path, device, methods, rest = None, None, None, []
+    vis_opts = {"frames": None, "with_fix": 0}
     argv = list(argv)
     i = 0
     while i < len(argv):
-        if argv[i] in ("--config", "--model-path", "--device", "--methods"):
+        if argv[i] in ("--with-fix", "--frames") and cmd not in VIS:
+            raise SystemExit(f"flag {argv[i]} is only valid for the vis and pipeline commands")
+        if argv[i] == "--with-fix":
+            vis_opts["with_fix"] = 1
+            i += 1
+        elif argv[i] in ("--config", "--model-path", "--device", "--methods", "--frames"):
             if i + 1 >= len(argv):
                 raise SystemExit(f"flag {argv[i]} needs a value")
+            value = argv[i + 1]
             if argv[i] == "--config":
-                cfg_path = argv[i + 1]
+                cfg_path = value
             elif argv[i] == "--device":
-                device = argv[i + 1]
+                device = value
             elif argv[i] == "--methods":
-                methods = argv[i + 1].split(",")
+                methods = value.split(",")
+            elif argv[i] == "--frames":
+                try:
+                    vis_opts["frames"] = [int(v) for v in value.split(",")]
+                except ValueError:
+                    raise SystemExit(f"--frames wants comma-separated ints, got {value!r}")
             else:
-                rest += ["--pre_model_path", argv[i + 1]]
+                rest += ["--pre_model_path", value]
             i += 2
         else:
             rest.append(argv[i])
             i += 1
-    return cfg_path, device, methods, rest
+    return cfg_path, device, methods, vis_opts, rest
 
 
 def _final_ckpt(cfg: Config) -> str:
@@ -114,19 +153,27 @@ def cmd_train(cfg: Config, device: Optional[str] = None):
     tc = TrainConfig(**{name: getattr(cfg, name) for name in names})
     pre_vars = None
     if cfg.pre_model_path:
+        # a video model's checkpoint, or the image stage's (the Trainer
+        # transplants its SRF-Net)
         ckpt = load_checkpoint(cfg.pre_model_path)
-        # the image stage's tree is exactly {sfnet, conv_out} (JAX
-        # `is_image_stage_variables`); the zoo's flat trees also hold `sfnet`
-        params = ckpt.get("params")
-        if params is None or set(params) == {"sfnet", "conv_out"}:
-            raise NotImplementedError(
-                f"{cfg.pre_model_path} is not a video-model checkpoint; warm starts from the "
-                "image stage (train-img) are ROADMAP A.9b")
         pre_vars = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
     trainer = Trainer(tc, cfg.train_data_dir, cfg.train_dataset, cfg.save_model_dir,
                       ext=cfg.ext, pre_variables=pre_vars,
                       priors_cache_dir=cfg.priors_cache_dir, device=device)
     return trainer.train()
+
+
+def cmd_train_img(cfg: Config, device: Optional[str] = None):
+    """The SALICON image stage; its `<method_name>_srfnet_final.ckpt` is
+    what `train --model-path` transplants from."""
+    from .training.image_trainer import ImageTrainConfig, train_salicon
+
+    tc = ImageTrainConfig(method_name=f"{cfg.method_name}_srfnet", cnn_type=cfg.cnn_type,
+                          iosize=cfg.img_iosize, batch_size=cfg.batch_size, epochs=cfg.epochs,
+                          learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+                          is_early_stop=cfg.is_early_stop, max_patience=cfg.max_patience)
+    return train_salicon(tc, os.path.join(cfg.data_dir, "salicon-15"), cfg.save_model_dir,
+                         device=device)
 
 
 def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
@@ -190,6 +237,34 @@ def cmd_eval_img(cfg: Config, device: Optional[str] = None,
     return mean_scores_img(res_dir, methods)
 
 
+def cmd_vis(cfg: Config, methods: Optional[Sequence[str]] = None,
+            frames: Optional[Sequence[int]] = None, with_fix: int = 0) -> None:
+    """Overlay videos of each method's maps, or with `frames` those frames
+    as PNGs ("GT": the ground-truth fixMaps), on the host."""
+    from .vis.overlay import visual_vid, visual_vid_frames
+
+    methods = methods or [cfg.method_name]
+    if frames is not None:
+        visual_vid_frames(cfg.test_data_dir, cfg.test_result_path, cfg.test_dataset, methods,
+                          frame_indices=frames, with_color=1, with_fix=with_fix)
+    else:
+        visual_vid(cfg.test_data_dir, cfg.test_result_path, cfg.test_dataset, methods,
+                   with_color=1, with_fix=with_fix)
+
+
+def cmd_pipeline(cfg: Config, device: Optional[str] = None,
+                 methods: Optional[Sequence[str]] = None,
+                 frames: Optional[Sequence[int]] = None, with_fix: int = 0):
+    """train -> test -> eval -> vis; the stages after training serve the
+    checkpoint it wrote, not the one `--model-path` started it from."""
+    cmd_train(cfg, device)
+    cfg = dataclasses.replace(cfg, pre_model_path="")
+    cmd_test(cfg, device)
+    means = cmd_eval(cfg, device, methods)
+    cmd_vis(cfg, methods, frames, with_fix)
+    return means
+
+
 def cmd_modelsize(cfg: Config, device: Optional[str] = None) -> str:
     """The JAX package's `modelsize` report of the configured UAVSal, from
     the port's model on the CPU (sizes need no device and no weights)."""
@@ -204,13 +279,14 @@ def cmd_modelsize(cfg: Config, device: Optional[str] = None) -> str:
     return report
 
 
-COMMANDS = {"train": cmd_train, "test": cmd_test, "eval": cmd_eval, "eval-img": cmd_eval_img,
-            "modelsize": cmd_modelsize}
-# the commands that take --methods
+COMMANDS = {"train": cmd_train, "train-img": cmd_train_img, "test": cmd_test,
+            "eval": cmd_eval, "eval-img": cmd_eval_img, "vis": cmd_vis,
+            "pipeline": cmd_pipeline, "modelsize": cmd_modelsize}
+# the commands that take --methods, and those that run vis (--frames, --with-fix)
 SCORING = ("eval", "eval-img")
-# the JAX CLI's commands the port does not have yet, and their ROADMAP items
-NOT_PORTED = {"train-img": "A.9b", "vis": "A.11", "convert": "A.11", "export": "A.11",
-              "test-aot": "A.11", "pipeline": "A.11"}
+VIS = ("vis", "pipeline")
+# the JAX CLI's commands the port does not have yet, and their ROADMAP item
+NOT_PORTED = {"convert": "A.11b", "export": "A.11b", "test-aot": "A.11b"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -225,11 +301,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}\n{__doc__}")
         return 2
-    cfg_path, device, methods, rest = _split_cli(rest)
-    if methods is not None and cmd not in SCORING:
-        raise SystemExit(f"flag --methods is only valid for {' and '.join(SCORING)}")
+    cfg_path, device, methods, vis_opts, rest = _split_cli(rest, cmd)
+    if methods is not None and cmd not in SCORING + VIS:
+        raise SystemExit(f"flag --methods is only valid for {', '.join(SCORING + VIS)}")
     cfg = load_config(cfg_path, rest)
-    if cmd in SCORING:
+    if cmd == "vis":
+        cmd_vis(cfg, methods, vis_opts["frames"], vis_opts["with_fix"])
+    elif cmd == "pipeline":
+        cmd_pipeline(cfg, device, methods, vis_opts["frames"], vis_opts["with_fix"])
+    elif cmd in SCORING:
         COMMANDS[cmd](cfg, device, methods)
     else:
         COMMANDS[cmd](cfg, device)

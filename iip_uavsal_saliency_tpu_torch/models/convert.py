@@ -39,7 +39,8 @@ the ST blocks of their kind (STC3D: `stconv_te`, a 3-D ConvBNAct; STC23D:
 `stconv_sp`, `stconv_te`, `stconv_last`; every ordering of
 `uavsal_stblocks_type` has STBlock's names, so `st_type` changes no row),
 `mp/...` for `uavsal_mp` and `uavsal_lstm`, and `rnn/kernel` for
-`uavsal_lstm`.
+`uavsal_lstm`. The image stage (`srfnet_image`, `models/srfnet_image.py`)
+has `sfnet/...` and `conv_out -> conv_out`.
 
 Conv kernels go from HWIO to OIHW (DHWIO to OIDHW in 3-D); BN scale/bias
 -> weight/bias and mean/var -> running_mean/running_var. `s2d_stem`
@@ -58,6 +59,7 @@ from torch import nn
 
 from ..ops.layers import ConvBNAct, DWBlock
 from .backbone import BasicBlock, Bottleneck, ResNetPyramid, build_backbone
+from .srfnet_image import IMAGE_MODEL_NAME
 from .uavsal import NUM_STBLOCK
 
 StateDict = Dict[str, torch.Tensor]
@@ -159,7 +161,8 @@ _ST_KIND = {"uavsal": "st", "uavsal_stblocks": "st", "uavsal_stblocks_type": "st
 @functools.lru_cache(maxsize=None)
 def _table(cnn_type: str, num_stblock: int, bias_type: Tuple[int, int, int],
            model_name: str) -> Tuple[Row, ...]:
-    flat = model_name in ("uavsal_spconv", "uavsal_teconv")
+    image = model_name == IMAGE_MODEL_NAME
+    flat = image or model_name in ("uavsal_spconv", "uavsal_teconv")
     root = () if flat else ("trunk",)
     # the backbone's rows drop "trunk" from their paths where there is none
     rows: List[Row] = [(path[:1] + path[2:] if flat else path, key, is_kernel)
@@ -176,6 +179,9 @@ def _table(cnn_type: str, num_stblock: int, bias_type: Tuple[int, int, int],
         conv_bn(sf + (name,), f"sfnet.{name}.0", f"sfnet.{name}.1")
     for name in ("lv5_aspp2", "lv5_aspp3", "lv5_aspp4"):
         dwblock(sf + (name,), f"sfnet.{name}")
+    if image:
+        dwblock(("conv_out",), "conv_out")
+        return tuple(rows)
 
     for i in range(num_stblock):
         path, pre = root + (f"st_layer_{i}",), f"st_layer.{i}"
@@ -205,11 +211,13 @@ def table_for(cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
     """The rows of the zoo model `model_name` of this configuration (for
     "uavsal" in the order of the JAX package's `export_uavsal_state_dict`:
     backbone, neck, ST blocks, fuse block, prior streams, fusion, TWA gate,
-    head; the other names in the same order, without the parts they lack).
+    head; the other names in the same order, without the parts they lack),
+    or of the image stage for "srfnet_image" (backbone, neck, `conv_out`).
     `bias_type` matters only where the model has priors. An unknown name
     raises KeyError."""
     model_name = model_name.lower()
-    if model_name not in _ST_KIND and model_name not in ("uavsal_spconv", "uavsal_teconv"):
+    if model_name not in _ST_KIND and model_name not in ("uavsal_spconv", "uavsal_teconv",
+                                                         IMAGE_MODEL_NAME):
         raise KeyError(model_name)
     return list(_table(cnn_type.lower(), int(num_stblock),
                        tuple(int(bool(b)) for b in bias_type), model_name))
@@ -217,7 +225,7 @@ def table_for(cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
 
 def table_of(model) -> List[Row]:
     """The rows of `model`'s own name and configuration (a model of
-    `models/uavsal.py` or its `ZooModelAdapter`)."""
+    `models/uavsal.py`, its `ZooModelAdapter`, or `SRFNetImage`)."""
     return table_for(model.cnn_type, model.num_stblock,
                      getattr(model, "bias_type", None) or (0, 0, 0), model.model_name)
 

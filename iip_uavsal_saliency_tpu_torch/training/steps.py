@@ -1,6 +1,8 @@
 """The TBPTT train step and the validation step (counterparts of
 `iip_uavsal_saliency_tpu/parallel/steps.py`: `TrainState`,
-`create_train_state`, `make_train_step`, `make_eval_step`).
+`create_train_state`, `make_train_step`, `make_eval_step`), and the image
+stage's steps (`make_image_train_step`, `make_image_eval_step`: the jitted
+steps of `iip_uavsal_saliency_tpu/training/image_trainer.py`).
 
 One train step is forward -> loss -> backward -> Adam over one clip of
 (V, S) frames. The carried TWA state crosses steps as detached data, so no
@@ -60,6 +62,11 @@ def _maybe_normalize(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _as_params(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x in the dtype of the model's parameters (an f64 model takes f64)."""
+    return x.to(next(model.parameters()).dtype)
+
+
 def _loss(loss_fn, out, y_true):
     """The loss in f32 (f64 for an f64 model) over the flattened (V*S) frames."""
     v, s = out.shape[0], out.shape[1]
@@ -110,5 +117,40 @@ def make_eval_step(model: nn.Module, loss_fn: Callable = loss_fu):
         with torch.no_grad():
             out, new_rnn = model(_maybe_normalize(x), gauss, ob, rnn_state)
             return _loss(loss_fn, out, y_true), new_rnn
+
+    return step
+
+
+def make_image_train_step(state: TrainState, loss_fn: Callable = loss_fu):
+    """step(x, y_true) -> loss for the image stage's model (`SRFNetImage`):
+    the train-mode forward (batch statistics), the loss, the backward and
+    the optimizer's step, over a batch of images x (B, H, W, 3), uint8 or
+    normalized, and targets y_true (B, Ho, Wo, 2) [map, fixations]. It
+    runs in the parameters' dtype: f32, as the JAX image trainer (no mixed
+    precision; an f64 model, as the tests build one, runs in f64). The loss
+    comes back as a detached scalar on the device."""
+    model, optimizer = state.model, state.optimizer
+
+    def step(x, y_true) -> torch.Tensor:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(_as_params(model, _maybe_normalize(x)))
+        loss = loss_fn(out.to(torch.promote_types(out.dtype, torch.float32)), y_true)
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_image_eval_step(model: nn.Module, loss_fn: Callable = loss_fu):
+    """step(x, y_true) -> loss: the image stage's model in eval mode
+    (BatchNorm from the running stats, not folded), no gradient."""
+
+    def step(x, y_true) -> torch.Tensor:
+        model.eval()
+        with torch.no_grad():
+            return loss_fn(model(_as_params(model, _maybe_normalize(x))), y_true)
 
     return step

@@ -39,6 +39,7 @@ from ..data.priors import get_gauss_priors, get_ob_priors
 from ..device import resolve_device
 from ..models.adapters import build_adapted_model
 from ..models.convert import from_jax_variables, table_of, to_jax_variables
+from ..models.srfnet_image import is_image_stage_variables, transfer_sfnet
 from ..models.uavsal import init_model
 from ..ops.fold import looks_folded
 from ..ops.layers import to_channels_last
@@ -147,8 +148,10 @@ class Trainer:
     "cpu" is passed).
 
     `pre_variables`: a JAX `{params, batch_stats}` tree of the model to
-    start from (warm start); else the weights are drawn by `init_model`
-    from seed 0.
+    start from (warm start), or of the image stage (`SRFNetImage`, from
+    `train_salicon`), whose `sfnet` is transplanted into the model drawn
+    from seed 0 (`transfer_sfnet`); else the weights are drawn by
+    `init_model` from seed 0. A tree with BatchNorm folded is refused.
     `ob_prior`: the (Ho, Wo, 20) observed-prior map; else it is built from
     the train split as the JAX trainer builds it (neither when `bias_type`
     leaves the stream off). `videos`: {"train": [...],
@@ -184,6 +187,13 @@ class Trainer:
                       if use_gauss else None)
         self.ob = (torch.as_tensor(np.asarray(ob_prior, np.float32)).to(self.device)
                    if use_ob else None)
+        if pre_variables is not None and is_image_stage_variables(pre_variables):
+            # the image stage's checkpoint: the video model drawn from seed 0,
+            # then the trained neck transplanted into it
+            init_model(model, torch.Generator().manual_seed(0))
+            pre_variables = transfer_sfnet(pre_variables,
+                                           to_jax_variables(model.state_dict(), self.table))
+            log.info("image-stage checkpoint: its SRF-Net transplanted into the video model")
         if pre_variables is None:
             init_model(model, torch.Generator().manual_seed(0))
         else:

@@ -145,3 +145,54 @@ def test_scoring_arrays_needs_no_cv2_h5py_or_jax():
     sources = [os.path.relpath(p, ROOT) for p in _sources()]
     for name in ("__init__", "metrics_np", "metrics_torch", "scorer"):
         assert os.path.join("iip_uavsal_saliency_tpu_torch", "evaluation", name + ".py") in sources
+
+
+_RECIPE_PROBE = """
+import sys
+import numpy as np
+import torch
+from iip_uavsal_saliency_tpu_torch.data.images import salicon_array_batches
+from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
+from iip_uavsal_saliency_tpu_torch.models.srfnet_image import (SRFNetImage,
+    is_image_stage_variables, transfer_sfnet)
+from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
+from iip_uavsal_saliency_tpu_torch.runners.infer_images import load_image_model, predict_images
+from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_image_train_step
+import iip_uavsal_saliency_tpu_torch.vis.overlay
+torch.set_num_threads(2)
+rng = np.random.RandomState(0)
+images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+targets = rng.rand(2, 8, 8, 2).astype(np.float32)
+model = init_model(SRFNetImage(), torch.Generator().manual_seed(0))
+step = make_image_train_step(create_train_state(model, make_optimizer(model)))
+for x, y in salicon_array_batches(images, targets, 2, shuffle=True, rng=rng):
+    assert torch.isfinite(step(torch.from_numpy(x), torch.from_numpy(y)))
+tree = to_jax_variables(model.state_dict(), table_of(model))
+maps = predict_images(load_image_model(tree, device="cpu"), images, [(30, 40)] * 2)
+assert [m.shape for m in maps] == [(30, 40)] * 2
+video = UAVSal()
+moved = transfer_sfnet(tree, to_jax_variables(video.state_dict(), table_of(video)))
+assert is_image_stage_variables(tree) and not is_image_stage_variables(moved)
+print(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r}))
+"""
+
+
+def test_recipe_on_arrays_needs_no_cv2_h5py_or_jax():
+    """The recipe's new modules (`data/images.py`, `models/srfnet_image.py`,
+    `training/image_trainer.py`'s step, `runners/infer_images.py`,
+    `vis/overlay.py`) are among those walked above, and the image stage on
+    arrays (the array batches, a train step, `predict_images`, the
+    transplant; what chip_smoke.py runs on the card's machine, which has
+    neither cv2 nor h5py) loads neither, nor JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    probe = _RECIPE_PROBE.format(forbidden=FORBIDDEN + ("cv2", "h5py"))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    sources = [os.path.relpath(p, ROOT) for p in _sources()]
+    for name in ("data/images", "models/srfnet_image", "training/image_trainer",
+                 "runners/infer_images", "vis/overlay", "vis/__init__"):
+        assert os.path.join("iip_uavsal_saliency_tpu_torch", name + ".py") in sources

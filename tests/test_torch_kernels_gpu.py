@@ -862,3 +862,111 @@ def test_eval_score_video_on_the_card_draws_as_on_the_cpu(card):
     other = [k for k, key in enumerate(KEYS_ORDER) if key != "AUC_Judd"]
     assert np.isfinite(on_card).all()
     np.testing.assert_allclose(on_card[:, other], on_cpu[:, other], rtol=0, atol=1e-5)
+
+
+# The image stage (the reference recipe's SALICON stage) runs no kernel of
+# ours; its steps are held card against CPU, and the video model it warm
+# starts launches K1 as any train step does.
+IMG_H, IMG_W = 128, 160
+
+
+def _image_batch(seed=41, b=2):
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, 256, (b, IMG_H, IMG_W, 3)).astype(np.uint8)
+    y = np.concatenate([rng.rand(b, IMG_H // 8, IMG_W // 8, 1),
+                        rng.rand(b, IMG_H // 8, IMG_W // 8, 1) < 0.1], -1).astype(np.float32)
+    y[:, 2, 3, 1] = 1.0
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def _image_start():
+    from iip_uavsal_saliency_tpu_torch.models.srfnet_image import SRFNetImage
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_model
+
+    return init_model(SRFNetImage(), torch.Generator().manual_seed(0))
+
+
+def test_image_train_step_card_equals_cpu(card):
+    """One f32 image train step (TF32 off) on the card against the CPU from
+    the same weights: the loss within 1e-4 relative, the gradient within
+    0.1 relative L2 and the BatchNorm stats within 1e-4 of their scale
+    (tests/test_torch_train_step.py's bounds), no launch of K1 or K2."""
+    import copy
+
+    from iip_uavsal_saliency_tpu_torch.ops.layers import to_channels_last
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state,
+                                                             make_image_train_step)
+
+    start, (x, y) = _image_start(), _image_batch()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = to_channels_last(copy.deepcopy(start), device)
+        step = make_image_train_step(create_train_state(model, make_optimizer(model)))
+        kernels.reset_launches()
+        loss = step(x.to(device), y.to(device))
+        assert not any(kernels.launches.values()), kernels.launches
+        runs[device] = (float(loss), {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+                        {n: b.double().cpu() for n, b in model.named_buffers()})
+    (lc, gc, bc), (lg, gg, bg) = runs["cpu"], runs["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    num = sum(((gg[n] - gc[n]) ** 2).sum() for n in gc)
+    assert (num / sum((g ** 2).sum() for g in gc.values())).sqrt() <= 0.1
+    for n in bc:
+        scale = bc[n].abs().max() + (bc[n[:-4] + "var"].max().sqrt() if n.endswith("mean") else 0)
+        assert (bg[n] - bc[n]).abs().max() <= 1e-4 * scale, n
+
+
+def test_predict_images_card_equals_cpu(card):
+    """The image runner's device part, eval form with BatchNorm folded, on
+    the card and on the CPU from the same weights: uint8 maps at the native
+    sizes within one level."""
+    from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
+    from iip_uavsal_saliency_tpu_torch.runners.infer_images import (load_image_model,
+                                                                    predict_images)
+
+    start = _image_start()
+    tree = to_jax_variables(start.state_dict(), table_of(start))
+    x, _ = _image_batch(b=3)
+    sizes = [(IMG_H, IMG_W), (100, 90), (300, 420)]
+    got = predict_images(load_image_model(tree, device="cuda"), x.to("cuda"), sizes)
+    want = predict_images(load_image_model(tree, device="cpu"), x, sizes)
+    for a, b, size in zip(got, want, sizes):
+        assert a.shape == b.shape == size and a.dtype == np.uint8
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["bf16", "f32"])
+def test_transplanted_video_train_step_launches(card, mixed, tmp_path):
+    """The video Trainer warm started from an image-stage tree (the neck
+    transplanted): each train step launches K1 once (bf16 mixed, the
+    persistent kernel) or once per frame (f32), K2 never, and the frozen
+    neck's parameters keep the image stage's bits."""
+    from iip_uavsal_saliency_tpu_torch.models.convert import table_of, to_jax_variables
+    from iip_uavsal_saliency_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    start = _image_start()
+    tree = to_jax_variables(start.state_dict(), table_of(start))
+    rng = np.random.RandomState(43)
+    frames = rng.randint(0, 256, (10, 64, 128, 3)).astype(np.uint8)
+    maps = rng.randint(0, 256, (10, 8, 16, 1)).astype(np.uint8)
+    fixs = (rng.rand(10, 8, 16, 1) < 0.1).astype(np.uint8)
+    fixs[:, 2, 3] = 1
+    cfg = TrainConfig(iosize=(64, 128, 8, 16), mixed_precision=mixed, epochs=1)
+    trainer = Trainer(cfg, "", "synthetic", str(tmp_path), device="cuda",
+                      ob_prior=rng.rand(8, 16, 20).astype(np.float32), pre_variables=tree,
+                      videos={"train": [("v", frames, maps, fixs)], "val": []})
+    (xc, yc), = trainer._clips(frames, maps, fixs)
+    rnn = trainer.model.init_state(64, 128, device=card)
+    want = ({"twa_scan": 1, "twa_step": 0, "dwblock": 0} if mixed
+            else {"twa_scan": 0, "twa_step": 10, "dwblock": 0})
+    for _ in range(2):
+        kernels.reset_launches()
+        loss, rnn = trainer.train_step(torch.from_numpy(xc)[None].to(card), trainer.gauss,
+                                       trainer.ob, rnn, torch.from_numpy(yc)[None].to(card))
+        torch.cuda.synchronize()
+        assert kernels.launches == want and torch.isfinite(loss)
+    params = dict(trainer.model.named_parameters())
+    for key, value in start.state_dict().items():
+        if key.startswith("sfnet.") and "running" not in key:
+            assert torch.equal(params[key].detach().cpu(), value), key

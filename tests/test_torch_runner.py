@@ -365,10 +365,13 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value, world, port_maps, 
 
 def test_cli_only_registers_test():
     """`test`, `train` (the training slice), `eval`, `eval-img` (the
-    evaluation slice) and `modelsize`; the JAX CLI's other subcommands are
-    refused."""
-    assert set(cli.COMMANDS) == {"train", "test", "eval", "eval-img", "modelsize"}
-    assert cli.main(["vis"]) == 2
+    evaluation slice), `modelsize`, and `train-img`, `vis` and `pipeline`
+    (the recipe slice); the JAX CLI's other subcommands (`convert`,
+    `export`, `test-aot`) are refused."""
+    assert set(cli.COMMANDS) == {"train", "train-img", "test", "eval", "eval-img", "vis",
+                                 "pipeline", "modelsize"}
+    assert set(cli.NOT_PORTED) == {"convert", "export", "test-aot"}
+    assert cli.main(["convert"]) == 2
     assert cli.main(["--help"]) == 0
 
 

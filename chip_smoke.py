@@ -124,6 +124,21 @@
    Phase 4 also times K2's f32 kernel (3xTF32) at the flagship block beside
    its three cuDNN convs (TF32 off), its plain version and its bound (3xTF32,
    with the plain-FMA bound beside it).
+5d. Trains the rest of the JAX package's options (360x640, seeded
+   `init_model` weights, TF32 off, the trainer's masked loss): two videos
+   a step (V=2, `videos_per_step`), one f32 step on the card against the
+   CPU at S=5 a video (`TOL_TRAIN_*`); at S=10 a video (video 1 a padded
+   ragged clip) the bf16 mixed and f32 steps with K1 against the plain
+   scan, their launches exactly bf16 {1, 0, 0} and f32 {0, 10, 0}, the f32
+   eval step's {0, 10, 0}; the same steps with `remat` against the plain
+   ones (loss, state and BN stats within `TOL_TRAIN_K1_*`, the gradient
+   within 2e-2) and their launches, exactly twice the plain step's; ms per
+   step (V=1, V=2 and V=2 remat in turns, bf16 and f32), frames/s, peak
+   memory (remat's at most 1.05 of the plain step's); the lock-step
+   `Trainer(videos=...)` over 3 videos of 20, 10 and 15 frames for 2
+   epochs, against 1 epoch and a resumed second (the files, the epoch
+   means, the weights and Adam's moments within bounds stated there), its
+   `_final.ckpt` served back to the trained model's maps.
 5b. Trains ResNet-50 UAVSal: one f32 step on the card against the CPU at
    128x224, S=10; at 360x640, S=10, the f32 and the bf16 mixed step with
    K1's launches exact (10 and 1), the loss falling over 10 steps on one
@@ -167,7 +182,8 @@ for K2 in bf16 and `dwblock_f32` for K2 in f32, each with
 `train_step_launches`, its launches counted in one train step of the dtype
 it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
 dwBlock on, and `config_launches`, its launches on each path of phase 3b,
-3c and 5b, and under `recipe` those of 5c); the
+3c and 5b, under `recipe` those of 5c and under `lockstep` those of 5d);
+the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
 outlives it.
@@ -1674,6 +1690,12 @@ def train_video(rng, n):
     return frames, gaze
 
 
+def array_video(name, frames, gaze):
+    """`train_video`'s frames and ground truth as `Trainer(videos=...)`
+    takes a video: (name, frames, maps uint8, fixations uint8)."""
+    return (name, frames, (gaze[..., :1] * 255).astype(np.uint8), gaze[..., 1:].astype(np.uint8))
+
+
 def train_model(torch, start, device, fused=False, scan=None, config=None):
     """The flagship (or the zoo model of `config`, the keyword arguments of
     `build_adapted_model`: a UAVSal configuration, or `model_name` and
@@ -1692,16 +1714,18 @@ def train_model(torch, start, device, fused=False, scan=None, config=None):
 
 
 def one_train_step(torch, kernels, start, batch, device, dtype=None, fused=False, scan=None,
-                   config=None):
+                   config=None, loss_fn=None, remat=False):
     """One train step (Adam, every parameter trained) from the weights
-    `start` on `batch` = (x, y, gauss, ob, state): (loss, {name: gradient},
+    `start` on `batch` = (x, y, gauss, ob, state), with `loss_fn` (the
+    step's default: `loss_fu`) and `remat`: (loss, {name: gradient},
     {name: buffer after}, new state, its launches), all on the host in f64."""
     from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
     from iip_uavsal_saliency_tpu_torch.training.steps import create_train_state, make_train_step
 
     model = train_model(torch, start, device, fused, scan, config)
+    kw = {} if loss_fn is None else {"loss_fn": loss_fn}
     step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR, TRAIN_WD)),
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, remat=remat, **kw)
     x, y, gauss, ob, state = (t.to(device) for t in batch)
     kernels.reset_launches()
     loss, new_state = step(x, gauss, ob, state, y)
@@ -1867,9 +1891,6 @@ def train_phase(torch, kernels, twa):
     shutil.rmtree(save_dir, ignore_errors=True)
     val_frames, val_gaze = train_video(rng, TRAIN_S)
 
-    def array_video(name, f, gz):
-        return (name, f, (gz[..., :1] * 255).astype(np.uint8), gz[..., 1:].astype(np.uint8))
-
     cfg = TrainConfig(method_name="ChipSmoke", iosize=(IN_H, IN_W, OUT_H, OUT_W), epochs=2)
     trainer = Trainer(cfg, "", "synthetic", save_dir, device="cuda", ob_prior=ob.numpy(),
                       videos={"train": [array_video("train", frames[:2 * TRAIN_S],
@@ -1968,6 +1989,255 @@ def train_phase(torch, kernels, twa):
           f"forward alone {k1_fwd_ms:.3f} ms, the TWA backward's recompute through twa_scan_ref "
           f"alone (bf16, {shape}) {recompute_ms:.3f} ms, {recompute_ms / bf16_ms:.1%} of the "
           f"bf16 step's {bf16_ms:.3f} ms")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5d. The rest of training at full width: two videos a step, remat, resume
+
+LOCKSTEP_V = 2      # videos a step (`videos_per_step`)
+LOCKSTEP_CPU_S = 5  # frames a video in the card-vs-CPU check (batch_size 1)
+# remat against the plain step on the card: the forward is computed once
+# either way, so loss, state and BN stats are held as K1 against the plain
+# scan is (TOL_TRAIN_K1_*); the gradient, whose backward runs on recomputed
+# activations, as the JAX package's remat test holds it
+# (tests/test_mixed_precision.py: relative L2 over the whole gradient)
+TOL_REMAT_GRAD = 2e-2
+REMAT_PEAK = 1.05   # remat's peak memory in a step at most this times the plain step's
+# K1 against the plain scan in the f32 V=2 step: the gradient sums twice the
+# frames through the same backward; an H100 read 2.0e-4 (V=1: 7.5e-5, held
+# to TOL_TRAIN_K1_GRAD), the rest of the V=1 readings' size
+TOL_LOCKSTEP_K1_GRAD = 5e-4
+LOCKSTEP_VIDEOS = (20, 10, 15)  # frames of the trainer's in-memory train videos
+# resumed against uninterrupted on the card, 8 train steps at lr 1e-4: each
+# Adam step moves a coordinate by about lr, and one whose gradient sits at
+# the noise level of the card's non-deterministic backward may step the
+# other way, so parameters within 2 lr a step (and their f32 rounding), BN
+# stats within TOL_TRAIN_BN of their scale a step, the epoch means within
+# TOL_TRAIN_LOSS; Adam's second moments (an average over all steps, which a
+# resume that lost them would restart: about half their size after 4 of 8
+# steps) within 1e-3 relative L2
+TOL_RESUME_NU = 1e-3
+
+
+def lockstep_batch(torch, rng, s, valid):
+    """Two videos of s frames as one lock-step batch: uint8 (2, s, 360, 640,
+    3) and ground truth (2, s, 45, 80, 3) [map, fixations, mask]; video 1
+    has `valid` real frames and the rest repeats its last one with the
+    mask 0, as the trainer pads a ragged clip."""
+    frames, gaze = zip(*(train_video(rng, s) for _ in range(LOCKSTEP_V)))
+    x, y = np.stack(frames), np.stack(gaze)
+    mask = np.ones(y.shape[:-1] + (1,), np.float32)
+    x[1, valid:], y[1, valid:], mask[1, valid:] = x[1, valid - 1], y[1, valid - 1], 0.0
+    return torch.from_numpy(x), torch.from_numpy(np.concatenate([y, mask], -1))
+
+
+def lockstep_phase(torch, kernels, twa):
+    """The rest of training at 360x640 on seeded `init_model` weights, TF32
+    off, the trainer's masked loss: (1) one f32 step at V=2 (S=5 a video)
+    on the card against the CPU; (2) the bf16 mixed and f32 steps at V=2,
+    S=10 (video 1 a padded ragged clip) with K1 against the plain scan,
+    their launches exact, and the f32 eval step's; (3) the same steps with
+    remat against the plain ones, launches exact (K1's forward runs again
+    in the backward); (4) ms per step in turns with V=1, frames/s, peak
+    memory, remat on and off; (5) `Trainer(videos=..., videos_per_step=2)`
+    over 3 videos of unequal length, 2 epochs, against 1 epoch and a
+    resumed second, its `_final.ckpt` served back. Returns the launches of
+    each path."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
+    from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference
+    from iip_uavsal_saliency_tpu_torch.serving.steps import make_baked_infer_step
+    from iip_uavsal_saliency_tpu_torch.training.checkpoint import load_checkpoint
+    from iip_uavsal_saliency_tpu_torch.training.losses import loss_fu
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.steps import (_maybe_normalize,
+                                                             create_train_state, make_eval_step,
+                                                             make_train_step)
+    from iip_uavsal_saliency_tpu_torch.training.trainer import TrainConfig, Trainer, _masked_loss
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng(SEED + 15)  # its own: the other phases' draws stay as they were
+    start = init_model(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    gauss = torch.from_numpy(get_gauss_priors(OUT_H, OUT_W, 8))
+    ob = torch.from_numpy(rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32))
+    masked = _masked_loss(loss_fu)
+    carried = torch.from_numpy(rng.normal(0.0, 0.5, (LOCKSTEP_V, OUT_H, OUT_W, 256))
+                               .astype(np.float32))
+    launches = {}
+
+    # (1) the card against the port on the CPU, f32
+    small = (*lockstep_batch(torch, rng, LOCKSTEP_CPU_S, LOCKSTEP_CPU_S), gauss, ob, carried)
+    t0 = time.perf_counter()
+    on_cpu = one_train_step(torch, kernels, start, small, cpu, loss_fn=masked)
+    cpu_s = time.perf_counter() - t0
+    on_card = one_train_step(torch, kernels, start, small, cuda, loss_fn=masked)
+    print(f"V=2 train step f32 (S={LOCKSTEP_CPU_S} a video) on the CPU took {cpu_s:.1f} s")
+    held_train(f"V=2 train step f32 (S={LOCKSTEP_CPU_S} a video), card vs CPU",
+               train_diffs(on_cpu, on_card), TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_LEAF,
+               TOL_TRAIN_BN, TOL_TRAIN_STATE)
+    del on_cpu, on_card, small
+
+    # (2) K1 against the plain scan and (3) remat against plain, V=2, S=10
+    batch = (*lockstep_batch(torch, rng, TRAIN_S, TRAIN_S // 2), gauss, ob, carried)
+    want = {"bf16": {"twa_scan": 1, "twa_step": 0, "dwblock": 0},
+            "f32": {"twa_scan": 0, "twa_step": TRAIN_S, "dwblock": 0}}
+    for dtype, tols in ((torch.bfloat16, (TOL_TRAIN_BF16_LOSS, TOL_TRAIN_BF16_GRAD, None,
+                                          TOL_TRAIN_BF16_BN, TOL_TRAIN_BF16_STATE)),
+                        (None, (TOL_TRAIN_K1_LOSS, TOL_LOCKSTEP_K1_GRAD, TOL_TRAIN_K1_LEAF,
+                                TOL_TRAIN_K1_BN, TOL_TRAIN_K1_STATE))):
+        name = "bf16" if dtype else "f32"
+        label = "bf16 mixed" if dtype else "f32"
+        k1 = one_train_step(torch, kernels, start, batch, cuda, dtype, loss_fn=masked)
+        plain = one_train_step(torch, kernels, start, batch, cuda, dtype, scan=twa.twa_scan_ref,
+                               loss_fn=masked)
+        if k1[4] != want[name] or any(plain[4].values()):
+            fail(f"V=2 train step {label}: K1 path launched {k1[4]} (expected {want[name]}), "
+                 f"plain path {plain[4]} (expected none)")
+        held_train(f"V=2 train step {label}, K1 vs the plain scan", train_diffs(plain, k1), *tols)
+        del plain
+        rematted = one_train_step(torch, kernels, start, batch, cuda, dtype, loss_fn=masked,
+                                  remat=True)
+        twice = {k: 2 * n for k, n in want[name].items()}
+        print(f"V=2 train step {label}: launches {k1[4]}, with remat {rematted[4]}")
+        if rematted[4] != twice:
+            fail(f"V=2 train step {label} with remat launched {rematted[4]}, expected {twice}")
+        d = train_diffs(k1, rematted)
+        held_train(f"V=2 train step {label}, remat vs plain", d, TOL_TRAIN_K1_LOSS, TOL_REMAT_GRAD,
+                   None, TOL_TRAIN_K1_BN, TOL_TRAIN_K1_STATE)
+        launches[f"V=2 train step, {name}"] = k1[4]
+        launches[f"V=2 remat train step, {name}"] = rematted[4]
+        del k1, rematted
+    model = train_model(torch, start, cuda)
+    x2, y2, g, o, state2 = (t.to(cuda) for t in batch)
+    kernels.reset_launches()
+    make_eval_step(model, masked)(x2, g, o, state2, y2)
+    torch.cuda.synchronize()
+    launches["V=2 eval step, f32"] = dict(kernels.launches)
+    print(f"V=2 eval step f32: launches {launches['V=2 eval step, f32']}")
+    if launches["V=2 eval step, f32"] != want["f32"]:
+        fail(f"the V=2 eval step launched {launches['V=2 eval step, f32']}, expected "
+             f"{want['f32']}")
+    del model
+
+    # (4) ms per step in turns, frames/s, peak memory
+    paths = {}
+    for dtype in (None, torch.bfloat16):
+        for v, remat in ((1, False), (2, False), (2, True)):
+            model = train_model(torch, start, cuda)
+            step = make_train_step(create_train_state(model, make_optimizer(model, TRAIN_LR,
+                                                                            TRAIN_WD)),
+                                   masked, dtype, remat=remat)
+            zero = model.init_state(IN_H, IN_W, v, device=cuda)
+            paths[dtype, v, remat] = (lambda step=step, zero=zero, v=v:
+                                      step(x2[:v], g, o, zero, y2[:v]))
+    windows = {key: [] for key in paths}
+    for dtype in (None, torch.bfloat16):
+        order = [(dtype, 1, False), (dtype, 2, False), (dtype, 2, True)]
+        for key in order + order[::-1]:
+            windows[key] += cuda_windows(paths[key], 2)
+    peaks = {}
+    for key, fn in paths.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[key] = (before, torch.cuda.max_memory_allocated())
+    for (dtype, v, remat), ws in windows.items():
+        ms = float(np.median(ws))
+        before, peak = peaks[dtype, v, remat]
+        print(f"train step {'bf16 mixed' if dtype else 'f32'} V={v}{' remat' if remat else ''} "
+              f"(S={TRAIN_S} a video, 360x640): median {ms:.3f} ms over {len(ws)} windows of 2 "
+              f"steps (turns V=1, V=2, V=2 remat and back), fastest {min(ws):.3f}; "
+              f"{v * TRAIN_S / ms * 1e3:.1f} training frames/s; peak {peak / 2**30:.3f} GiB, "
+              f"{(peak - before) / 2**30:.3f} GiB above the {before / 2**30:.3f} allocated "
+              "before the step")
+    for dtype in (None, torch.bfloat16):
+        (b0, p0), (b1, p1) = peaks[dtype, 2, False], peaks[dtype, 2, True]
+        ratio = (p1 - b1) / (p0 - b0)
+        print(f"remat's peak in a V=2 {'bf16 mixed' if dtype else 'f32'} step: {ratio:.3f} of "
+              f"the plain step's (above what lay allocated; limit {REMAT_PEAK})")
+        if ratio > REMAT_PEAK:
+            fail(f"remat raised the step's peak memory to {ratio:.3f} of the plain step's")
+    del paths, model, step
+
+    # (5) the trainer in lock-step over in-memory videos: 2 epochs, and 1
+    # epoch then a resumed second
+    save_dir = os.path.join(HERE, "build", "chip_smoke_lockstep")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    videos = {"train": [array_video(f"train{n}", *train_video(rng, n)) for n in LOCKSTEP_VIDEOS],
+              "val": [array_video("val", *train_video(rng, TRAIN_S))]}
+
+    def trainer(root, **kw):
+        cfg = TrainConfig(method_name="Lockstep", iosize=(IN_H, IN_W, OUT_H, OUT_W),
+                          videos_per_step=LOCKSTEP_V, **{"epochs": 2, **kw})
+        return Trainer(cfg, "", "synthetic", os.path.join(save_dir, root), device="cuda",
+                       ob_prior=ob.numpy(), videos=videos)
+
+    t0 = time.perf_counter()
+    whole = trainer("whole")
+    whole.train()
+    whole_s = time.perf_counter() - t0
+    trainer("split", epochs=1).train()
+    resumed = trainer("split", resume=True)
+    resumed.train()
+    dirs = {k: os.path.join(save_dir, k, "Lockstep") for k in ("whole", "split")}
+    files = {k: sorted(f for f in os.listdir(d) if f.endswith(".ckpt")) for k, d in dirs.items()}
+    steps = (whole.state.step, resumed.state.step)
+    if steps != (8, 8) or [f[:11] for f in files["whole"]] != [f[:11] for f in files["split"]]:
+        fail(f"lock-step trainer: steps {steps} (expected 8 each), checkpoints {files}")
+    logged = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            logged[k] = [json.loads(line) for line in f]
+    means = {k: [r["value"] for r in rows if r["tag"].endswith("mean_loss")]
+             for k, rows in logged.items()}
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(means["whole"], means["split"]))
+    ckpts = {k: load_checkpoint(os.path.join(d, [f for f in files[k] if f.startswith(
+        "Lockstep_01_")][0])) for k, d in dirs.items()}
+    opt = {k: c["opt_state"]["inner_states"]["train"]["inner_state"]["1"] for k, c in ckpts.items()}
+    nu = {k: np.concatenate([a.ravel() for a in _leaves(o["nu"])]) for k, o in opt.items()}
+    nu_err = np.linalg.norm(nu["split"] - nu["whole"]) / np.linalg.norm(nu["whole"])
+    sw, sr = whole.model.state_dict(), resumed.model.state_dict()
+    bitwise = all(torch.equal(sw[k], sr[k]) for k in sw)
+    lr = whole.cfg.learning_rate
+    worst_p = max(((sr[k] - sw[k]).abs().max().item()
+                   - 2 * np.spacing(np.float32(sw[k].abs().max().item()))) / (2 * lr * 8)
+                  for k in sw if "running" not in k)
+    bufs = {k: v.double().cpu() for k, v in sw.items() if "running" in k}
+    worst_bn = max((sr[k].double().cpu() - bufs[k]).abs().max().item() / bn_scale(bufs, k)
+                   for k in bufs) / (8 * TOL_TRAIN_BN)
+    print(f"lock-step trainer: 2 epochs of {steps[0] // 2} train steps over videos of "
+          f"{LOCKSTEP_VIDEOS} frames and 1 val step in {whole_s:.1f} s; epoch means "
+          f"{[round(v, 4) for v in means['whole']]}; 1 epoch then a resumed second: checkpoints "
+          f"{files['split']}, the same; weights bit for bit equal: {bitwise}; epoch means "
+          f"{loss_err:.3g} apart (tolerance {TOL_TRAIN_LOSS}), parameters at {worst_p:.3g} and BN "
+          f"stats at {worst_bn:.3g} of their bounds, Adam's second moments {nu_err:.3g} (relative "
+          f"L2, tolerance {TOL_RESUME_NU}); opt_state in optax's layout, count "
+          f"{opt['split']['count']!r}")
+    if not (loss_err <= TOL_TRAIN_LOSS and worst_p <= 1.0 and worst_bn <= 1.0
+            and nu_err <= TOL_RESUME_NU and int(opt["split"]["count"]) == 8
+            and opt["split"]["count"].dtype == np.int32):
+        fail("the resumed lock-step run is not the uninterrupted one")
+    final = os.path.join(dirs["whole"], "Lockstep_final.ckpt")
+    served = load_model_for_inference(final, fold_bn=False, device="cuda")
+    serve = make_baked_infer_step(served, gauss.numpy(), ob.numpy())
+    x = torch.from_numpy(videos["val"][0][1][None]).to(cuda)
+    zero = served.init_state(IN_H, IN_W, device=cuda)
+    maps, _ = serve(x, zero)
+    whole.model.eval()
+    with torch.no_grad():
+        mine, _ = whole.model(_maybe_normalize(x), g, o, zero)
+    print(f"lock-step trainer: {final} served: maps {tuple(maps.shape)} equal to the trained "
+          f"model's in eval mode: {torch.equal(maps, mine)}")
+    if not torch.equal(maps, mine) or not torch.isfinite(maps).all():
+        fail("the served lock-step _final.ckpt does not give the trained model's maps")
+    print(f"phase 5d (two videos a step, remat, resume) took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2817,6 +3087,8 @@ def main() -> None:
 
     # 5. training
     train_launches = train_phase(torch, kernels, twa)
+    # 5d. two videos a step, remat, resume
+    lockstep_launches = lockstep_phase(torch, kernels, twa)
     config_train_launches = config_train_phase(torch, kernels)
     # 5c. the reference's three-stage recipe
     recipe_launches = recipe_phase(torch, kernels)
@@ -2833,6 +3105,7 @@ def main() -> None:
         counts.update({f"ResNet-50 train step, {dtype}": n[kernel]
                        for dtype, n in config_train_launches.items()})
         counts["recipe"] = {path: n[kernel] for path, n in recipe_launches.items()}
+        counts["lockstep"] = {path: n[kernel] for path, n in lockstep_launches.items()}
         return counts
 
     print(smi)

@@ -24,7 +24,10 @@ JAX package's `train` does, writing `<save_model_dir>/<method_name>/` epoch
 checkpoints, `_best.ckpt` and `_final.ckpt`; `--model-path` is a video-model
 `.ckpt` to start from (warm start), or an image-stage `.ckpt` from
 `train-img`, whose SRF-Net is transplanted into the video model drawn from
-seed 0; else the weights are drawn from seed 0.
+seed 0; else the weights are drawn from seed 0. `--videos_per_step N`
+trains N videos in lock-step, `--remat true` recomputes the forward in the
+backward, and `--resume true` continues from the newest epoch checkpoint,
+which either package may have written.
 
 `train-img` is the reference recipe's SALICON stage: `SRFNetImage`
 trained on `<data_dir>/salicon-15/{train,val}` at `img_iosize` with

@@ -251,6 +251,20 @@ def _check_same(what: str, have, table_has) -> None:
                          f"(first {missing[:3]})")
 
 
+def leaf_from_jax(leaf, is_kernel: bool) -> np.ndarray:
+    """One JAX leaf in the port's layout, f32 C-order: a conv kernel
+    (..., I, O) goes to (O, I, ...)."""
+    a = np.asarray(leaf)
+    if is_kernel:
+        a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+    return np.array(a, np.float32, order="C")
+
+
+def leaf_to_jax(a: np.ndarray, is_kernel: bool) -> np.ndarray:
+    """The inverse of `leaf_from_jax` (a view where it transposes)."""
+    return a.transpose(*range(2, a.ndim), 1, 0) if is_kernel else a
+
+
 def from_jax_variables(variables: Mapping[str, Any], table: List[Row] = TABLE) -> StateDict:
     """JAX variables of a zoo model -> this port's state_dict (f32 tensors).
     `table` is the model's own (`table_of`; the flagship's by default) or
@@ -266,10 +280,7 @@ def from_jax_variables(variables: Mapping[str, Any], table: List[Row] = TABLE) -
         leaf = variables
         for p in path:
             leaf = leaf[p]
-        a = np.asarray(leaf)
-        if is_kernel:  # (..., I, O) -> (O, I, ...)
-            a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
-        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+        out[key] = torch.from_numpy(leaf_from_jax(leaf, is_kernel))
     return out
 
 
@@ -286,5 +297,5 @@ def to_jax_variables(state_dict: Mapping[str, Any], table: List[Row] = TABLE) ->
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = a.transpose(*range(2, a.ndim), 1, 0) if is_kernel else a
+        node[path[-1]] = leaf_to_jax(a, is_kernel)
     return tree

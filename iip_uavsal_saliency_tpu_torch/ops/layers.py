@@ -4,7 +4,9 @@ Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
 
 - `BatchNorm` == TorchBatchNorm: in eval mode `y = x * s + b` with the
   per-channel affine computed in f32 and applied in the activation dtype; in
-  train mode batch statistics and the running-stat EMA.
+  train mode batch statistics and the running-stat EMA, which
+  `running_stats_held()` switches off while a rematerialized forward is
+  recomputed.
 - `ConvBNAct` == BasicConv2d: Conv(bias=False) -> BatchNorm -> ReLU6 (no
   activation with `act=False`, as ResNet's `downsample`) with symmetric
   `dilation * (k - 1) // 2` padding. The JAX package computes the ASPP
@@ -29,7 +31,8 @@ with `strict=True`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +42,24 @@ from .dwblock import fused_dwblock, pack_dwblock_weights, supports_fused_dwblock
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's convention, new = m * old + (1 - m) * batch (torch's 0.1)
+
+# open `running_stats_held` contexts; a global, not a thread-local: the
+# autograd engine recomputes a checkpointed forward on its own thread
+_stats_held = 0
+
+
+@contextlib.contextmanager
+def running_stats_held() -> Iterator[None]:
+    """Train-mode BatchNorms inside take their batch statistics as before
+    but leave the running stats where they are. The recompute of a
+    checkpointed forward runs in it (`training/steps.py`, `remat`): the
+    forward moved the stats once, as the JAX package's forward does."""
+    global _stats_held
+    _stats_held += 1
+    try:
+        yield
+    finally:
+        _stats_held -= 1
 
 
 def channels_last_format(t: torch.Tensor) -> torch.memory_format:
@@ -117,8 +138,11 @@ class BatchNorm(nn.Module):
                 # drifted 2% from the card's; the contiguous kernel
                 # accumulates in f64
                 x = x.contiguous()
-            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight.to(dt),
-                             self.bias.to(dt), True, 1.0 - BN_MOMENTUM, self.eps)
+            stats = (self.running_mean, self.running_var)
+            if _stats_held:  # copies that take the EMA (no stats at all save fewer tensors,
+                stats = tuple(t.clone() for t in stats)  # which the recompute check refuses)
+            y = F.batch_norm(x, *stats, self.weight.to(dt), self.bias.to(dt), True,
+                             1.0 - BN_MOMENTUM, self.eps)
             return y.contiguous(memory_format=layout) if cpu_channels_last else y
         s, b = self.affine()
         shape = (1, -1) + (1,) * (x.dim() - 2)

@@ -21,20 +21,32 @@ JAX package instead lets flax write bf16 stats and recovers the f32 EMA
 from them (`_accumulate_bn`), which equals this up to one bf16 rounding of
 the batch term.
 
-Meshes, sharding, `remat` and `donate` are not part of this module: the
-port trains one video at a time on one card (ROADMAP A.9b), and a PyTorch
-optimizer updates the parameters in place, which is what donation buys.
+`remat=True` wraps the forward, the bf16 casts included, in one
+`torch.utils.checkpoint` (non-reentrant), the counterpart of
+`jax.checkpoint` around the JAX step's forward: the backward recomputes the
+activations it needs. The recompute runs inside
+`ops/layers.py::running_stats_held`, so the BatchNorm running stats move
+once a step, in the forward, as in the JAX package; K1's forward runs again
+in it (ConvTWA's `autograd.Function` is part of what is recomputed).
+
+Meshes, sharding and `donate` are not part of this module: the port trains
+on one card (several videos per step stack on V; multi-GPU data parallelism
+is ROADMAP A.11b), and a PyTorch optimizer updates the parameters in place,
+which is what donation buys.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
+from ..ops.layers import running_stats_held
 from .losses import loss_fu
 
 
@@ -74,15 +86,21 @@ def _loss(loss_fn, out, y_true):
     return loss_fn(out.reshape(v * s, *out.shape[2:]), y_true.reshape(v * s, *y_true.shape[2:]))
 
 
+def _recompute_contexts():
+    """(forward's context, recompute's context) for `checkpoint`."""
+    return contextlib.nullcontext(), running_stats_held()
+
+
 def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None, remat: bool = False):
     """step(x, gauss, ob, rnn_state, y_true) -> (loss, new_rnn_state) over
     `state` (its model and optimizer are updated in place, its step counted).
 
     x: (V, S, H, W, 3) uint8 or normalized f32; y_true: (V, S, Ho, Wo, C);
     rnn_state: (V, Ho, Wo, 256); a prior the model's `bias_type` leaves
     off is None. The loss comes back as a detached f32
-    scalar on the device, the new state detached and in f32."""
+    scalar on the device, the new state detached and in f32. `remat`
+    recomputes the forward in the backward (module docstring)."""
     model, optimizer = state.model, state.optimizer
 
     def forward(x, gauss, ob, rnn_state):
@@ -92,10 +110,15 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
         args = tuple(None if t is None else t.to(compute_dtype) for t in (x, gauss, ob, rnn_state))
         return torch.func.functional_call(model, cast, args)
 
+    def rematerialized(*args):
+        return checkpoint(forward, *args, use_reentrant=False, context_fn=_recompute_contexts)
+
+    run = rematerialized if remat else forward
+
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out, new_rnn = forward(_maybe_normalize(x), gauss, ob, rnn_state.detach())
+        out, new_rnn = run(_maybe_normalize(x), gauss, ob, rnn_state.detach())
         loss = _loss(loss_fn, out, y_true)
         loss.backward()
         optimizer.step()

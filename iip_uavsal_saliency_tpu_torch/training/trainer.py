@@ -1,6 +1,6 @@
 """The training loop: whole videos as clips with the TWA state carried
-(counterpart of `iip_uavsal_saliency_tpu/training/trainer.py`, its
-single-video path).
+(counterpart of `iip_uavsal_saliency_tpu/training/trainer.py` without a
+mesh).
 
 - per epoch, a train and a val phase over the txt split lists;
 - per video: decode and letterbox every frame, cut to a multiple of
@@ -10,18 +10,30 @@ single-video path).
   and in the train phase the backward and Adam (`training/steps.py`); the
   state is carried to the next clip as data (TBPTT) and starts at zero for
   each video;
+- `videos_per_step` > 1: groups of that many videos advance in lock-step,
+  one (V, S) batch a step with a state of V videos. The split is sorted
+  (stably) by frame count first, so that like-length videos share a group;
+  a ragged clip is right-padded with its last frame, a video out of clips
+  repeats its last one (or a donor's), a short last group is filled with
+  copies of its first video, all with the loss mask at 0 there. The
+  repeated frames still move the carried state and feed train-mode
+  BatchNorm's statistics, as in the JAX trainer;
 - early stop on the val phase's mean loss with patience, a `_best`
   checkpoint before each epoch checkpoint, and `_final` with the best
   weights at the end; `resume` continues from the newest epoch checkpoint.
+  An epoch checkpoint holds Adam's state in optax's layout
+  (`training/optim.py::optax_tree`), so either package resumes a run the
+  other began; the port's own layout of earlier versions is read too.
 
-The clip loop takes videos as paths (decoded one video ahead on a worker
-thread) or as arrays already decoded (`videos=`), which is how a machine
-without OpenCV or h5py drives it. The model is the zoo model
-`model_name` of the configuration (`cnn_type`, `num_stblock`, `bias_type`,
-`s2d_stem`, `st_type`; `models/adapters.py::build_adapted_model`, each
-class taking the keywords it has, as the JAX trainer builds it); several
-videos per step and `remat` raise NotImplementedError naming their ROADMAP
-item.
+The clip loop takes videos as paths (decoded one video, or one group,
+ahead on a worker thread; the frame count for the sort read from the
+header) or as arrays already decoded (`videos=`; sorted by their frame
+count), which is how a machine without OpenCV or h5py drives it. The model
+is the zoo model `model_name` of the configuration (`cnn_type`,
+`num_stblock`, `bias_type`, `s2d_stem`, `st_type`;
+`models/adapters.py::build_adapted_model`, each class taking the keywords
+it has, as the JAX trainer builds it). `remat` recomputes the forward in
+the backward (`training/steps.py`).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import numpy as np
 import torch
 
 from ..data.lists import read_video_list
+from ..data.loaders import _prefetched
 from ..data.priors import get_gauss_priors, get_ob_priors
 from ..device import resolve_device
 from ..models.adapters import build_adapted_model
@@ -47,7 +60,7 @@ from ..utils.logging import get_logger
 from ..utils.metrics_log import MetricsLogger
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .losses import LOSSES, PER_FRAME
-from .optim import load_optimizer_tree, make_frozen_mask, make_optimizer, optimizer_tree
+from .optim import load_optimizer_state, make_frozen_mask, make_optimizer, optax_tree
 from .steps import create_train_state, make_eval_step, make_train_step
 
 log = get_logger("trainer")
@@ -82,25 +95,12 @@ class TrainConfig:
     shuffle_train: bool = True
     max_train_frames: float = float("inf")
     max_val_frames: float = float("inf")
-    videos_per_step: int = 1     # > 1: ROADMAP A.9b
+    videos_per_step: int = 1     # videos advancing in lock-step, one (V, S) batch a step
     resume: bool = False         # continue from the newest epoch checkpoint
     loss_name: str = "fu"        # a key of training.losses.LOSSES
     mixed_precision: bool = False  # bf16 compute, f32 masters, moments and BN stats
-    remat: bool = False          # ROADMAP A.9b
+    remat: bool = False          # recompute the forward in the backward
     prefetch_decode: bool = True  # decode video k+1 while video k trains
-
-
-# what the port trains, and the ROADMAP item of the rest
-_SUPPORTED = {"videos_per_step": (1, "A.9b"), "remat": (False, "A.9b")}
-
-
-def check_supported(cfg: TrainConfig) -> None:
-    for key, (want, item) in _SUPPORTED.items():
-        value = getattr(cfg, key)
-        if value != want:
-            raise NotImplementedError(
-                f"{key}={value!r}: the port trains one video per step, without remat "
-                f"({key}={want!r}); this is ROADMAP {item}")
 
 
 def _masked_loss(loss_fn: Callable):
@@ -121,13 +121,21 @@ def _masked_loss(loss_fn: Callable):
     return fn
 
 
+def _masked_off(y: np.ndarray) -> np.ndarray:
+    """y with its loss mask (channel 2) at 0."""
+    return np.concatenate([y[..., :2], np.zeros_like(y[..., 2:])], -1)
+
+
 def clips_of(frames: np.ndarray, maps: np.ndarray, fixs: np.ndarray, clip_len: int,
-             time_dims: int) -> List[Clip]:
+             time_dims: int, pad_ragged: bool = False) -> List[Clip]:
     """A decoded video as training clips: the frames cut to a multiple of
     `time_dims` (and to the shortest of frames, maps and fixations), slices
     of `clip_len` frames with the last one at its true size, each
     (x uint8 (n, H, W, 3), y f32 (n, Ho, Wo, 3) = [map, fixations, mask]);
-    a clip with a ground-truth frame that is all zeros is skipped."""
+    a clip with a ground-truth frame that is all zeros is skipped.
+    `pad_ragged` right-pads a short last clip to `clip_len` by repeating
+    its last frame and ground truth, with the mask 0 on the padding (the
+    lock-step path stacks clips of one shape)."""
     nframes = min(len(frames), len(maps), len(fixs))
     n = nframes // time_dims * time_dims
     frames = frames[:n]
@@ -138,7 +146,13 @@ def clips_of(frames: np.ndarray, maps: np.ndarray, fixs: np.ndarray, clip_len: i
         y = gaze[start:start + clip_len].astype(np.float32)
         if not np.all(np.any(y, axis=(1, 2))):
             continue
-        mask = np.ones(y.shape[:3] + (1,), np.float32)
+        n_valid = len(x)
+        if pad_ragged and n_valid < clip_len:
+            pad = clip_len - n_valid
+            x = np.concatenate([x, np.repeat(x[-1:], pad, 0)], 0)
+            y = np.concatenate([y, np.repeat(y[-1:], pad, 0)], 0)
+        mask = np.zeros(y.shape[:3] + (1,), np.float32)
+        mask[:n_valid] = 1.0
         clips.append((x, np.concatenate([y, mask], -1)))
     return clips
 
@@ -162,8 +176,8 @@ class Trainer:
                  save_model_dir: str, ext: str = ".avi", pre_variables=None,
                  priors_cache_dir: str = "", device=None, ob_prior: Optional[np.ndarray] = None,
                  videos: Optional[Mapping[str, Sequence[ArrayVideo]]] = None):
-        check_supported(config)
         self.cfg = config
+        self._nframes_cache: Dict[str, int] = {}
         self.device = resolve_device(device)
         self.train_data_dir = train_data_dir
         self.ext = ext
@@ -211,7 +225,8 @@ class Trainer:
         self.state = create_train_state(model, optimizer)
         loss = _masked_loss(LOSSES[config.loss_name])
         self.train_step = make_train_step(
-            self.state, loss, torch.bfloat16 if config.mixed_precision else None)
+            self.state, loss, torch.bfloat16 if config.mixed_precision else None,
+            remat=config.remat)
         self.eval_step = make_eval_step(model, loss)
 
     @property
@@ -221,7 +236,7 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _video_clips(self, vid_path: str, map_path: str, fix_path: str,
-                     max_frames: float) -> List[Clip]:
+                     max_frames: float, pad_ragged: bool = False) -> List[Clip]:
         """Decode and letterbox one video and its ground truth into clips."""
         from ..data.video import preprocess_videos, preprocess_vidfixs, preprocess_vidmaps
 
@@ -229,32 +244,51 @@ class Trainer:
         maps = preprocess_vidmaps(map_path, out_r, out_c, max_frames)
         fixs = preprocess_vidfixs(fix_path, out_r, out_c, max_frames)
         frames, nframes, _, _ = preprocess_videos(vid_path, shape_r, shape_c, max_frames)
-        return self._clips(frames[:nframes], maps, fixs)
+        return self._clips(frames[:nframes], maps, fixs, pad_ragged)
 
-    def _clips(self, frames, maps, fixs) -> List[Clip]:
+    def _clips(self, frames, maps, fixs, pad_ragged: bool = False) -> List[Clip]:
         cfg = self.cfg
-        return clips_of(frames, maps, fixs, cfg.batch_size * cfg.time_dims, cfg.time_dims)
+        return clips_of(frames, maps, fixs, cfg.batch_size * cfg.time_dims, cfg.time_dims,
+                        pad_ragged)
+
+    def _nframes(self, path: str) -> int:
+        """The header's frame count of the video at `path`, probed once per
+        path for all epochs and phases."""
+        if path not in self._nframes_cache:
+            from ..data.video import probe_nframes
+
+            self._nframes_cache[path] = probe_nframes(path)
+        return self._nframes_cache[path]
 
     def _phase_videos(self, phase: str, max_frames: float):
-        """(names, the clips of each video as an iterator)."""
+        """The phase's videos: (names, items, load, nframes), where
+        `load(item, pad_ragged)` gives an item's clips and `nframes(item)`
+        its frame count before the `max_frames` cut."""
         if self.videos is not None:
             items = list(self.videos.get(phase, ()))
-            names = [name for name, *_ in items]
             cut = None if max_frames == float("inf") else int(max_frames)
-            return names, (self._clips(f[:cut], m[:cut], x[:cut]) for _, f, m, x in items)
+
+            def load_array(item, pad_ragged=False):
+                _, f, m, x = item
+                return self._clips(f[:cut], m[:cut], x[:cut], pad_ragged)
+
+            return [name for name, *_ in items], items, load_array, lambda item: len(item[1])
         shuffle = self.cfg.shuffle_train if phase == "train" else False
         triples = list(zip(*read_video_list(self.train_data_dir, phase, shuffle=shuffle,
                                             ext=self.ext)))
-        names = [os.path.basename(t[0]) for t in triples]
 
-        def load(triple):
-            return self._video_clips(*triple, max_frames)
+        def load_file(triple, pad_ragged=False):
+            return self._video_clips(*triple, max_frames, pad_ragged=pad_ragged)
 
-        if not self.cfg.prefetch_decode or len(triples) < 2:
-            return names, (load(t) for t in triples)
-        from ..data.loaders import _prefetched
+        return ([os.path.basename(t[0]) for t in triples], triples, load_file,
+                lambda triple: self._nframes(triple[0]))
 
-        return names, _prefetched(triples, load, prefetch=1)
+    def _decode_iter(self, items: Sequence, load: Callable):
+        """`load(item)` for each item, the next one decoded on a worker
+        thread while this one steps (unless `prefetch_decode` is off)."""
+        if not self.cfg.prefetch_decode or len(items) < 2:
+            return (load(it) for it in items)
+        return _prefetched(items, load, prefetch=1)
 
     def _step(self, phase: str, x, y, rnn_state):
         if phase == "train":
@@ -263,38 +297,89 @@ class Trainer:
             loss, rnn_state = self.eval_step(x, self.gauss, self.ob, rnn_state, y)
         return float(loss), rnn_state
 
-    def _run_videos(self, phase: str, names: Sequence[str], clip_lists) -> float:
-        """The clip loop over videos given as lists of clips: the mean loss
-        over every clip of the phase, or inf when no clip ran."""
+    def _logged_step(self, phase: str, x: np.ndarray, y: np.ndarray, rnn_state):
+        """One step on a host batch (V, S, ...) moved to the card (uint8
+        frames: the step normalizes there); the train loss is logged."""
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        y = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)
+        loss, rnn_state = self._step(phase, x, y, rnn_state)
+        if phase == "train":
+            self.metrics.scalar("train/loss", loss, self.state.step)
+        return loss, rnn_state
+
+    def _run_videos(self, phase: str, names: Sequence[str], clip_lists) -> List[float]:
+        """The clip loop over videos given as lists of clips, one video a
+        step: the loss of every step."""
         shape_r, shape_c = self.cfg.iosize[:2]
-        run_loss, num_step = 0.0, 0
+        losses: List[float] = []
         for idx, clips in enumerate(clip_lists):
             log.info("%s video %d/%d: %s", phase, idx + 1, len(names), names[idx])
             rnn_state = self.model.init_state(shape_r, shape_c, 1, device=self.device)
-            video_loss = 0.0
+            video_losses = []
             for x, y in clips:
-                # uint8 to the card; the step normalizes there
-                x = torch.from_numpy(np.ascontiguousarray(x))[None].to(self.device)
-                y = torch.from_numpy(y)[None].to(self.device)
-                loss, rnn_state = self._step(phase, x, y, rnn_state)
-                video_loss += loss
-                run_loss += loss
-                num_step += 1
-                if phase == "train":
-                    self.metrics.scalar("train/loss", loss, self.state.step)
+                loss, rnn_state = self._logged_step(phase, x[None], y[None], rnn_state)
+                video_losses.append(loss)
             if clips:
-                log.info("  mean %s loss: %.4f", phase, video_loss / len(clips))
-        if not num_step:
+                log.info("  mean %s loss: %.4f", phase, sum(video_losses) / len(clips))
+            losses += video_losses
+        return losses
+
+    def _run_lockstep(self, phase: str, names: Sequence[str], items: Sequence, load: Callable,
+                      nframes: Callable, max_frames: float) -> List[float]:
+        """Groups of `videos_per_step` videos in lock-step (the JAX
+        trainer's `_run_epoch_multivideo`, module docstring): the loss of
+        every step. An unreadable header keeps the list order."""
+        v_per = self.cfg.videos_per_step
+        shape_r, shape_c = self.cfg.iosize[:2]
+        order = list(range(len(items)))
+        try:
+            lengths = [min(nframes(item), max_frames) for item in items]
+            order.sort(key=lengths.__getitem__)  # stable: a shuffle stays within equal lengths
+        except Exception:  # noqa: BLE001 -- any probe failure keeps the list order
+            log.warning("length bucketing skipped: the frame-count probe failed")
+        items, names = [items[i] for i in order], [names[i] for i in order]
+        groups = [items[g0:g0 + v_per] for g0 in range(0, len(items), v_per)]
+        losses: List[float] = []
+        clip_groups = self._decode_iter(
+            groups, lambda group: [load(item, pad_ragged=True) for item in group])
+        for gi, clip_lists in enumerate(clip_groups):
+            g0 = gi * v_per
+            log.info("%s videos %d-%d/%d: %s", phase, g0 + 1, g0 + len(clip_lists), len(items),
+                     ", ".join(names[g0:g0 + v_per]))
+            while len(clip_lists) < v_per:  # a short last group: its first video, masked
+                clip_lists.append([(x, _masked_off(y)) for x, y in clip_lists[0]])
+            if not any(clip_lists):
+                continue
+            donor = next(c for c in clip_lists if c)
+            rnn_state = self.model.init_state(shape_r, shape_c, v_per, device=self.device)
+            for t in range(max(len(c) for c in clip_lists)):
+                xs, ys = [], []
+                for clips in clip_lists:
+                    if t < len(clips):
+                        x, y = clips[t]
+                    else:  # out of clips: its last one again (a donor's if none), masked
+                        x, y = (clips or donor)[-1]
+                        y = _masked_off(y)
+                    xs.append(x)
+                    ys.append(y)
+                loss, rnn_state = self._logged_step(phase, np.stack(xs), np.stack(ys), rnn_state)
+                losses.append(loss)
+        return losses
+
+    def _run_epoch(self, phase: str) -> float:
+        """The phase's mean loss over its steps, or inf when no step ran."""
+        max_frames = self.cfg.max_train_frames if phase == "train" else self.cfg.max_val_frames
+        names, items, load, nframes = self._phase_videos(phase, max_frames)
+        if self.cfg.videos_per_step > 1:
+            losses = self._run_lockstep(phase, names, items, load, nframes, max_frames)
+        else:
+            losses = self._run_videos(phase, names, self._decode_iter(items, load))
+        if not losses:
             # 0.0 would win the early-stop comparison and keep these weights
             log.warning("%s epoch ran no step (empty split, or every clip skipped for "
                         "empty ground truth)", phase)
             return float("inf")
-        return run_loss / num_step
-
-    def _run_epoch(self, phase: str) -> float:
-        max_frames = self.cfg.max_train_frames if phase == "train" else self.cfg.max_val_frames
-        names, clip_lists = self._phase_videos(phase, max_frames)
-        return self._run_videos(phase, names, clip_lists)
+        return sum(losses) / len(losses)
 
     # ------------------------------------------------------------------ #
 
@@ -303,32 +388,32 @@ class Trainer:
         return {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
 
     def _epoch_payload(self, epoch: int, min_val_loss: float, num_patience: int) -> dict:
+        """What the JAX trainer's epoch checkpoint holds, in its layout."""
         return {**to_jax_variables(self.model.state_dict(), self.table),
-                "opt_state": optimizer_tree(self.model, self.state.optimizer),
-                "step": self.state.step, "epoch": epoch, "min_val_loss": min_val_loss,
-                "num_patience": num_patience}
+                "opt_state": optax_tree(self.model, self.state.optimizer, self.table,
+                                        bool(self.cfg.freeze)),
+                "step": np.asarray(self.state.step, np.int32), "epoch": epoch,
+                "min_val_loss": min_val_loss, "num_patience": num_patience}
 
     def _resume(self):
         """(start epoch, min val loss, patience, best weights) from the
-        newest epoch checkpoint, which this port wrote; the state is loaded."""
+        newest epoch checkpoint, which either package wrote; the weights,
+        BatchNorm stats, Adam's state and the step are loaded."""
         latest = latest_checkpoint(self.model_dir, self.cfg.method_name)
         if not latest:
             return 0, float("inf"), 0, None
         ckpt = load_checkpoint(latest)
-        if not set(ckpt.get("opt_state", {})) <= {n for n, _ in self.model.named_parameters()}:
-            raise NotImplementedError(
-                f"{latest} holds another optimizer layout (the JAX package's?): resuming "
-                "across packages is ROADMAP A.9b")
         self.model.load_state_dict(from_jax_variables(ckpt, self.table), strict=True)
-        load_optimizer_tree(self.model, self.state.optimizer, ckpt["opt_state"])
+        load_optimizer_state(self.model, self.state.optimizer, ckpt["opt_state"], self.table,
+                             bool(self.cfg.freeze))
         self.state.step = int(ckpt["step"])
         best = None
         best_ckpt = f"{self.prefix}_best.ckpt"
         if os.path.exists(best_ckpt):
             best = dict(from_jax_variables(load_checkpoint(best_ckpt), self.table))
         log.info("resumed from %s (epoch %d)", latest, int(ckpt["epoch"]) + 1)
-        return (int(ckpt["epoch"]) + 1, float(ckpt["min_val_loss"]),
-                int(ckpt["num_patience"]), best)
+        return (int(ckpt["epoch"]) + 1, float(ckpt.get("min_val_loss", float("inf"))),
+                int(ckpt.get("num_patience", 0)), best)
 
     def train(self):
         try:

@@ -767,6 +767,96 @@ def test_train_step_launches(card, fused):
     assert kernels.launches["twa_step"] == 10 and (kernels.launches["dwblock"] > 0) == fused
 
 
+def _lockstep_step(card, dtype, remat=False, scan=None, contexts=None):
+    """One train step of the flagship (seed 0, every parameter trained) at
+    64x128 on two videos in lock-step, S=10 each, video 1's last 5 frames a
+    ragged clip's padding (mask 0), the trainer's masked loss: (loss,
+    gradients, BatchNorm buffers, new state, launches). `scan` replaces
+    ConvTWA's scan, `contexts` the remat's recompute contexts."""
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import init_model
+    from iip_uavsal_saliency_tpu_torch.training import steps
+    from iip_uavsal_saliency_tpu_torch.training.losses import loss_fu
+    from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
+    from iip_uavsal_saliency_tpu_torch.training.trainer import _masked_loss
+
+    (x0, gauss, ob, y0), (x1, _, _, y1) = _train_batch(card, seed=31), _train_batch(card, seed=32)
+    x, y = torch.cat([x0, x1]), torch.cat([y0, y1])
+    mask = torch.ones_like(y[..., :1])
+    x[1, 5:], y[1, 5:], mask[1, 5:] = x[1, 4], y[1, 4], 0.0
+    model = init_model(UAVSal(), torch.Generator().manual_seed(0))
+    model.to(card, memory_format=torch.channels_last)
+    if scan is not None:
+        model.rnn.scan = scan
+    state = steps.create_train_state(model, make_optimizer(model))
+    if contexts is not None:
+        original, steps._recompute_contexts = steps._recompute_contexts, contexts
+    try:
+        step = steps.make_train_step(state, _masked_loss(loss_fu), dtype, remat=remat)
+        kernels.reset_launches()
+        loss, rnn = step(x, gauss, ob, model.init_state(64, 128, 2, device=card),
+                         torch.cat([y, mask], -1))
+        torch.cuda.synchronize()
+    finally:
+        if contexts is not None:
+            steps._recompute_contexts = original
+    grads = {n: p.grad.double() for n, p in model.named_parameters()}
+    bufs = {n: b.double() for n, b in model.named_buffers()}
+    return float(loss), grads, bufs, rnn.double(), dict(kernels.launches)
+
+
+def _grad_error(a, b):
+    """Relative L2 of gradient set a against b over the whole model."""
+    return (sum(((a[n] - b[n]) ** 2).sum() for n in b) / sum((b[n] ** 2).sum() for n in b)
+            ).sqrt().item()
+
+
+# two videos a step against the plain scan on the card: the bounds of
+# chip_smoke.py's training phase (TOL_TRAIN_K1_* in f32, TOL_TRAIN_BF16_*)
+LOCKSTEP_TOL = {None: (1e-6, 2e-4, 1e-4), torch.bfloat16: (3e-4, 0.2, 0.3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_two_video_train_step_k1_against_plain(card, dtype):
+    """At V=2 the bf16 mixed step launches the persistent K1 once (its grid
+    loops over V) and the f32 step the per-frame kernel once a frame (grid
+    z = V), K2 never; loss, gradient and carried state agree with the same
+    step through the plain scan."""
+    k1 = _lockstep_step(card, dtype)
+    plain = _lockstep_step(card, dtype, scan=twa_scan_ref)
+    route = "twa_scan" if dtype else "twa_step"
+    assert k1[4] == _launches(route, 10) and not any(plain[4].values())
+    tol_loss, tol_grad, tol_state = LOCKSTEP_TOL[dtype]
+    assert abs(k1[0] - plain[0]) <= tol_loss * abs(plain[0])
+    assert _grad_error(k1[1], plain[1]) <= tol_grad
+    assert (k1[3] - plain[3]).abs().max().item() <= tol_state
+    assert k1[3].shape == (2, 8, 16, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_remat_step_launches_k1_twice_and_moves_bn_stats_once(card, dtype):
+    """With remat the recompute runs K1's forward again in the backward
+    (bf16: 2 launches of the persistent kernel; f32: 2 per frame); the
+    loss, the carried state and the BatchNorm stats are the plain step's,
+    the gradient within the JAX package's remat bound (2e-2 relative L2).
+    A recompute let move the stats (the context off) moves them twice."""
+    import contextlib
+
+    plain = _lockstep_step(card, dtype)
+    remat = _lockstep_step(card, dtype, remat=True)
+    route = "twa_scan" if dtype else "twa_step"
+    assert remat[4] == {k: 2 * n for k, n in _launches(route, 10).items()}
+    assert abs(remat[0] - plain[0]) <= 1e-6 * abs(plain[0])
+    assert (remat[3] - plain[3]).abs().max().item() <= 1e-6 * plain[3].abs().max().item()
+    for n, b in plain[2].items():
+        assert (remat[2][n] - b).abs().max().item() <= 1e-6 * b.abs().max().item(), n
+    assert _grad_error(remat[1], plain[1]) <= 2e-2
+    twice = _lockstep_step(card, dtype, remat=True,
+                           contexts=lambda: (contextlib.nullcontext(), contextlib.nullcontext()))
+    moved = max(((twice[2][n] - b).abs().max() / b.abs().max()).item()
+                for n, b in plain[2].items())
+    assert moved > 1e-3, moved
+
+
 # Evaluation on the card (no kernel of ours: ATen's sort, cumsum, gathers
 # and reductions), held to the same functions on the CPU at the size users
 # evaluate, 720x1280, N=8.

@@ -152,21 +152,24 @@ def _adam(opt_state):
     raise AssertionError("no Adam state")
 
 
-def run_jax(variables, freeze):
-    """The JAX package's 3 steps. Per clip: (the state it started from as
-    (params, batch_stats, Adam state, TWA state), loss, gradients by port
-    name, {port name: param or BN stat} after the step, TWA state after)."""
+def run_jax(variables, freeze, clip=clip_data, loss_fn=None, remat=False, clips=CLIPS):
+    """The JAX package's steps over `clips` clips (`clip(k)` gives clip k,
+    `loss_fn` is the JAX loss, its `loss_fu` by default). Per clip: (the
+    state it started from as (params, batch_stats, Adam state, TWA state),
+    loss, gradients by port name, {port name: param or BN stat} after the
+    step, TWA state after)."""
     model = JUAVSal(time_dims=T)
     mask = j_frozen_mask(variables["params"], freeze) if freeze else None
     tx = j_make_optimizer(LR, WD, trainable_mask=mask)
-    step = j_make_train_step(model, tx, donate=False)
+    kw = {} if loss_fn is None else {"loss_fn": loss_fn}
+    step = j_make_train_step(model, tx, donate=False, remat=remat, **kw)
     state = j_create(variables, tx)
     g, o = priors()
-    rnn = np.asarray(model.init_state(H, W, 1))
+    rnn = np.asarray(model.init_state(H, W, clip(0)[0].shape[0]))
     stats, out = variables["batch_stats"], []
-    for k in range(CLIPS):
+    for k in range(clips):
         start = (state.params, state.batch_stats, _adam(state.opt_state), rnn)
-        x, y = clip_data(k)
+        x, y = clip(k)
         state, loss, rnn = step(state, x, g, o, rnn, y)
         rnn = np.asarray(rnn)
         # optax's add_decayed_weights -> scale_by_adam:
@@ -192,10 +195,11 @@ def port_model(params, batch_stats, dtype):
     return model.to(dtype)
 
 
-def port_step(start, k, freeze, dtype):
+def port_step(start, k, freeze, dtype, clip=clip_data, loss_fn=loss_fu, remat=False):
     """One port step in `dtype` on the CPU from a JAX starting point (see
-    `run_jax`) on clip k: (loss, gradients, state_dict after, TWA state
-    after). The f64 run gets its frames normalized in f64."""
+    `run_jax`) on clip k (`clip(k)`), with `loss_fn`: (loss, gradients,
+    state_dict after, TWA state after). The f64 run gets its frames
+    normalized in f64."""
     params, batch_stats, adam, rnn = start
     model = port_model(params, batch_stats, dtype)
     mask = make_frozen_mask(model, freeze) if freeze else None
@@ -208,8 +212,8 @@ def port_step(start, k, freeze, dtype):
                                       "exp_avg": torch.from_numpy(mu[n]).to(dtype),
                                       "exp_avg_sq": torch.from_numpy(nu[n]).to(dtype)}
     state = create_train_state(model, optimizer)
-    step = make_train_step(state)
-    x, y = clip_data(k)
+    step = make_train_step(state, loss_fn, remat=remat)
+    x, y = clip(k)
     x = torch.from_numpy(x)
     if dtype == torch.float64:
         mean, std = (torch.from_numpy(a).double() for a in (IMAGENET_MEAN, IMAGENET_STD))
@@ -247,9 +251,11 @@ def _l2(a, ref, floor=0.0):
     return np.sqrt(((a - ref) ** 2).sum()) / max(np.sqrt((ref ** 2).sum()), floor)
 
 
-def check_against_jax(jax_runs, freeze, trainable):
-    """The comparison of the module docstring, clip by clip. Returns, per
-    kind, the largest error of each package as a share of its bound."""
+def check_against_jax(jax_runs, freeze, trainable, **step_kw):
+    """The comparison of the module docstring, clip by clip (`step_kw`:
+    the clips, loss and remat of `port_step`, as `run_jax` ran them).
+    Returns, per kind, the largest error of each package as a share of its
+    bound."""
     worst = {}
 
     def held(kind, name, errs, bound):
@@ -258,8 +264,8 @@ def check_against_jax(jax_runs, freeze, trainable):
             worst[kind, who] = max(worst.get((kind, who), 0.0), err / bound)
 
     for k, (start, jl, jg, jsd, js) in enumerate(jax_runs):
-        l32, g32, sd32, s32 = port_step(start, k, freeze, torch.float32)
-        l64, g64, sd64, s64 = port_step(start, k, freeze, torch.float64)
+        l32, g32, sd32, s32 = port_step(start, k, freeze, torch.float32, **step_kw)
+        l64, g64, sd64, s64 = port_step(start, k, freeze, torch.float64, **step_kw)
         held("loss", k, [abs(v - l64) / abs(l64) for v in (jl, l32)], TOL_LOSS)
         assert set(g32) == set(g64) == {n for n, t in trainable.items() if t}
         held("gradient", k, [_l2(g, g64) for g in (jg, g32)], TOL_GRAD)

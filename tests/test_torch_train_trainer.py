@@ -46,12 +46,13 @@ CONFIG = dict(method_name="Tiny", iosize=IOSIZE, time_dims=T, batch_size=2, epoc
               learning_rate=1e-7, freeze=(), shuffle_train=False)
 
 
-def write_dataset(root, rng):
+def write_dataset(root, rng, videos=VIDEOS, splits=None):
     """Videos/, maps/<v>_fixMaps.mat, fixations/maps/<v>_fixPts.mat and
-    txt/{train,val}.txt."""
+    txt/{train,val}.txt: `videos` {name: frames}, `splits` {phase: [names]}
+    (by default the first video trains and the second validates)."""
     for d in ("Videos", "maps", os.path.join("fixations", "maps"), "txt"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
-    for name, n in VIDEOS.items():
+    for name, n in videos.items():
         wr = cv2.VideoWriter(os.path.join(root, "Videos", name + ".avi"),
                              cv2.VideoWriter_fourcc(*"MJPG"), 10, (NATIVE_W, NATIVE_H))
         for _ in range(n):
@@ -69,9 +70,10 @@ def write_dataset(root, rng):
             fmap[:, :, 0, t] = (blur / blur.max() * 255).astype(np.uint8)
         jsavemat(os.path.join(root, "maps", name + "_fixMaps.mat"), {"fixMap": fmap})
         jsavemat(os.path.join(root, "fixations", "maps", name + "_fixPts.mat"), {"fixLoc": floc})
-    for phase, name in zip(("train", "val"), VIDEOS):
+    splits = splits or {phase: [name] for phase, name in zip(("train", "val"), videos)}
+    for phase, names in splits.items():
         with open(os.path.join(root, "txt", phase + ".txt"), "w") as f:
-            f.write(name + "\n")
+            f.write("".join(name + "\n" for name in names))
 
 
 @pytest.fixture(scope="module")
@@ -240,12 +242,14 @@ def test_cli_train_end_to_end(dataset, tmp_path):
     ("videos_per_step", "2", "A.9b"), ("remat", "true", "A.9b"),
     ("model_name", "uavsal_lstm", "A.10"), ("dp_devices", "2", "A.11")])
 def test_cli_train_refuses_what_the_port_does_not_have(flag, value, item, tmp_path):
-    """Each is refused naming its ROADMAP item, but the zoo (A.10), which
-    the port now trains: `uavsal_lstm` is built and the run stops where the
-    JAX trainer's stops without a dataset, at the missing train split."""
+    """Only multi-GPU data parallelism (A.11) is refused, naming its ROADMAP
+    item. The zoo (A.10), several videos per step and remat (A.9b), which
+    the port now trains, pass through: the model is built and the run stops
+    where the JAX trainer's stops without a dataset, at the missing train
+    split."""
     argv = ["train", f"--{flag}", value, "--device", "cpu",
             "--save_model_dir", str(tmp_path), "--data_dir", str(tmp_path / "none")]
-    if item == "A.10":
+    if item in ("A.9b", "A.10"):
         with pytest.raises(FileNotFoundError):
             cli.main(argv)
         return

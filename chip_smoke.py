@@ -107,10 +107,30 @@
    cuDNN convs (f32: TF32 off) and its bound, with the sums per step; and
    writes a profiler table of one clip of each path to
    `build/chip_smoke_profile.txt` and `build/chip_smoke_profile_k2.txt`.
+4b. Runs the reference's released-weights flow: the seeded flagship's
+   weights written as a reference `.pth` (with BatchNorm's
+   `num_batches_tracked` and torchvision's unused `features.18`), `cli
+   convert` to a `.ckpt` that must hold the seeded variables' bits, and
+   `runners/export.py::export_serving` of it in bf16 with K2 off and on
+   and in f32 (K1 and K2 are the custom ops `uavsal::twa_scan` and
+   `uavsal::dwblock` in the exported graph), each saved and loaded back
+   with `ExportedServing` (export and load seconds, MB) and served over 3
+   carried clips of S=20, eager and graphed: launches exactly the live
+   paths' (bf16 `twa_scan` 3, `dwblock` 66 with K2 on, f32 `twa_step` 60;
+   graphed from the graph's own nodes, the wrappers counting none), the
+   saliency and state against the live baked step (0 expected; held to
+   TOL_F32 / TOL_BF16, printed), graphed equal to eager bit for bit, the
+   uint8 maps through `predict_videos` the live path's. Then the
+   request->response latency (`runners/latency.py`: the saliency fetched
+   to the host every dispatch, the state chained) of the graphed live step
+   and the graphed artifact, K2 off and on, in turns, bf16, V=1, S=20,
+   200 dispatches each, as `latency_summary` percentiles, and the same
+   steps' ms per clip (CUDA events, median of 7 windows, in turns).
 5. Trains at full width (360x640, S=10 = batch_size 2 x time_dims 5, V=1)
    on seeded weights from `init_model`: one f32 train step on the card
    against the same step on the CPU (TF32 off); the bf16 mixed and the f32
-   step with K1 (forward) and its gradient (`_TWAScan`, backward recomputed
+   step with K1 (forward) and its gradient (`uavsal::twa_scan`'s registered
+   autograd, backward recomputed
    through the plain scan) against the same step with `ConvTWA.scan =
    twa_scan_ref`; the launches of one train step, exactly bf16
    {twa_scan 1, twa_step 0, dwblock 0} and f32 {0, 10, 0}, with the fused
@@ -182,7 +202,8 @@ for K2 in bf16 and `dwblock_f32` for K2 in f32, each with
 `train_step_launches`, its launches counted in one train step of the dtype
 it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
 dwBlock on, and `config_launches`, its launches on each path of phase 3b,
-3c and 5b, under `recipe` those of 5c and under `lockstep` those of 5d);
+3c and 5b, under `recipe` those of 5c, under `lockstep` those of 5d and
+under `artifact` those of the three artifacts of 4b);
 the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
@@ -2783,6 +2804,188 @@ def eval_phase(torch, maps):
           f" path")
 
 
+# 4b. the released-weights flow (`cli convert` -> `export_serving` ->
+# `ExportedServing`): the three artifacts, by (compute dtype, fused dwBlock)
+DEPLOY_PATHS = {"bf16 K2 off": ("bf16", False), "bf16 K2 on": ("bf16", True),
+                "f32 K2 off": ("f32", False)}
+LATENCY_N = 200  # dispatches timed per path, in two turns of half each
+LATENCY_WARMUP = 10
+
+
+def _keyed_leaves(tree, prefix=()):
+    """(path, array) of each leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _keyed_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def reference_pth(torch, weights, path):
+    """`weights` written as the reference's released `.pth` holds them: a
+    state_dict with BatchNorm's `num_batches_tracked` beside every running
+    mean and torchvision's unused last MobileNetV2 conv and BatchNorm
+    (`sfnet.features.features.18.*`), which the port's model has not and
+    `cli convert` must leave out. Nothing is drawn from a generator."""
+    sd = dict(weights)
+    for key in weights:
+        if key.endswith("running_mean"):
+            sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(7)
+    extra = "sfnet.features.features.18."
+    sd[extra + "0.weight"] = torch.full((1280, 320, 1, 1), 0.01)
+    for name, value in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                        ("running_var", 1.0)):
+        sd[extra + "1." + name] = torch.full((1280,), value)
+    sd[extra + "1.num_batches_tracked"] = torch.tensor(7)
+    torch.save(sd, path)
+
+
+def deploy_phase(torch, kernels, weights, variables, gauss, ob, video, native, live):
+    """4b. The reference's released-weights flow on the card: the seeded
+    flagship's weights written as a reference `.pth` (`reference_pth`),
+    `cli.main(["convert", ...])` to a `.ckpt` (its leaves `variables`' bits:
+    `weights` is their state_dict),
+    and `export_serving` of the converted checkpoint three times (bf16 with
+    K2 off and on, f32 with K2 off), each saved, loaded back with
+    `ExportedServing` (export and load seconds, size) and served over 3
+    carried clips, eager and graphed: the launches exactly the live paths'
+    (eager from the wrappers, graphed from the graph's own nodes, the
+    wrappers counting none), the saliency and state against the live baked
+    step on the same weights (0 expected; held to TOL_F32 / TOL_BF16), the
+    graphed replay the eager artifact's bits, and the uint8 maps through
+    `predict_videos` the live path's. Then request->response latency
+    (`runners/latency.py`) of the graphed live step and the graphed
+    artifact, K2 off and on, in turns, bf16, V=1, S=20, and their ms per
+    clip on the card (CUDA events, in turns). `live` maps a path
+    of `DEPLOY_PATHS` to (eager live step, graphed live step or None, its
+    uint8 maps, its launches per 3 clips). Returns the artifacts' launches
+    per path."""
+    from iip_uavsal_saliency_tpu_torch import cli
+    from iip_uavsal_saliency_tpu_torch.runners.export import (ExportedServing, export_serving,
+                                                              save_exported)
+    from iip_uavsal_saliency_tpu_torch.runners.infer import (load_model_for_inference,
+                                                             predict_videos)
+    from iip_uavsal_saliency_tpu_torch.runners.latency import (latency_summary,
+                                                               measure_dispatch_latency)
+    from iip_uavsal_saliency_tpu_torch.serving.steps import graph_step
+    from iip_uavsal_saliency_tpu_torch.training.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "deploy")
+    os.makedirs(out_dir, exist_ok=True)
+    pth, ckpt = os.path.join(out_dir, "UAVSal_seeded.pth"), os.path.join(out_dir, "seeded.ckpt")
+    reference_pth(torch, weights, pth)
+    t0 = time.perf_counter()
+    if cli.main(["convert", pth, ckpt]) != 0:
+        fail("cli convert did not exit 0")
+    convert_s = time.perf_counter() - t0
+    converted = dict(_keyed_leaves(load_checkpoint(ckpt)))
+    want = dict(_keyed_leaves({"params": variables["params"],
+                               "batch_stats": variables["batch_stats"]}))
+    if converted.keys() != want.keys() or not all(
+            np.array_equal(converted[k], want[k]) and converted[k].dtype == want[k].dtype
+            for k in want):
+        fail("cli convert: the .ckpt is not the seeded variables leaf for leaf")
+    print(f"deploy: {os.path.getsize(pth) / 1e6:.1f} MB reference .pth "
+          f"({len(torch.load(pth))} entries) -> cli convert in {convert_s:.2f} s -> "
+          f"{len(converted)} leaves, the seeded variables' bits")
+    clips = [torch.from_numpy(np.ascontiguousarray(video[None, k * S:(k + 1) * S])).cuda()
+             for k in range(CLIPS)]
+    graphed_arts, launches = {}, {}
+    for name, (dtype_name, fused) in DEPLOY_PATHS.items():
+        dtype = torch.bfloat16 if dtype_name == "bf16" else None
+        tol = TOL_BF16 if dtype_name == "bf16" else TOL_F32
+        live_step, _, live_maps, want = live[name]
+        path = os.path.join(out_dir, f"{dtype_name}_k2{'on' if fused else 'off'}.aot")
+        model = load_model_for_inference(ckpt, fold_bn=True, device="cuda",
+                                         fused_dwblock=fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program, meta = export_serving(model, iosize=(IN_H, IN_W, OUT_H, OUT_W),
+                                       batch_size=S // 5, time_dims=5, gauss=gauss, ob=ob,
+                                       compute_dtype=dtype)
+        save_exported(path, program, meta)
+        export_s = time.perf_counter() - t0
+        del program, model
+        t0 = time.perf_counter()
+        art = ExportedServing(path)
+        load_s = time.perf_counter() - t0
+        nodes = sum(1 for n in art._module.graph.nodes
+                    if str(n.target).startswith("uavsal."))
+        ops = sorted({str(n.target) for n in art._module.graph.nodes
+                      if str(n.target).startswith("uavsal.")})
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        state = art.init_state(IN_H, IN_W, V)
+        eager = []
+        for x in clips:
+            out, state = art(x, state)
+            eager.append((out.clone(), state.clone()))
+        torch.cuda.synchronize()
+        counted = dict(kernels.launches)
+        if counted != want:
+            fail(f"artifact {name}: launched {counted}, the live path {want}")
+        live_state = art.init_state(IN_H, IN_W, V)
+        sal_diff = state_diff = 0.0
+        for (out, st), x in zip(eager, clips):
+            ref, live_state = live_step(x, live_state)
+            sal_diff = max(sal_diff, (out.float() - ref.float()).abs().max().item())
+            state_diff = max(state_diff, (st.float() - live_state.float()).abs().max().item())
+        if not (sal_diff <= tol and state_diff <= tol) or not all(
+                torch.isfinite(o).all() for o, _ in eager):
+            fail(f"artifact {name}: saliency {sal_diff}, state {state_diff} from the live "
+                 f"step (tolerance {tol})")
+        graphed = graph_step(art)
+        graphed(clips[0], art.init_state(IN_H, IN_W, V))  # capture
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        state, same = art.init_state(IN_H, IN_W, V), True
+        for (out, st), x in zip(eager, clips):
+            got, state = graphed(x, state)
+            same = same and torch.equal(got, out) and torch.equal(state, st)
+        torch.cuda.synchronize()
+        per_clip = graphed.graph_launches()
+        if not same or any(kernels.launches.values()) or per_clip != {
+                k: n // CLIPS for k, n in want.items()}:
+            fail(f"artifact {name}, graphed: equal to eager {same}, the wrappers counted "
+                 f"{dict(kernels.launches)}, the graph's nodes {per_clip}")
+        maps = predict_videos(graphed, art, [video], native, batch_size=4)[0]
+        torch.cuda.synchronize()
+        off = np.abs(maps.astype(np.int16) - live_maps.astype(np.int16))
+        if maps.shape != live_maps.shape or off.max() > (0 if sal_diff == 0 else 1):
+            fail(f"artifact {name}: uint8 maps {maps.shape} differ from the live path's "
+                 f"{live_maps.shape} by up to {off.max()}")
+        print(f"deploy, artifact {name}: export {export_s:.2f} s, load {load_s:.2f} s, "
+              f"{os.path.getsize(path) / 1e6:.1f} MB, custom-op nodes {nodes} {ops}; "
+              f"launches eager {counted}, graph nodes per clip {per_clip}; against the live "
+              f"step over {CLIPS} carried clips: saliency max abs diff {sal_diff:.3g}, state "
+              f"{state_diff:.3g} (tolerance {tol}); graphed equals eager: {same}; uint8 maps "
+              f"{int((off > 0).sum())} pixels off the live path's (max {off.max()})")
+        launches[name] = counted
+        if dtype_name == "bf16":
+            graphed_arts[name] = graphed
+        else:
+            del graphed, art, eager
+    paths = {"live K2 off": live["bf16 K2 off"][1], "artifact K2 off": graphed_arts["bf16 K2 off"],
+             "live K2 on": live["bf16 K2 on"][1], "artifact K2 on": graphed_arts["bf16 K2 on"]}
+    zero = torch.zeros((V, OUT_H, OUT_W, 256), dtype=torch.bfloat16, device="cuda")
+    times = {key: [] for key in paths}
+    for key in list(paths) + list(paths)[::-1]:  # in turns
+        times[key] += measure_dispatch_latency(paths[key], clips[0], zero,
+                                               n=LATENCY_N // 2, warmup=LATENCY_WARMUP)
+    for key, t in times.items():
+        print(f"latency, {key}, graphed (bf16, V={V}, S={S}, 360x640, request -> saliency on "
+              f"the host): {json.dumps(latency_summary(t, V * S))}")
+    step_ms = {key: [] for key in paths}
+    for key in list(paths) + list(paths)[::-1]:  # the card's time alone, in turns
+        step_ms[key].append(cuda_ms(lambda: paths[key](clips[0], zero), 10))
+    for key, (first, second) in step_ms.items():
+        print(f"step, {key}, graphed (bf16, V={V}, S={S}, 360x640, CUDA events): {first:.3f} "
+              f"and {second:.3f} ms per clip")
+    print(f"deploy phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2994,11 +3197,12 @@ def main() -> None:
     model16, step16, spy16, seen16 = serve(torch.bfloat16, False)
     launches_off, graphed16, sal16, maps16 = drive("main path, K2 off (bf16)", model16, step16,
                                                    spy16, seen16, True, 0)
-    launches_on, graphed16k, sal16k, _ = drive("main path, K2 on (bf16)", model16k, step16k,
-                                               spy16k, seen16k, True, len(admitted) * CLIPS)
+    launches_on, graphed16k, sal16k, maps16k = drive("main path, K2 on (bf16)", model16k,
+                                                     step16k, spy16k, seen16k, True,
+                                                     len(admitted) * CLIPS)
     model32, step32, spy32, seen32 = serve(None, False)
-    launches_f32, graphed32, sal32, _ = drive("main path, K2 off (f32)", model32, step32, spy32,
-                                              seen32, False, 0)
+    launches_f32, graphed32, sal32, maps32 = drive("main path, K2 off (f32)", model32, step32,
+                                                   spy32, seen32, False, 0)
     model32k, step32k, spy32k, seen32k = serve(None, True)
     print("K2 f32 at the admitted blocks of one serving step:")
     admitted32, taken32k = check_k2_admitted(torch, dwblock, DWBlock, model32k, step32k,
@@ -3059,6 +3263,13 @@ def main() -> None:
     time_runner(torch, paths, {"off": model16, "on": model16k}, video, native)
     write_profile(torch, step16, clip, state, "chip_smoke_profile.txt")
     write_profile(torch, step16k, clip, state, "chip_smoke_profile_k2.txt")
+    # 4b. the released-weights flow: convert, export, serve the artifacts
+    live = {"bf16 K2 off": (step16, graphed16, maps16, launches_off),
+            "bf16 K2 on": (step16k, graphed16k, maps16k, launches_on),
+            "f32 K2 off": (serve(None, False)[1], None, maps32, launches_f32)}
+    deploy_launches = deploy_phase(torch, kernels, weights, variables, gauss, ob, video, native,
+                                   live)
+    del live
 
     k1_times, k1_bound_ms, k1_bound_by = time_k1(torch, F, twa, rng, 1)
     time_k1(torch, F, twa, rng, 4)
@@ -3106,6 +3317,7 @@ def main() -> None:
                        for dtype, n in config_train_launches.items()})
         counts["recipe"] = {path: n[kernel] for path, n in recipe_launches.items()}
         counts["lockstep"] = {path: n[kernel] for path, n in lockstep_launches.items()}
+        counts["artifact"] = {path: n[kernel] for path, n in deploy_launches.items()}
         return counts
 
     print(smi)

@@ -17,6 +17,13 @@
         [--device cuda|cpu] [--key value ...]
     python -m iip_uavsal_saliency_tpu_torch.cli modelsize [--config cfg.json]
         [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli convert <reference.pth> <out.ckpt>
+        [--model_name NAME] [--num_stblock N] [--bias_type 1,1,1] [--st_type st]
+        [--cnn_type mobilenet_v2]
+    python -m iip_uavsal_saliency_tpu_torch.cli export <in.ckpt> <out.aot>
+        [--config cfg.json] [--device cuda|cpu] [--key value ...]
+    python -m iip_uavsal_saliency_tpu_torch.cli test-aot <in.aot>
+        [--config cfg.json] [--method_name NAME] [--key value ...]
 
 `train` trains the model `model_name` on `<data_dir>/<train_dataset>`
 (its txt splits, videos and ground truth in the reference's layout) as the
@@ -75,7 +82,31 @@ fixation points. It is host work (cv2) and takes no device. `pipeline`
 runs `train`, then `test`, `eval` and `vis` on the checkpoint it trained.
 `--frames` and `--with-fix` are refused by every other command.
 
-The JAX CLI's `convert`, `export` and `test-aot` are ROADMAP A.11b.
+`convert`, `export` and `test-aot` are the reference's released-weights
+flow, as in the JAX CLI:
+
+    python -m iip_uavsal_saliency_tpu_torch.cli convert UAVSal_UAV2.pth uavsal.ckpt
+    python -m iip_uavsal_saliency_tpu_torch.cli export uavsal.ckpt uavsal.aot
+    python -m iip_uavsal_saliency_tpu_torch.cli test-aot uavsal.aot
+
+`convert` reads a reference `.pth` (a pickled module or a raw state_dict;
+it unpickles, so convert only files you trust) on the CPU and writes the
+`.ckpt` that `test --model-path` and `train --model-path` read: the
+entries of the model that `--model_name`, `--num_stblock`, `--bias_type`,
+`--st_type` and `--cnn_type` build, the rest of the file (BatchNorm's
+`num_batches_tracked`, torchvision's unused last MobileNetV2 conv) left
+out, as the JAX converter does; a missing entry is named. (The JAX
+converter reads a MobileNetV2 backbone whatever `--cnn_type` says.)
+`export` bakes a checkpoint into one serving artifact (`runners/export.py`):
+the model of the configuration with `fold_bn`, bf16 if `serve_bf16`, the
+Gaussian prior and the observed prior of `train_data_dir` inside, at the
+fixed shapes of `iosize`, `test_batch_size` x `time_dims` frames and
+`videos_per_batch` videos, on the device it is exported on
+(`--export_platforms` may name that device's type, cuda or cpu, and
+nothing else). `test-aot` serves an artifact over the test videos as
+`test` does, on the device it was exported for; it needs this package
+(the artifact's K1 and K2 are the port's kernels) but not the checkpoint
+or the priors. A JAX artifact (StableHLO) is refused with a message.
 """
 
 from __future__ import annotations
@@ -83,7 +114,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .utils.config import Config, load_config
 from .utils.logging import get_logger
@@ -282,14 +313,127 @@ def cmd_modelsize(cfg: Config, device: Optional[str] = None) -> str:
     return report
 
 
+def cmd_convert(cfg: Config, src: str, dst: str) -> None:
+    """A reference `.pth` -> the port's `.ckpt` (`{params, batch_stats}` in
+    the JAX package's layout, which both packages read), on the CPU."""
+    if not os.path.exists(src):
+        raise SystemExit(f"checkpoint not found: {src}")
+    from .models.adapters import build_adapted_model
+    from .models.convert import (load_torch_checkpoint, reference_state_dict, table_of,
+                                 to_jax_variables)
+    from .training.checkpoint import save_checkpoint
+
+    model = build_adapted_model(cfg.model_name, filter_kwargs=True, cnn_type=cfg.cnn_type,
+                                num_stblock=cfg.num_stblock, bias_type=cfg.bias_type,
+                                st_type=cfg.st_type, time_dims=cfg.time_dims)
+    table = table_of(model)
+    variables = to_jax_variables(reference_state_dict(load_torch_checkpoint(src), table), table)
+    save_checkpoint(dst, {"params": variables["params"],
+                          "batch_stats": variables["batch_stats"]})
+    log.info("converted %s (%s) -> %s", src, cfg.model_name, dst)
+
+
+def _export_device(cfg: Config, device: Optional[str]):
+    """The device to export on: `--device` (CUDA by default), which
+    `--export_platforms`, where it is set, must name."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    wanted = [p.strip() for p in cfg.export_platforms.split(",") if p.strip()]
+    if any(p not in ("cuda", "cpu") for p in wanted):
+        raise SystemExit(f"--export_platforms {cfg.export_platforms}: the port exports for "
+                         "cuda or cpu; a TPU artifact is the JAX package's `cli export`")
+    if wanted and wanted != [dev.type]:
+        raise SystemExit(f"--export_platforms {cfg.export_platforms} is not the device the "
+                         f"export runs on ({dev.type}): an artifact is exported on the "
+                         "device type it serves on (pass --device)")
+    return dev
+
+
+def cmd_export(cfg: Config, src: str, dst: str, device: Optional[str] = None) -> None:
+    """A checkpoint -> one serving artifact (weights, priors, fold, dtype
+    and serving shape inside, `runners/export.py`), for `test-aot`."""
+    if not os.path.exists(src):
+        raise SystemExit(f"checkpoint not found: {src}")
+    import torch
+
+    from .data.priors import get_gauss_priors, get_ob_priors
+    from .runners.export import export_serving, save_exported
+    from .runners.infer import load_model_for_inference
+
+    dev = _export_device(cfg, device)
+    model = load_model_for_inference(src, time_dims=cfg.time_dims, fold_bn=cfg.fold_bn,
+                                     device=dev, cnn_type=cfg.cnn_type,
+                                     num_stblock=cfg.num_stblock, bias_type=cfg.bias_type,
+                                     s2d_stem=cfg.s2d_stem, model_name=cfg.model_name,
+                                     st_type=cfg.st_type)
+    shape_r_out, shape_c_out = cfg.iosize[2], cfg.iosize[3]
+    gauss = get_gauss_priors(shape_r_out, shape_c_out, 8) if cfg.bias_type[0] else None
+    ob = get_ob_priors(cfg.train_data_dir, cfg.train_dataset, "train", shape_r_out,
+                       shape_c_out, 20, cfg.priors_cache_dir) if cfg.bias_type[1] else None
+    program, meta = export_serving(
+        model, iosize=cfg.iosize, batch_size=cfg.test_batch_size, time_dims=cfg.time_dims,
+        videos_per_batch=cfg.videos_per_batch, bias_type=cfg.bias_type, gauss=gauss, ob=ob,
+        compute_dtype=torch.bfloat16 if cfg.serve_bf16 else None)
+    save_exported(dst, program, meta)
+    log.info("exported %s -> %s (platforms=%s, %s, S=%d, V=%d, %.1f MB)", src, dst,
+             meta["platforms"], meta["compute_dtype"], meta["x_shape"][1],
+             meta["videos_per_batch"], os.path.getsize(dst) / 1e6)
+
+
+def cmd_test_aot(cfg: Config, artifact: str, device: Optional[str] = None) -> None:
+    """Serve an artifact over the test videos (resumable `.mat` output, the
+    flow of `test`), on the device type it was exported for."""
+    if not os.path.exists(artifact):
+        raise SystemExit(f"artifact not found: {artifact}")
+    from .runners.export import ExportedServing, run_exported
+
+    try:
+        art = ExportedServing(artifact)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if device is not None and art.device.type != device.split(":")[0]:
+        raise SystemExit(f"{artifact} was exported for {art.device.type}, not {device}")
+    run_exported(cfg.test_input_path, cfg.test_output_path, art, method_name=cfg.method_name)
+
+
 COMMANDS = {"train": cmd_train, "train-img": cmd_train_img, "test": cmd_test,
             "eval": cmd_eval, "eval-img": cmd_eval_img, "vis": cmd_vis,
-            "pipeline": cmd_pipeline, "modelsize": cmd_modelsize}
+            "pipeline": cmd_pipeline, "modelsize": cmd_modelsize, "convert": cmd_convert,
+            "export": cmd_export, "test-aot": cmd_test_aot}
 # the commands that take --methods, and those that run vis (--frames, --with-fix)
 SCORING = ("eval", "eval-img")
 VIS = ("vis", "pipeline")
 # the JAX CLI's commands the port does not have yet, and their ROADMAP item
-NOT_PORTED = {"convert": "A.11b", "export": "A.11b", "test-aot": "A.11b"}
+NOT_PORTED: Dict[str, str] = {}
+# the commands that take paths before their flags, how many, and their usage
+POSITIONAL = {
+    "convert": (2, "convert <reference.pth> <out.ckpt> [--model_name NAME] [--num_stblock N] "
+                   "[--bias_type 1,1,1] [--st_type st]"),
+    "export": (2, "export <in.ckpt> <out.aot> [--export_platforms tpu] [--test_batch_size N] "
+                  "[--videos_per_batch V] [--serve_bf16 true] [--fold_bn true]"),
+    "test-aot": (1, "test-aot <in.aot> [--method_name NAME]"),
+}
+
+
+def _split_positionals(cmd: str, rest: Sequence[str]) -> Tuple[List[str], List[str]]:
+    """(the paths, the flags) of a command in `POSITIONAL`: every flag of
+    this CLI is `--key value`, so the paths are what no flag takes, as in
+    the JAX CLI; a wrong count ends the run with the command's usage."""
+    positionals: List[str] = []
+    flags: List[str] = []
+    i = 0
+    while i < len(rest):
+        if rest[i].startswith("--"):
+            flags += rest[i:i + 2]
+            i += 2
+        else:
+            positionals.append(rest[i])
+            i += 1
+    count, usage = POSITIONAL[cmd]
+    if len(positionals) != count:
+        raise SystemExit(f"usage: {usage}")
+    return positionals, flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -304,11 +448,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}\n{__doc__}")
         return 2
+    paths: List[str] = []
+    if cmd in POSITIONAL:
+        paths, rest = _split_positionals(cmd, rest)
     cfg_path, device, methods, vis_opts, rest = _split_cli(rest, cmd)
     if methods is not None and cmd not in SCORING + VIS:
         raise SystemExit(f"flag --methods is only valid for {', '.join(SCORING + VIS)}")
     cfg = load_config(cfg_path, rest)
-    if cmd == "vis":
+    if cmd == "convert":
+        cmd_convert(cfg, *paths)
+    elif cmd in POSITIONAL:
+        COMMANDS[cmd](cfg, *paths, device)
+    elif cmd == "vis":
         cmd_vis(cfg, methods, vis_opts["frames"], vis_opts["with_fix"])
     elif cmd == "pipeline":
         cmd_pipeline(cfg, device, methods, vis_opts["frames"], vis_opts["with_fix"])

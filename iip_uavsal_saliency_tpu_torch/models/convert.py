@@ -299,3 +299,28 @@ def to_jax_variables(state_dict: Mapping[str, Any], table: List[Row] = TABLE) ->
             node = node.setdefault(p, {})
         node[path[-1]] = leaf_to_jax(a, is_kernel)
     return tree
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A `.pth` file's state_dict as numpy arrays (the port's copy of the JAX
+    package's `models/convert.py::load_torch_checkpoint`): a pickled module
+    (the reference's released `UAVSal_*.pth`) gives its `.state_dict()`, a
+    raw state_dict is taken as it is. It unpickles: load only files you
+    trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def reference_state_dict(state_dict: Mapping[str, Any], table: List[Row] = TABLE) -> Dict[str, Any]:
+    """The entries of a reference state_dict that `table`'s model has, in
+    its order. Others are left out, as the JAX converter reads only what it
+    needs: a released checkpoint also holds BatchNorm's
+    `num_batches_tracked` and torchvision's unused last MobileNetV2 conv
+    (`sfnet.features.features.18.*`), which the model has not. A key of the
+    table that the state_dict lacks raises KeyError naming it."""
+    missing = next((key for _, key, _ in table if key not in state_dict), None)
+    if missing is not None:
+        raise KeyError(f"the checkpoint has no {missing!r}, which this model configuration "
+                       "needs (check --model_name, --cnn_type, --num_stblock, --bias_type)")
+    return OrderedDict((key, state_dict[key]) for _, key, _ in table)

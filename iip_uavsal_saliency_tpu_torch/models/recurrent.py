@@ -79,6 +79,11 @@ class ConvTWA(nn.Module):
         w = self.cell_list[0].rnn_conv.weight
         if torch.is_grad_enabled() and w.requires_grad:
             return self._split_of(w)
+        if torch.compiler.is_compiling():
+            # a trace (`torch.export`) sees fake parameters, whose data cannot
+            # key the cache: it bakes the split that an eager call made just
+            # before it (`runners/export.py` makes one), and stores nothing
+            return self._split if self._split is not None else self._split_of(w)
         key = (w.data_ptr(), w.dtype, w.device, w._version)
         if self._split_key != key:
             self._split = self._split_of(w.detach())
@@ -99,6 +104,8 @@ class ConvTWA(nn.Module):
         w_h = self.split_weight()[1]
         if self._packed is None or self._packed.dtype != dtype:
             pack = pack_twa_weights_bf16 if dtype == torch.bfloat16 else pack_twa_weights
+            if torch.compiler.is_compiling():
+                return pack(w_h.to(dtype))  # traced, not cached (`split_weight`)
             self._packed = pack(w_h.to(dtype))
         return self._packed
 

@@ -22,8 +22,11 @@ b2 (Co,), all of x's dtype.
   `tf32_split`), made once at load (`DWBlock.pack`) or, where the caller
   has none, by the wrapper on the fly.
 - `supports_fused_dwblock`: what the CUDA kernel takes.
-- `fused_dwblock`: the differentiable form. Forward as
-  `fused_dwblock_kernel`; backward recomputes through `dwblock_ref`.
+- `fused_dwblock`: the differentiable form, the custom op `uavsal::dwblock`
+  (`torch.library`, with a fake implementation for `torch.export`, so an
+  exported serving step holds the block as one node that the card runs as
+  K2). Forward as `fused_dwblock_kernel`; backward recomputes through
+  `dwblock_ref`.
 """
 
 from __future__ import annotations
@@ -280,26 +283,54 @@ def fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual: bool,
     return _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual, blobs)
 
 
-class _FusedDWBlock(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w1, b1, wd, bd, w2, b2, residual, blobs):
-        ctx.save_for_backward(x, w1, b1, wd, bd, w2, b2)
-        ctx.residual = residual
-        return fused_dwblock_kernel(x, w1, b1, wd, bd, w2, b2, residual, blobs)
-
-    @staticmethod
-    def backward(ctx, grad):
-        args = [t.detach().requires_grad_(need)
-                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [a for a in args if a.requires_grad]
-        with torch.enable_grad():
-            out = dwblock_ref(*args, ctx.residual)
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if a.requires_grad else None for a in args) + (None, None)
-
-
 def fused_dwblock(x, w1, b1, wd, bd, w2, b2, residual: bool, blobs=None) -> torch.Tensor:
-    """Differentiable fused dwBlock: the kernel (or, on the CPU, the plain
-    version) forward, and a backward that recomputes through `dwblock_ref`
-    from the plain weights (`blobs` as in `fused_dwblock_kernel`)."""
-    return _FusedDWBlock.apply(x, w1, b1, wd, bd, w2, b2, bool(residual), blobs)
+    """Differentiable fused dwBlock, the custom op `uavsal::dwblock`: the
+    kernel forward on a CUDA tensor (`_dwblock_cuda`), the plain version on
+    a CPU one, and a backward that recomputes through `dwblock_ref` from
+    the plain weights (`blobs` as in `fused_dwblock_kernel`). A
+    `torch.export` trace keeps it as one node, which the card runs as K2."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_dwblock runs on cuda or cpu tensors, got {x.device}")
+    w1_blob, w2_blob = blobs if blobs is not None else (None, None)
+    return torch.ops.uavsal.dwblock(x, w1, b1, wd, bd, w2, b2, bool(residual), w1_blob, w2_blob)
+
+
+@torch.library.custom_op("uavsal::dwblock", mutates_args=(), device_types="cpu")
+def _dwblock_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor,
+                bd: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, residual: bool,
+                w1_blob: Optional[torch.Tensor], w2_blob: Optional[torch.Tensor]) -> torch.Tensor:
+    """The op's CPU implementation: the plain version (the blobs are the
+    kernel's alone). Its CUDA implementation is `_dwblock_cuda`, registered
+    below; any other device has none and raises."""
+    return dwblock_ref(x, w1, b1, wd, bd, w2, b2, residual)
+
+
+@_dwblock_op.register_fake
+def _dwblock_fake(x, w1, b1, wd, bd, w2, b2, residual, w1_blob, w2_blob):
+    return x.new_empty(tuple(x.shape[:3]) + (w2.shape[-1],))
+
+
+@_dwblock_op.register_kernel("cuda")
+def _dwblock_op_cuda(x, w1, b1, wd, bd, w2, b2, residual, w1_blob, w2_blob):
+    blobs = None if w1_blob is None or w2_blob is None else (w1_blob, w2_blob)
+    return _dwblock_cuda(x, w1, b1, wd, bd, w2, b2, residual, blobs)
+
+
+def _dwblock_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs[:7])
+    ctx.residual = inputs[7]
+
+
+def _dwblock_backward(ctx, grad):
+    """The kernel's gradient (counterpart of `pallas_dwblock.py::
+    fused_dwblock`'s custom VJP), recomputed through `dwblock_ref`."""
+    args = [t.detach().requires_grad_(need)
+            for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [a for a in args if a.requires_grad]
+    with torch.enable_grad():
+        out = dwblock_ref(*args, ctx.residual)
+    grads = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(grads) if a.requires_grad else None for a in args) + (None, None, None)
+
+
+_dwblock_op.register_autograd(_dwblock_backward, setup_context=_dwblock_setup)

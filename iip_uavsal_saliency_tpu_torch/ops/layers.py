@@ -73,9 +73,17 @@ def channels_last_format(t: torch.Tensor) -> torch.memory_format:
 def laid_out_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """`t` in channels-last memory where `ref` lies so (as activations do on
     the card), else `t` as it is. `cat`, `repeat` and reshapes give up the
-    layout; the fused dwBlock kernel needs it and cuDNN is faster with it."""
+    layout; the fused dwBlock kernel needs it and cuDNN is faster with it.
+
+    While `torch.export` traces, the strides it sees are its fake tensors',
+    which on the card need not be those the real `cat` gives: there every
+    activation is laid out (a copy in the exported graph), and a `contiguous`
+    that the fake strides call a no-op is not left out of it."""
+    fmt = channels_last_format(t)
+    if torch.compiler.is_compiling() and t.device.type == "cuda" and fmt != torch.contiguous_format:
+        return t.clone(memory_format=fmt)
     if ref.is_contiguous(memory_format=channels_last_format(ref)) and not ref.is_contiguous():
-        return t.contiguous(memory_format=channels_last_format(t))
+        return t.contiguous(memory_format=fmt)
     return t
 
 

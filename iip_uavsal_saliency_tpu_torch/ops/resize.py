@@ -14,6 +14,7 @@ Inputs are (..., H, W): NCHW activations or stacks of 2-D maps.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Dict
 
 import numpy as np
 import torch
@@ -50,14 +51,27 @@ def interp_matrix_half_pixel(n_in: int, n_out: int) -> np.ndarray:
     return a
 
 
-@lru_cache(maxsize=128)
+# (kind, n_in, n_out, dtype, device) -> the matrix on that device
+_MATRICES: Dict[tuple, torch.Tensor] = {}
+
+
 def _matrix(kind: str, n_in: int, n_out: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
-    build = interp_matrix_align_corners if kind == "align_corners" else interp_matrix_half_pixel
-    # a normal tensor even when first made by a serving step under
-    # inference_mode: the cache hands the same one to a train step later
-    with torch.inference_mode(False):
-        return torch.from_numpy(build(n_in, n_out)).to(device=device, dtype=dtype)
+    key = (kind, n_in, n_out, dtype, device)
+    a = _MATRICES.get(key)
+    if a is None:
+        build = (interp_matrix_align_corners if kind == "align_corners"
+                 else interp_matrix_half_pixel)
+        # a normal tensor even when first made by a serving step under
+        # inference_mode: the cache hands the same one to a train step later;
+        # in memory of its own, not the cached array's, which a trace's
+        # constants at two call sites would otherwise share
+        with torch.inference_mode(False):
+            a = torch.from_numpy(build(n_in, n_out).copy()).to(device=device, dtype=dtype)
+        if torch.compiler.is_compiling():
+            return a  # a trace's (`torch.export`'s) tensor is fake: never cached
+        _MATRICES[key] = a
+    return a
 
 
 def _resize(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:

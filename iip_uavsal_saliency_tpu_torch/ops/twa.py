@@ -44,9 +44,14 @@ of the JAX package's `twa_scan_sharded`). On a CPU tensor `twa_scan` runs
 `twa_scan_ref`, the plain loop of `twa_scan_xla`. Any other device raises;
 nothing falls back.
 
-`twa_scan` is differentiable in x, gx, W_h and h0 (counterpart of
-`pallas_twa.py::twa_scan`'s custom VJP): the backward recomputes through
-`twa_scan_ref` in the input dtype; it is not a kernel.
+On the card (and on the CPU while `torch.export` traces) `twa_scan` is the
+custom op `uavsal::twa_scan` (`torch.library`): its CUDA implementation is
+the wrapper `_twa_scan_cuda`, its CPU implementation `twa_scan_ref`, and a
+fake implementation gives `torch.export` the output shapes, so an exported
+serving step holds the scan as one node that the card runs as K1. The op
+is differentiable in x, gx, W_h and h0 (counterpart of
+`pallas_twa.py::twa_scan`'s custom VJP): its registered backward recomputes
+through `twa_scan_ref` in the input dtype; it is not a kernel.
 
 Layouts are the JAX package's: x, gx (V, S, H, W, C), h0 (V, H, W, C) and
 W_h (3, 3, C, C) in HWIO order.
@@ -191,25 +196,6 @@ def pack_twa_weights_bf16(w_h: torch.Tensor) -> torch.Tensor:
     return blob.permute(2, 0, 1, 3, 5, 4).reshape(-1)
 
 
-class _TWAScan(torch.autograd.Function):
-    """Kernel forward, backward recomputed through the plain version."""
-
-    @staticmethod
-    def forward(ctx, x, gx, w_h, h0, packed):
-        ctx.save_for_backward(x, gx, w_h, h0)
-        return _twa_scan_cuda(x, gx, w_h, h0, packed=packed)
-
-    @staticmethod
-    def backward(ctx, grad_ys, grad_last):
-        args = [t.detach().requires_grad_(need)
-                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [a for a in args if a.requires_grad]
-        with torch.enable_grad():
-            outs = twa_scan_ref(*args)
-        grads = iter(torch.autograd.grad(outs, wanted, (grad_ys, grad_last)))
-        return tuple(next(grads) if a.requires_grad else None for a in args) + (None,)
-
-
 def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
              packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TWA scan: kernel K1 on a CUDA tensor, `twa_scan_ref` on a CPU one
@@ -217,14 +203,57 @@ def twa_scan(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor, h0: torch.Ten
     W_h packed beforehand for the per-frame kernel of x's dtype
     (`pack_twa_weights` for f32, `pack_twa_weights_bf16` for bf16), read by
     that kernel only (without it the wrapper packs once per call); the
-    persistent kernel, the backward and the plain version read `w_h`."""
-    if x.device.type == "cpu":
+    persistent kernel, the backward and the plain version read `w_h`.
+
+    On the card, and on the CPU while `torch.export` traces, it is the
+    custom op `uavsal::twa_scan`, so that an exported graph holds one node
+    where the scan runs (the op's CPU implementation is `twa_scan_ref`)."""
+    if x.device.type == "cpu" and not torch.compiler.is_compiling():
         return twa_scan_ref(x, gx, w_h, h0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"twa_scan runs on cuda or cpu tensors, got {x.device}")
     # normalize at the kernel boundary, as the Pallas wrapper does: an f32
     # initial state or weight beside bf16 streams is cast to the stream dtype
-    return _TWAScan.apply(x, gx, w_h.to(x.dtype), h0.to(x.dtype), packed)
+    return torch.ops.uavsal.twa_scan(x, gx, w_h.to(x.dtype), h0.to(x.dtype), packed)
+
+
+@torch.library.custom_op("uavsal::twa_scan", mutates_args=(), device_types="cpu")
+def _twa_scan_op(x: torch.Tensor, gx: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
+                 packed: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain scan (`packed` is the
+    per-frame kernels' alone). Its CUDA implementation is `_twa_scan_cuda`,
+    registered below; any other device has none and raises."""
+    return twa_scan_ref(x, gx, w_h, h0)
+
+
+@_twa_scan_op.register_fake
+def _twa_scan_fake(x, gx, w_h, h0, packed):
+    return torch.empty_like(x), x.new_empty((x.shape[0],) + tuple(x.shape[2:]))
+
+
+@_twa_scan_op.register_kernel("cuda")
+def _twa_scan_op_cuda(x, gx, w_h, h0, packed):
+    return _twa_scan_cuda(x, gx, w_h, h0, packed=packed)
+
+
+def _twa_scan_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _twa_scan_backward(ctx, grad_ys, grad_last):
+    """The kernel's gradient (counterpart of `pallas_twa.py::twa_scan`'s
+    custom VJP): recomputed through `twa_scan_ref` in the input dtype; it
+    is not a kernel."""
+    args = [t.detach().requires_grad_(need)
+            for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [a for a in args if a.requires_grad]
+    with torch.enable_grad():
+        outs = twa_scan_ref(*args)
+    grads = iter(torch.autograd.grad(outs, wanted, (grad_ys, grad_last)))
+    return tuple(next(grads) if a.requires_grad else None for a in args) + (None,)
+
+
+_twa_scan_op.register_autograd(_twa_scan_backward, setup_context=_twa_scan_setup)
 
 
 def _lib():

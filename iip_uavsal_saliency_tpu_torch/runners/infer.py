@@ -207,25 +207,33 @@ def run_group(step, videos: Sequence[np.ndarray], clip_len: int, state: torch.Te
     return results, state
 
 
-def _serve_group(step, model: torch.nn.Module, members: Sequence[np.ndarray],
+def _zero_state(model, height: int, width: int, n: int) -> torch.Tensor:
+    """The zero state of V=n videos: in the model's dtype and on its device,
+    or an artifact's (`runners/export.py::ExportedServing`) own."""
+    if isinstance(model, torch.nn.Module):
+        param = next(model.parameters())
+        return model.init_state(height, width, n, dtype=param.dtype, device=param.device)
+    return model.init_state(height, width, n)
+
+
+def _serve_group(step, model, members: Sequence[np.ndarray],
                 native_sizes: Sequence[Tuple[int, int]], clip_len: int,
                 pad_to: int) -> List[np.ndarray]:
-    """One group through `run_group` from a zero state (in the model's
-    dtype, on its device), padded with empty videos to `pad_to` so that
-    every group runs at the same V. Returns the members' maps."""
+    """One group through `run_group` from a zero state (`_zero_state`),
+    padded with empty videos to `pad_to` so that every group runs at the
+    same V. Returns the members' maps."""
     n = len(members)
     members = list(members) + [members[0][:0]] * (pad_to - n)
     native_sizes = list(native_sizes) + [(1, 1)] * (pad_to - n)
     h, w = members[0].shape[1:3]
-    param = next(model.parameters())
-    state = model.init_state(h, w, len(members), dtype=param.dtype, device=param.device)
+    state = _zero_state(model, h, w, len(members))
     maps, _ = run_group(step, members, clip_len, state, native_sizes)
     return maps[:n]
 
 
 def predict_videos(
     step,
-    model: torch.nn.Module,
+    model,
     videos: Sequence[np.ndarray],
     native_sizes: Sequence[Tuple[int, int]],
     batch_size: int = 4,
@@ -240,7 +248,9 @@ def predict_videos(
     when there is more than one group a short final group is padded with
     empty videos, so every group runs at the same V, as in the JAX runner.
     `step` is served as it is given: pass `graph_step(step)` to replay it
-    from a CUDA graph, as `test_videos` does."""
+    from a CUDA graph, as `test_videos` does. `model` gives the zero state:
+    the served model, or an artifact (`runners/export.py::ExportedServing`)
+    whose step `step` is."""
     clip_len = batch_size * time_dims
     cut = [vid[: (vid.shape[0] // time_dims) * time_dims] for vid in videos]
     v_per = max(1, videos_per_batch)
@@ -256,7 +266,7 @@ def predict_videos(
 def test_videos(
     input_path: str,
     output_path: str,
-    model: torch.nn.Module,
+    model,
     iosize: Tuple[int, int, int, int] = (360, 640, 45, 80),
     batch_size: int = 4,
     time_dims: int = 5,
@@ -268,6 +278,7 @@ def test_videos(
     method_name: Optional[str] = None,
     videos_per_batch: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
+    infer_step=None,
 ) -> None:
     """Saliency for every video in `input_path` (sorted `*.avi`, `*.AVI`,
     `*.mp4`), one `<name>.mat` each under `output_path[/method_name]`:
@@ -285,7 +296,17 @@ def test_videos(
     A video whose `.mat` exists is
     skipped; one shorter than `time_dims` gets an empty (H, W, 1, 0) map.
     Groups of `videos_per_batch` videos are served in lock-step while the
-    next group is decoded on a worker thread."""
+    next group is decoded on a worker thread.
+
+    `infer_step` is a prebuilt `step(x, state)` to serve instead of the
+    model's baked step (as the JAX runner's `infer_step=`): then `model` is
+    what gives its zero state, an artifact (`runners/export.py::
+    ExportedServing`) whose priors are inside it, so `bias_type` must be (0,
+    0, 0) and no prior is built. On the card either step is replayed from
+    a CUDA graph."""
+    if infer_step is not None and any(bias_type):
+        raise ValueError(f"bias_type={tuple(bias_type)} with a prebuilt step: its priors are "
+                         "its own, pass (0, 0, 0)")
     model_bias = getattr(model, "bias_type", None)
     if model_bias is not None and tuple(int(bool(b)) for b in bias_type) != model_bias:
         raise ValueError(f"bias_type={tuple(bias_type)} but the model was built with "
@@ -294,11 +315,15 @@ def test_videos(
         output_path = os.path.join(output_path, method_name)
     os.makedirs(output_path, exist_ok=True)
     shape_r, shape_c, shape_r_out, shape_c_out = iosize
-    gauss = get_gauss_priors(shape_r_out, shape_c_out, 8) if bias_type[0] else None
-    ob = get_ob_priors(train_data_dir, dataset, "train", shape_r_out, shape_c_out, 20,
-                       priors_cache_dir) if bias_type[1] else None
-    step = make_baked_infer_step(model, gauss, ob, compute_dtype=compute_dtype)
-    if next(model.parameters()).device.type == "cuda":
+    if infer_step is None:
+        gauss = get_gauss_priors(shape_r_out, shape_c_out, 8) if bias_type[0] else None
+        ob = get_ob_priors(train_data_dir, dataset, "train", shape_r_out, shape_c_out, 20,
+                           priors_cache_dir) if bias_type[1] else None
+        step = make_baked_infer_step(model, gauss, ob, compute_dtype=compute_dtype)
+        on_card = next(model.parameters()).device.type == "cuda"
+    else:
+        step, on_card = infer_step, model.device.type == "cuda"
+    if on_card:
         step = graph_step(step)
 
     file_names = [

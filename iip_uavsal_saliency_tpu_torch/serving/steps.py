@@ -1,6 +1,7 @@
 """Serving steps (counterparts of `iip_uavsal_saliency_tpu/parallel/steps.py`:
 `_build_infer_fn` and `make_baked_infer_step`, and in `graph_step` of the
-compiled, state-donating program the JAX runner serves through).
+compiled, state-donating program the JAX runner serves through). The baked
+step's body is a module (`BakedStep`), which `runners/export.py` exports.
 
 uint8 frames go to the device as they are and are normalized there
 (/255, ImageNet mean/std, in f32), then cast to the compute dtype with the
@@ -26,33 +27,61 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _serve(model: nn.Module, mean: torch.Tensor, std: torch.Tensor,
+           compute_dtype: Optional[torch.dtype], x, gauss, ob, state):
+    """The serving step's body: uint8 frames normalized in f32, the inputs
+    cast to `compute_dtype`, the model, the saliency in f32."""
+    if x.dtype == torch.uint8:
+        x = (x.float() / 255.0 - mean) / std
+    if compute_dtype is not None:
+        x, state, gauss, ob = (None if t is None else t.to(compute_dtype)
+                               for t in (x, state, gauss, ob))
+    out, new_state = model(x, gauss, ob, state)
+    return out.float(), new_state
+
+
+def _normalization(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.as_tensor(IMAGENET_MEAN, device=device),
+            torch.as_tensor(IMAGENET_STD, device=device))
+
+
 def build_infer_fn(model: nn.Module, compute_dtype: Optional[torch.dtype] = None):
     """`fn(x, gauss, ob, state) -> (saliency, new_state)` over `model` as it
     is (its parameters must already be in `compute_dtype`)."""
-    device = _model_device(model)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=device)
-    std = torch.as_tensor(IMAGENET_STD, device=device)
-
-    def cast(t):
-        return None if t is None or compute_dtype is None else t.to(compute_dtype)
+    mean, std = _normalization(_model_device(model))
 
     def step(x, gauss, ob, state):
         with torch.inference_mode():
-            if x.dtype == torch.uint8:
-                x = (x.float() / 255.0 - mean) / std
-            if compute_dtype is not None:
-                x, state, gauss, ob = cast(x), cast(state), cast(gauss), cast(ob)
-            out, new_state = model(x, gauss, ob, state)
-            return out.float(), new_state
+            return _serve(model, mean, std, compute_dtype, x, gauss, ob, state)
 
     return step
 
 
-def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
-                          ob: Optional[torch.Tensor] = None,
-                          compute_dtype: Optional[torch.dtype] = None) -> Step:
-    """`step(x, state) -> (saliency, new_state)` with the weights and priors
-    cast once and frozen.
+class BakedStep(nn.Module):
+    """`forward(x, state) -> (saliency, new_state)`: the body of the baked
+    serving step as a module, the priors and the normalization held as
+    plain tensors (which `torch.export` bakes as constants). Made by
+    `bake_model`; `make_baked_infer_step` serves it under
+    `torch.inference_mode()`, `runners/export.py` exports it."""
+
+    def __init__(self, model: nn.Module, gauss: Optional[torch.Tensor],
+                 ob: Optional[torch.Tensor], compute_dtype: Optional[torch.dtype]):
+        super().__init__()
+        self.model = model
+        self.gauss, self.ob = gauss, ob
+        self.mean, self.std = _normalization(_model_device(model))
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _serve(self.model, self.mean, self.std, self.compute_dtype, x, self.gauss,
+                      self.ob, state)
+
+
+def bake_model(model: nn.Module, gauss: Optional[torch.Tensor] = None,
+               ob: Optional[torch.Tensor] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> BakedStep:
+    """`model` with the weights and priors cast once and frozen, as a
+    `BakedStep`.
 
     Takes `model` over: it is cast to `compute_dtype` in place with its 4-D
     weights stored channels-last and its 5-D ones channels-last-3d (and,
@@ -75,11 +104,20 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
     def prep(p):
         return None if p is None else torch.as_tensor(p).to(device=device, dtype=dtype)
 
-    gauss, ob = prep(gauss), prep(ob)
-    inner = build_infer_fn(model, compute_dtype)
+    return BakedStep(model, prep(gauss), prep(ob), compute_dtype)
+
+
+def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
+                          ob: Optional[torch.Tensor] = None,
+                          compute_dtype: Optional[torch.dtype] = None) -> Step:
+    """`step(x, state) -> (saliency, new_state)`: `bake_model` of these
+    arguments (which takes `model` over) served under
+    `torch.inference_mode()`."""
+    baked = bake_model(model, gauss, ob, compute_dtype)
 
     def step(x, state):
-        return inner(x, gauss, ob, state)
+        with torch.inference_mode():
+            return baked(x, state)
 
     return step
 

@@ -1060,3 +1060,106 @@ def test_transplanted_video_train_step_launches(card, mixed, tmp_path):
     for key, value in start.state_dict().items():
         if key.startswith("sfnet.") and "running" not in key:
             assert torch.equal(params[key].detach().cpu(), value), key
+
+
+OP_CASES = {
+    # name: (x shape, dtype, route the op's CUDA implementation takes)
+    "k1_persistent_bf16": ((1, 20, 45, 80, 256), torch.bfloat16, "twa_scan"),
+    "k1_step_f32": ((1, 5, 45, 80, 256), torch.float32, "twa_step"),
+    "k1_step_bf16_ragged": ((2, 5, 13, 7, 24), torch.bfloat16, "twa_step"),
+    "k1_step_f32_ragged": ((2, 5, 13, 7, 24), torch.float32, "twa_step"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OP_CASES))
+def test_twa_custom_op_equals_the_wrapper(card, name):
+    """`uavsal::twa_scan` on the card is the wrapper it registers: the same
+    bits as `_twa_scan_cuda` on the same inputs (with W_h packed beforehand
+    too, on the per-frame route), and the same launches, counted once per
+    launch by the wrapper."""
+    shape, dtype, route = OP_CASES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, dtype) for a in _case(*shape)]
+    assert kernel_route(shape, dtype) == route
+    packs = [None]
+    if route == "twa_step":
+        packs.append((pack_twa_weights_bf16 if dtype == torch.bfloat16
+                      else pack_twa_weights)(args[2]))
+    for packed in packs:
+        kernels.reset_launches()
+        ys, last = torch.ops.uavsal.twa_scan(*args, packed)
+        torch.cuda.synchronize()
+        assert kernels.launches == _launches(route, shape[1])
+        want, want_last = _twa_scan_cuda(*args, packed=packed)
+        assert torch.equal(ys, want) and torch.equal(last, want_last)
+        assert kernels.launches == {k: 2 * n for k, n in _launches(route, shape[1]).items()}
+        got, got_last = twa_scan(*args, packed=packed)
+        assert torch.equal(got, want) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["ragged", "c256", "c320_to_256"])
+def test_dwblock_custom_op_equals_the_wrapper(card, name, dtype):
+    """`uavsal::dwblock` on the card is the wrapper it registers: the bits
+    of `fused_dwblock_kernel` on the same inputs, with and without packed
+    weights, one launch per call."""
+    shape, residual = DW_SHAPES[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, dtype) for a in _dw_case(*shape)]
+    blobs = pack_dwblock_weights(*args[1:6])
+    for packed in (None, blobs):
+        kernels.reset_launches()
+        out = torch.ops.uavsal.dwblock(*args, residual, *(packed or (None, None)))
+        torch.cuda.synchronize()
+        assert kernels.launches["dwblock"] == 1
+        want = fused_dwblock_kernel(*args, residual, packed)
+        assert torch.equal(out, want)
+        assert torch.equal(fused_dwblock(*args, residual, packed), want)
+        assert kernels.launches["dwblock"] == 3
+
+
+ARTIFACT_CASES = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)]
+
+
+@pytest.mark.parametrize("dtype,k2", ARTIFACT_CASES,
+                         ids=[f"{str(d)[6:]}-k2{'on' if k else 'off'}" for d, k in ARTIFACT_CASES])
+def test_artifact_graphed_equals_eager_and_the_live_step(card, seeded_variables, dtype, k2,
+                                                         tmp_path):
+    """A 64x128 artifact exported on the card (`runners/export.py`), saved
+    and loaded: over three carried clips it launches what the live step
+    launches, its graphed replay gives its eager bits, and both give the
+    live baked step's bits on the same weights."""
+    from iip_uavsal_saliency_tpu_torch.runners.export import (ExportedServing, export_serving,
+                                                              save_exported)
+
+    hw = (64, 128)
+    rng = np.random.RandomState(12)
+    gauss, ob = get_gauss_priors(8, 16, 8), rng.rand(8, 16, 20).astype(np.float32)
+    model = load_model_for_inference(seeded_variables, device="cuda", fused_dwblock=k2)
+    program, meta = export_serving(model, iosize=hw + (8, 16), batch_size=4, gauss=gauss,
+                                   ob=ob, compute_dtype=dtype if dtype != torch.float32 else None)
+    assert meta["platforms"] == ["cuda"]
+    save_exported(str(tmp_path / "a.aot"), program, meta)
+    art = ExportedServing(str(tmp_path / "a.aot"))
+    _, live = _served(seeded_variables, hw, dtype, k2)
+    clips = _clips(hw, 3)
+    state = art.init_state(*hw, 1)
+    live_state = state.clone()
+    kernels.reset_launches()
+    eager = []
+    for x in clips:
+        out, state = art(x, state)
+        eager.append((out.clone(), state.clone()))
+    torch.cuda.synchronize()
+    counted = dict(kernels.launches)
+    kernels.reset_launches()
+    for k, x in enumerate(clips):
+        want, live_state = live(x, live_state)
+        assert torch.equal(eager[k][0], want) and torch.equal(eager[k][1], live_state), k
+    assert counted == kernels.launches
+    assert (counted["dwblock"] > 0) == k2
+    assert counted["twa_scan" if dtype == torch.bfloat16 else "twa_step"] > 0
+    graphed = graph_step(art)
+    state = art.init_state(*hw, 1)
+    for k, x in enumerate(clips):
+        out, state = graphed(x, state)
+        assert torch.equal(out, eager[k][0]) and torch.equal(state, eager[k][1]), k
+    assert graphed.graph_launches() == {name: n // 3 for name, n in counted.items()}

@@ -365,13 +365,15 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value, world, port_maps, 
 
 def test_cli_only_registers_test():
     """`test`, `train` (the training slice), `eval`, `eval-img` (the
-    evaluation slice), `modelsize`, and `train-img`, `vis` and `pipeline`
-    (the recipe slice); the JAX CLI's other subcommands (`convert`,
-    `export`, `test-aot`) are refused."""
+    evaluation slice), `modelsize`, `train-img`, `vis` and `pipeline` (the
+    recipe slice), and `convert`, `export` and `test-aot` (the deployment
+    slice): every command of the JAX CLI, none refused. A path command
+    without its paths ends with its usage, as in the JAX CLI."""
     assert set(cli.COMMANDS) == {"train", "train-img", "test", "eval", "eval-img", "vis",
-                                 "pipeline", "modelsize"}
-    assert set(cli.NOT_PORTED) == {"convert", "export", "test-aot"}
-    assert cli.main(["convert"]) == 2
+                                 "pipeline", "modelsize", "convert", "export", "test-aot"}
+    assert cli.NOT_PORTED == {}
+    with pytest.raises(SystemExit, match="usage: convert <reference.pth> <out.ckpt>"):
+        cli.main(["convert"])
     assert cli.main(["--help"]) == 0
 
 

@@ -194,6 +194,36 @@
    host's sampling per batch, the card's busy share under the profiler
    (`build/chip_smoke_profile_eval.txt`), peak memory, the host path's
    frames/s, and `device_dispatch_ms` with the image drivers' choice.
+7. Data parallelism over videos (`parallel/`, `--dp_devices`) on the one
+   card, and `planes=128`: two gloo ranks on the card (one spawn,
+   `tests/_dp_runs.py::run_jobs`) serve 4 synthetic videos of 2 clips at
+   360x640, bf16, graphed, K2 off and on, one video a rank a group: each
+   rank's uint8 maps the bits of one process serving the video at V=1,
+   CC >= 0.99 per frame against one process at V=2, K1 and K2 per rank
+   from the graphs' own nodes exactly phase 3's per replay (frames/s of
+   the two ranks printed, which measure no scaling: they share the card);
+   the same ranks take one train step with a video each (the padded ragged
+   clip of phase 5d in video 1), bf16 mixed and f32, against one process's
+   V=2 step whose train-mode BatchNorms reduce the batch as the two ranks
+   do (`cross_rank_batch_norm(parts=2)`, the same sums in the same order):
+   f32 at `TOL_TRAIN_K1_*`, bf16 mixed at `TOL_TRAIN_BF16_*` (an H100 read
+   the state's bits equal, the loss 8.1e-8 and the gradient 0.025 apart in
+   bf16: each rank rounds its share of a gradient to bf16 before the
+   all-reduce); f32 also against the plain one-process step at
+   `TOL_TRAIN_*` (an f32 run's drift through ~100 train-mode BatchNorms).
+   In bf16 the plain step is not held: a BatchNorm output one bf16 ulp
+   off, which another order of the same f32 sums gives now and then, moves
+   a random network's gradients and state by O(1) through the BatchNorms
+   after it, so the ranks' distance from it is printed beside one
+   process's own between `F.batch_norm` and the cross-rank sums over one
+   part (an H100 read gradient 1.39 and 1.26, state 5.12 and 5.53);
+   launches exact, the replicas' bits equal; one rank through an NCCL
+   group takes the f32 step between two plain steps, deterministic
+   algorithms on, and must give their bits; then UAVSal(planes=128) with seeded weights through phase
+   3's `drive` in bf16 with K2 off and on and in f32 (launches exact, K1
+   as served and K2 at each admitted block against their plain versions,
+   graphed equal to eager, bf16 against f32 at CC >= 0.99), and K1's f32
+   kernel at 1x20x45x80x128 against the plain version; the phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel
 (`twa_scan`, `twa_step` for K1's per-frame kernel as the f32 paths launch
@@ -202,8 +232,10 @@ for K2 in bf16 and `dwblock_f32` for K2 in f32, each with
 `train_step_launches`, its launches counted in one train step of the dtype
 it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
 dwBlock on, and `config_launches`, its launches on each path of phase 3b,
-3c and 5b, under `recipe` those of 5c, under `lockstep` those of 5d and
-under `artifact` those of the three artifacts of 4b);
+3c and 5b, under `recipe` those of 5c, under `lockstep` those of 5d,
+under `artifact` those of the three artifacts of 4b, under `dp` phase 7's
+per rank (serving: a replay's graph nodes; training: one step) and under
+`planes128` phase 7's planes=128 paths per 3 clips);
 the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
@@ -3073,7 +3105,7 @@ def main() -> None:
         model without one carries its dummy zeros unchanged.
         Then the same path replayed from a CUDA graph (`drive_graphed`)."""
         out_h, out_w = video.shape[1] // 8, video.shape[2] // 8
-        route = twa.kernel_route((V, S, out_h, out_w, 256),
+        route = twa.kernel_route((V, S, out_h, out_w, getattr(model, "planes", None) or 256),
                                  torch.bfloat16 if bf16 else torch.float32) if k1 else None
         stateful = not isinstance(model, ZooModelAdapter)
         predict_videos(step, model, [video[:S]], native, batch_size=4)  # warm-up
@@ -3306,6 +3338,9 @@ def main() -> None:
 
     # 6. evaluation
     eval_phase(torch, maps16)
+    # 7. data parallelism over videos, and planes=128
+    dp_launches = dp_phase(torch, kernels, twa, dwblock, DWBlock, serve, drive, compare, weights,
+                           gauss, ob, first_clip, len(admitted), smi)
 
     def by_config(kernel):
         """The kernel's launches on each path of each configuration of phase
@@ -3318,6 +3353,10 @@ def main() -> None:
         counts["recipe"] = {path: n[kernel] for path, n in recipe_launches.items()}
         counts["lockstep"] = {path: n[kernel] for path, n in lockstep_launches.items()}
         counts["artifact"] = {path: n[kernel] for path, n in deploy_launches.items()}
+        counts["dp"] = {path: n[kernel] for path, n in dp_launches.items()
+                        if not path.startswith("planes128")}
+        counts["planes128"] = {path[len("planes128 "):]: n[kernel]
+                               for path, n in dp_launches.items() if path.startswith("planes128")}
         return counts
 
     print(smi)
@@ -3400,6 +3439,219 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+# ---------------------------------------------------------------------------
+# 7. Data parallelism over videos, and planes=128
+
+DP_RANKS = 2
+DP_VIDEOS = 4        # served with videos_per_batch 2: one video a rank a group
+DP_FRAMES = 2 * S    # two clips a video
+DP_TIMEOUT_S = 300   # every collective of the phase's ranks, and each spawn
+PLANES_NARROW = 128
+
+
+def maps_stack(torch, maps):
+    """A video's uint8 maps (H, W, 1, T) as a (T, H, W) f64 stack."""
+    return torch.from_numpy(np.ascontiguousarray(maps[:, :, 0].transpose(2, 0, 1))).double()
+
+
+def dp_train_result(torch, ranks, i):
+    """The train step of run i on the ranks as `one_train_step` returns
+    one: (loss, gradients, BN stats after, the state of both videos (rank r
+    holds video r), launches of rank 0), all f64 on the host."""
+    r0 = ranks[0][-1][i]
+    grads = {n: torch.from_numpy(a) for n, a in r0["grads"][0].items()}
+    bufs = {n: torch.from_numpy(a) for n, a in r0["after"].items() if "running" in n}
+    state = torch.from_numpy(np.concatenate([r[-1][i]["rnn"][0] for r in ranks]))
+    return r0["losses"][0], grads, bufs, state, r0["launches"][0]
+
+
+def dp_phase(torch, kernels, twa, dwblock, DWBlock, serve, drive, compare, weights, gauss, ob,
+             first_clip, k2_blocks, smi):
+    """(a) Two gloo ranks on this card serve 4 videos of 2 clips at 360x640,
+    bf16, graphed, K2 off and on (`cli test --dp_devices` serving, one video
+    a rank a group): each rank's maps the bits of one process serving the
+    same video at V=1, and within CC_MIN per frame of one process at V=2;
+    K1 and K2 per rank from the graphs' own nodes, exactly phase 3's per
+    replay. (b) The same ranks take one train step with a video each, bf16
+    mixed and f32, against one process's V=2 step that reduces each
+    BatchNorm's batch as the ranks do (`ranks_arithmetic`): f32 at
+    `TOL_TRAIN_K1_*`, bf16 mixed at `TOL_TRAIN_BF16_*`; f32 also against the
+    plain one-process step at the bounds of an f32 run's drift through ~100
+    train-mode BatchNorms (`TOL_TRAIN_*`, as phase 5d holds the card against
+    the CPU); bf16 against it printed (module docstring); their launches
+    exactly phase 5d's, the replicas equal. (c) One rank through an NCCL group takes the
+    f32 step, deterministic algorithms on, between two plain steps: the
+    bits of the plain step. (d) UAVSal(planes=128) served at 360x640 in
+    bf16, K2 off and on, and in f32, through phase 3's `drive` (K1 as
+    served against the plain version, K2 at each admitted block against
+    its plain version, launches exact, graphed equal to eager), and K1's
+    f32 kernel at 1x20x45x80x128 against the plain version. Returns the
+    launches of each path."""
+    from iip_uavsal_saliency_tpu_torch.models.convert import to_jax_variables
+    from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal, init_model
+    from iip_uavsal_saliency_tpu_torch.parallel import spawn
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _dp_runs import ranks_arithmetic, run_jobs, serve_videos  # shared with the tests
+    from iip_uavsal_saliency_tpu_torch.training.losses import loss_fu
+    from iip_uavsal_saliency_tpu_torch.training.trainer import _masked_loss
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 17)  # its own: the other phases' draws stay as they were
+    variables = to_jax_variables(weights)
+    videos = [synthetic_video(rng, DP_FRAMES) for _ in range(DP_VIDEOS)]
+    native = [(NATIVE_H, NATIVE_W)] * DP_VIDEOS
+    served = {k2: {"model": {"fused_dwblock": k2}, "weights": variables, "gauss": gauss,
+                   "ob": ob, "compute_dtype": "bfloat16", "videos": videos, "native": native,
+                   "batch_size": 4, "time_dims": 5, "videos_per_batch": DP_RANKS,
+                   "graphed": True} for k2 in (False, True)}
+    start = init_model(UAVSal(), torch.Generator().manual_seed(SEED)).state_dict()
+    x, y = lockstep_batch(torch, rng, TRAIN_S, TRAIN_S // 2)
+    ob_train = rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)
+    carried = rng.normal(0.0, 0.5, (DP_RANKS, OUT_H, OUT_W, 256)).astype(np.float32)
+    gauss_train = torch.from_numpy(gauss)
+    step_run = {"model": {}, "weights": {k: v.numpy() for k, v in start.items()},
+                "loss": "masked", "lr": TRAIN_LR, "wd": TRAIN_WD, "tf32": False,
+                "clips": [(x.numpy(), y.numpy())], "rnn": carried, "gauss": gauss,
+                "ob": ob_train}
+    trained = [dict(step_run, compute_dtype="bfloat16"), step_run]
+    launches = {}
+
+    # (a) and (b): one spawn of two ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn(run_jobs, DP_RANKS, "gloo",
+                  ([("serve_videos", served[False]), ("serve_videos", served[True]),
+                    ("train_steps", trained)],), device_type="cuda", timeout_s=DP_TIMEOUT_S,
+                  deadline_s=DP_TIMEOUT_S)
+    print(f"dp: two gloo ranks on one card served and trained in {time.perf_counter() - t0:.1f} s "
+          "(the processes' start, CUDA and the kernels' load included)")
+    for j, k2 in enumerate((False, True)):
+        path = f"serve bf16 K2 {'on' if k2 else 'off'}"
+        want = {"twa_scan": 1, "twa_step": 0, "dwblock": k2_blocks if k2 else 0}
+        one = {vpb: serve_videos(None, dict(served[k2], videos_per_batch=vpb, device="cuda"))
+               for vpb in (1, DP_RANKS)}
+        frames = 0
+        for r, rank in enumerate(ranks):
+            got = rank[j]
+            nodes = got["graph_launches"]
+            print(f"dp {path}, rank {r}: videos {got['indices']}, the graph's kernel nodes "
+                  f"{nodes} a replay, the wrappers' launches in the run {got['launches']} "
+                  f"(warm-up and capture), {got['seconds']:.3f} s for "
+                  f"{sum(m.shape[3] for m in got['maps'])} frames")
+            if nodes != want or not all(got["launches"][k] for k, n in want.items() if n):
+                fail(f"dp {path}, rank {r}: the graph's nodes {nodes} (expected {want}), "
+                     f"launches {got['launches']}")
+            launches[f"{path}, rank {r}, per replay"] = nodes
+            frames += sum(m.shape[3] for m in got["maps"])
+            for i, maps in zip(got["indices"], got["maps"]):
+                if not np.array_equal(maps, one[1]["maps"][i]):
+                    fail(f"dp {path}: video {i} on rank {r} differs from one process at V=1")
+                compare(f"dp {path}, video {i} (rank {r}) vs one process at V={DP_RANKS}",
+                        maps_stack(torch, maps), maps_stack(torch, one[DP_RANKS]["maps"][i]))
+        seconds = max(rank[j]["seconds"] for rank in ranks)
+        print(f"dp {path}: {frames} frames in {seconds:.3f} s on two ranks sharing one card, "
+              f"{frames / seconds:.1f} frames/s, graph captures included (two processes on "
+              f"one card: no measure of scaling; {smi})")
+    masked = _masked_loss(loss_fu)
+    batch = (x, y, gauss_train, torch.from_numpy(ob_train), torch.from_numpy(carried))
+    for i, (dtype, want) in enumerate(((torch.bfloat16, {"twa_scan": 1, "twa_step": 0,
+                                                          "dwblock": 0}),
+                                       (None, {"twa_scan": 0, "twa_step": TRAIN_S,
+                                               "dwblock": 0}))):
+        label = "bf16 mixed" if dtype else "f32"
+        dp = dp_train_result(torch, ranks, i)
+        one = one_train_step(torch, kernels, start, batch, cuda, dtype, loss_fn=masked)
+        with ranks_arithmetic(DP_RANKS):
+            same_sums = one_train_step(torch, kernels, start, batch, cuda, dtype, loss_fn=masked)
+        with ranks_arithmetic(1):
+            one_part = one_train_step(torch, kernels, start, batch, cuda, dtype, loss_fn=masked)
+        name = f"dp train step {label}, two ranks of V=1 vs one process of V=2"
+        diffs = train_diffs(same_sums, dp)
+        print(f"{name} with the ranks' BatchNorm sums (`parts={DP_RANKS}`): the state's bits "
+              f"equal {torch.equal(same_sums[3], dp[3])}")
+        if dtype is None:
+            held_train(f"{name} with the ranks' BatchNorm sums", diffs, TOL_TRAIN_K1_LOSS,
+                       TOL_TRAIN_K1_GRAD, TOL_TRAIN_K1_LEAF, TOL_TRAIN_K1_BN, TOL_TRAIN_K1_STATE)
+            held_train(name, train_diffs(one, dp), TOL_TRAIN_LOSS, TOL_TRAIN_GRAD,
+                       TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+        else:
+            held_train(f"{name} with the ranks' BatchNorm sums", diffs, TOL_TRAIN_BF16_LOSS,
+                       TOL_TRAIN_BF16_GRAD, None, TOL_TRAIN_BF16_BN, TOL_TRAIN_BF16_STATE)
+            for what, a, b in (("two ranks of V=1 vs one process of V=2", one, dp),
+                               ("one process, the cross-rank BatchNorm's sums over one part vs "
+                                "F.batch_norm's", one, one_part)):
+                d = train_diffs(a, b)
+                print(f"dp train step {label}, not held, {what}: loss {d['loss']:.3g}, "
+                      f"gradient {d['grad']:.3g}, BN stats {d['bn']:.3g}, state "
+                      f"{d['state']:.3g}")
+        got = [rank[-1][i]["launches"][0] for rank in ranks]
+        print(f"dp train step {label}: launches a rank {got}, one process {one[4]}")
+        if any(g != want for g in got) or one[4] != want:
+            fail(f"dp train step {label}: launched {got} a rank, expected {want}")
+        if ranks[0][-1][i]["digest"] != ranks[1][-1][i]["digest"]:
+            fail(f"dp train step {label}: the two replicas differ after the step")
+        launches[f"train step {label}, a rank"] = got[0]
+
+    # (c) the NCCL path at one rank, between two plain steps
+    t0 = time.perf_counter()
+    det = dict(step_run, deterministic=True)
+    (plain, nccl, again), = spawn(run_jobs, 1, "nccl",
+                                 ([("train_steps", [dict(det, grouped=False), det,
+                                                    dict(det, grouped=False)])],),
+                                 device_type="cuda", timeout_s=DP_TIMEOUT_S,
+                                 deadline_s=DP_TIMEOUT_S)[0]
+    same = {"loss": plain["losses"] == nccl["losses"],
+            "grads": all(np.array_equal(g, nccl["grads"][0][n])
+                         for n, g in plain["grads"][0].items()),
+            "state": np.array_equal(plain["rnn"][0], nccl["rnn"][0]),
+            "after": plain["digest"] == nccl["digest"]}
+    repeat = plain["digest"] == again["digest"] and plain["losses"] == again["losses"]
+    print(f"dp f32 train step through an NCCL group of one rank against the plain step "
+          f"(deterministic algorithms): equal bits {same}; plain against plain again: "
+          f"{repeat}; {time.perf_counter() - t0:.1f} s with the process's start")
+    if not repeat:
+        fail("the plain train step is not deterministic on this card: NCCL cannot be held "
+             "bit for bit")
+    if not all(same.values()):
+        fail(f"the NCCL step is not the plain step bit for bit: {same}")
+    launches["train step f32, nccl, one rank"] = nccl["launches"][0]
+
+    # (d) planes=128 at full width
+    tree = to_jax_variables(random_state_dict(UAVSal(planes=PLANES_NARROW), rng))
+    config = {"planes": PLANES_NARROW}
+    model16, step16, spy16, seen16 = serve(torch.bfloat16, False, tree, config)
+    launches["planes128 bf16 K2 off"], _, sal16, _ = drive(
+        "planes=128, K2 off (bf16)", model16, step16, spy16, seen16, True, 0)
+    model16k, step16k, spy16k, seen16k = serve(torch.bfloat16, True, tree, config)
+    print("K2 bf16 at the admitted blocks of one planes=128 serving step:")
+    admitted, _ = check_k2_admitted(torch, dwblock, DWBlock, model16k, step16k, first_clip,
+                                    model16k.init_state(IN_H, IN_W, V, device="cuda"))
+    launches["planes128 bf16 K2 on"], _, sal16k, _ = drive(
+        "planes=128, K2 on (bf16)", model16k, step16k, spy16k, seen16k, True,
+        len(admitted) * CLIPS)
+    model32, step32, spy32, seen32 = serve(None, False, tree, config)
+    launches["planes128 f32"], _, sal32, _ = drive(
+        "planes=128, K2 off (f32)", model32, step32, spy32, seen32, False, 0)
+    compare("planes=128 bf16 vs f32 saliency, K2 off", sal16, sal32)
+    compare("planes=128 bf16 K2 on vs f32 saliency", sal16k, sal32)
+    shape = (1, S, OUT_H, OUT_W, PLANES_NARROW)
+    args = k1_case(torch, rng, shape, torch.float32)
+    kernels.reset_launches()
+    ys, last = twa._twa_scan_cuda(*args, route="twa_step")
+    torch.cuda.synchronize()
+    ref, ref_last = twa.twa_scan_ref(*args)
+    err = max((ys - ref).abs().max().item(), (last - ref_last).abs().max().item())
+    print(f"K1 per-frame f32 at {shape}: max_abs_err {err:.3g} (tolerance {TOL_F32}), "
+          f"launches {dict(kernels.launches)}")
+    if not err <= TOL_F32 or kernels.launches["twa_step"] != S:
+        fail(f"K1 f32 at {shape} disagrees with twa_scan_ref: {err}")
+    print(f"phase 7 (data parallelism, planes=128) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def time_host_issue(torch, paths, clip, state, calls: int = 21) -> None:

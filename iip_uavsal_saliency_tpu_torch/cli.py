@@ -1,4 +1,5 @@
 """Command line of the port (counterpart of `iip_uavsal_saliency_tpu/cli.py`).
+`python -m iip_uavsal_saliency_tpu_torch <command> ...` runs it too.
 
     python -m iip_uavsal_saliency_tpu_torch.cli train [--config cfg.json]
         [--model-path ckpt] [--device cuda|cpu] [--key value ...]
@@ -56,7 +57,22 @@ vgg16), `num_stblock`, `bias_type`, `st_type` (the ordering of
 `uavsal_stblocks_type`: st, s2t, t2s, s_s2t) and `s2d_stem`; a model takes
 the keywords its class has and ignores the rest, as the JAX CLI's
 `filter_kwargs` does, and an unknown `model_name` raises KeyError.
-`dp_devices` above 1 raises NotImplementedError naming ROADMAP A.11.
+`bake_params` false serves the argument-passing step instead of the one
+with the weights and priors baked in, as the JAX runner does.
+
+`--dp_devices N` (N > 1) runs `train` and `test` data-parallel over
+videos, as the JAX CLI's pure-`data` mesh does: N ranks, one process each
+(`parallel/`), on `cuda:0` ... `cuda:N-1` over NCCL, or with `--device cpu`
+on the CPU over gloo. More ranks than visible cards end the run, and the
+ranks never go to the CPU unless `--device cpu` was given. `train` splits
+each lock-step group of `videos_per_step` videos (a multiple of N) over the
+ranks, with train-mode BatchNorm, the loss and the gradients reduced over
+them, so that N ranks take the step one process takes on the whole group;
+rank 0 writes the checkpoints and metrics. `test` splits each group of
+`videos_per_batch` videos (a multiple of N) over the ranks, each serving
+its own videos and writing their files. A rank waits at most 30 minutes
+at a collective for the others (one that fails or stops alone then ends
+the run); the run itself has no time limit.
 
 `modelsize` prints the bytes of the configured UAVSal's parameters and
 BatchNorm statistics per top-level part of the JAX variable tree, as the
@@ -169,17 +185,43 @@ def _final_ckpt(cfg: Config) -> str:
     return os.path.join(cfg.save_model_dir, cfg.method_name, f"{cfg.method_name}_final.ckpt")
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.dp_devices > 1:
-        raise NotImplementedError(f"dp_devices={cfg.dp_devices}: multi-GPU serving and "
-                                  "training are ROADMAP A.11")
+def _data_parallel(rank_fn, cfg: Config, device: Optional[str], batch: str) -> list:
+    """`rank_fn(group, cfg)` on `cfg.dp_devices` ranks: one per card over
+    NCCL, or with `device` "cpu" on the CPU over gloo, each rank with its
+    share of this process's threads; what each rank returned. SystemExit
+    where there are fewer cards than ranks, and ValueError where the
+    videos a batch (`batch`, a field of `cfg`) do not split over the ranks,
+    as the JAX trainer and runner refuse them, before any rank starts."""
+    import torch
+
+    from .parallel.mesh import check_cards, spawn
+
+    world = cfg.dp_devices
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if not on_cpu:
+        check_cards(world)
+    if getattr(cfg, batch) % world:
+        raise ValueError(f"{batch}={getattr(cfg, batch)} must be a multiple of the mesh 'data' "
+                         f"axis ({world}) so the video batch shards evenly")
+    threads = max(1, torch.get_num_threads() // world) if on_cpu else 0
+    return spawn(rank_fn, world, "gloo" if on_cpu else "nccl", args=(cfg,),
+                 device_type="cpu" if on_cpu else "cuda", threads=threads)
+
+
+def _train_rank(group, cfg: Config) -> None:
+    _train(cfg, group.device, group)
 
 
 def cmd_train(cfg: Config, device: Optional[str] = None):
+    if cfg.dp_devices > 1:
+        return _data_parallel(_train_rank, cfg, device, "videos_per_step")
+    return _train(cfg, device)
+
+
+def _train(cfg: Config, device, group=None):
     from .training.checkpoint import load_checkpoint
     from .training.trainer import TrainConfig, Trainer
 
-    _check_supported(cfg)
     names = ("method_name", "model_name", "cnn_type", "iosize", "time_dims", "num_stblock",
              "st_type", "bias_type", "s2d_stem", "batch_size", "epochs", "learning_rate",
              "weight_decay", "is_early_stop", "max_patience", "is_best_only", "shuffle_train",
@@ -193,7 +235,8 @@ def cmd_train(cfg: Config, device: Optional[str] = None):
         pre_vars = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
     trainer = Trainer(tc, cfg.train_data_dir, cfg.train_dataset, cfg.save_model_dir,
                       ext=cfg.ext, pre_variables=pre_vars,
-                      priors_cache_dir=cfg.priors_cache_dir, device=device)
+                      priors_cache_dir=cfg.priors_cache_dir,
+                      device=None if group is not None else device, group=group)
     return trainer.train()
 
 
@@ -210,18 +253,29 @@ def cmd_train_img(cfg: Config, device: Optional[str] = None):
                          device=device)
 
 
-def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
+def _test_rank(group, cfg: Config) -> List[str]:
+    return _test(cfg, group.device, group)
+
+
+def cmd_test(cfg: Config, device: Optional[str] = None):
+    """The `.mat` files written: a list, or with `dp_devices` > 1 one list
+    per rank."""
+    if cfg.dp_devices > 1:
+        return _data_parallel(_test_rank, cfg, device, "videos_per_batch")
+    return _test(cfg, device)
+
+
+def _test(cfg: Config, device, group=None) -> List[str]:
     import torch
 
     from .runners.infer import load_model_for_inference, test_videos
 
-    _check_supported(cfg)
     model = load_model_for_inference(_final_ckpt(cfg), time_dims=cfg.time_dims,
                                      fold_bn=cfg.fold_bn, device=device,
                                      cnn_type=cfg.cnn_type, num_stblock=cfg.num_stblock,
                                      bias_type=cfg.bias_type, s2d_stem=cfg.s2d_stem,
                                      model_name=cfg.model_name, st_type=cfg.st_type)
-    test_videos(
+    return test_videos(
         cfg.test_input_path,
         cfg.test_output_path,
         model,
@@ -235,6 +289,8 @@ def cmd_test(cfg: Config, device: Optional[str] = None) -> None:
         method_name=cfg.method_name,
         videos_per_batch=cfg.videos_per_batch,
         compute_dtype=torch.bfloat16 if cfg.serve_bf16 else None,
+        bake_params=cfg.bake_params,
+        group=group,
     )
 
 

@@ -23,7 +23,8 @@ from torch import nn
 from .uavsal import MODEL_ZOO, UAVSalMP, _Stateful, build_model
 
 # the configuration a zoo model may carry, read through the adapter
-_CONFIG = ("model_name", "cnn_type", "time_dims", "num_stblock", "bias_type", "st_type")
+_CONFIG = ("model_name", "cnn_type", "time_dims", "num_stblock", "bias_type", "st_type",
+           "planes")
 
 
 class ZooModelAdapter(nn.Module):
@@ -41,7 +42,8 @@ class ZooModelAdapter(nn.Module):
     adapter, and bounded per video: the temporal differences per S frames
     (`diff_group=S`) and, for UAVSalMP, the context tiled frame-aligned
     (`compat_cxt_tile=False`), so that no stencil or context tile crosses
-    videos. V = 1 keeps the reference's behaviour."""
+    videos. V = 1 keeps the reference's behaviour. V is the whole batch's,
+    `videos` where given, as in `UAVSal`."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
@@ -64,13 +66,14 @@ class ZooModelAdapter(nn.Module):
         return torch.zeros(n_videos, 8, 8, 1, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
-                ob_prior: Optional[torch.Tensor],
-                state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                ob_prior: Optional[torch.Tensor], state: torch.Tensor,
+                videos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         v, s = x.shape[0], x.shape[1]
         flat = x.reshape(v * s, *x.shape[2:])
-        bounds = {"diff_group": s} if v > 1 else {}
+        several = (v if videos is None else videos) > 1
+        bounds = {"diff_group": s} if several else {}
         if self.takes_priors:
-            if v > 1:
+            if several:
                 bounds["compat_cxt_tile"] = False
             y = self.model(flat, gauss_prior, ob_prior, **bounds)
         else:

@@ -43,8 +43,8 @@ the ST blocks of their kind (STC3D: `stconv_te`, a 3-D ConvBNAct; STC23D:
 has `sfnet/...` and `conv_out -> conv_out`.
 
 Conv kernels go from HWIO to OIHW (DHWIO to OIDHW in 3-D); BN scale/bias
--> weight/bias and mean/var -> running_mean/running_var. `s2d_stem`
-changes no key.
+-> weight/bias and mean/var -> running_mean/running_var. `s2d_stem` and
+`planes` change no key (the leaves' shapes follow the arrays).
 """
 
 from __future__ import annotations

@@ -4,11 +4,15 @@
 1x1 laterals on c3 and c4; an ASPP on c5 (a 1x1 branch and three dilated
 depthwise DWBlocks at rates 6/12/18, concatenated and fused by a 1x1);
 align-corners bilinear upsampling of c4/c5 to c3's stride-8 grid; concat;
-3x3 `conv_last`. The lateral and ASPP input widths are the backbone's
-c3, c4 and c5 widths (`FEATURE_INPLANES`).
+3x3 `conv_last` to `last_channel` features. The lateral and ASPP input
+widths are the backbone's c3, c4 and c5 widths (`FEATURE_INPLANES`); their
+output widths are `planes[1:]` (c3, c4, c5), which the JAX module replaces
+by (32, 32, 64, 128) when `last_channel` is 128.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -18,12 +22,14 @@ from ..ops.resize import resize_bilinear_align_corners
 from .backbone import FEATURE_INPLANES, build_backbone
 
 ASPP_RATES = (6, 12, 18)
+PLANES = (64, 64, 128, 256)  # the laterals' default widths (planes[0] is not used)
 
 
 class SRFNet(nn.Module):
-    def __init__(self, cnn_type: str = "mobilenet_v2", s2d_stem: bool = False):
+    def __init__(self, cnn_type: str = "mobilenet_v2", s2d_stem: bool = False,
+                 planes: Sequence[int] = PLANES, last_channel: int = 256):
         super().__init__()
-        planes = [64, 64, 128, 256]
+        planes = [32, 32, 64, 128] if last_channel == 128 else list(planes)
         self.features = build_backbone(cnn_type, s2d_stem)
         _, c3, c4, c5 = FEATURE_INPLANES[cnn_type.lower()]
         self.lv5_aspp1 = ConvBNAct(c5, planes[3], 1)
@@ -33,7 +39,7 @@ class SRFNet(nn.Module):
         self.conv_lv5 = ConvBNAct(4 * planes[3], planes[3], 1)
         self.conv_lv4 = ConvBNAct(c4, planes[2], 1)
         self.conv_lv3 = ConvBNAct(c3, planes[1], 1)
-        self.conv_last = ConvBNAct(planes[3] + planes[2] + planes[1], planes[3], 3)
+        self.conv_last = ConvBNAct(planes[3] + planes[2] + planes[1], last_channel, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, _, c3, c4, c5 = self.features(x)

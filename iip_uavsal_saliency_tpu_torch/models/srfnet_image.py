@@ -20,7 +20,6 @@ from torch import nn
 
 from ..ops.layers import DWBlock
 from .srfnet import SRFNet
-from .uavsal import PLANES
 
 # the image stage's name in the weight bridge (`models/convert.py::table_for`)
 IMAGE_MODEL_NAME = "srfnet_image"
@@ -31,17 +30,19 @@ class SRFNetImage(nn.Module):
     images, or their (B, 3, H, W) view whose memory is channels-last. In
     train mode BatchNorm takes batch statistics. `init_model` draws its
     weights as the JAX package does: the backbone kaiming fan_in, the neck
-    and `conv_out` fan_out."""
+    and `conv_out` fan_out. `planes` is the neck's output width (the JAX
+    field of that name: SRF-Net's `last_channel`)."""
 
     model_name = IMAGE_MODEL_NAME
     num_stblock = 0  # what the bridge reads: no ST block, no priors
     bias_type = None
 
-    def __init__(self, cnn_type: str = "mobilenet_v2"):
+    def __init__(self, cnn_type: str = "mobilenet_v2", planes: int = 256):
         super().__init__()
         self.cnn_type = cnn_type.lower()
-        self.sfnet = SRFNet(self.cnn_type)
-        self.conv_out = DWBlock(PLANES, 1, 3)
+        self.planes = planes
+        self.sfnet = SRFNet(self.cnn_type, last_channel=planes)
+        self.conv_out = DWBlock(planes, 1, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[-1] == 3:

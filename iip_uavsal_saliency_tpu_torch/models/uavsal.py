@@ -27,7 +27,8 @@ Call signatures are the JAX classes': UAVSal and UAVSalLSTM take (V, S,
 H, W, 3) frames, the priors and the carried state and return (saliency
 (V, S, H/8, W/8, 1), new state); UAVSalMP takes (S, H, W, 3) frames and
 the priors; the others (S, H, W, 3) frames alone; those return (S, H/8,
-W/8, 1) (UAVSalSTBlocks with the trunk's (S, H/8, W/8, 256) features).
+W/8, 1) (UAVSalSTBlocks with the trunk's (S, H/8, W/8, planes) features).
+Every class takes the JAX field `planes`, the trunk's width (256).
 `models/adapters.py` gives them all UAVSal's interface. Where the JAX
 classes set `diff_group` (and UAVSalMP `compat_cxt_tile`) as fields that
 the adapter clones, these take them as arguments of `forward`.
@@ -48,7 +49,6 @@ from .recurrent import ConvLSTM, ConvTWA
 from .srfnet import SRFNet
 from .stblock import ST_TYPES, STC23D, STC3D, STBlock, TeConvSub
 
-PLANES = 256
 NUM_STBLOCK = 2
 NB_GAUSSIAN = 8
 NB_OB = 20
@@ -81,27 +81,30 @@ class _Zoo(nn.Module):
     model_name = ""
 
     def __init__(self, cnn_type: str, time_dims: Optional[int], num_stblock: int,
-                 s2d_stem: bool = False):
+                 s2d_stem: bool = False, planes: int = 256):
         super().__init__()
         self.time_dims = time_dims
         self.cnn_type = cnn_type.lower()
         self.num_stblock = num_stblock
         self.s2d_stem = s2d_stem
-        self.sfnet = SRFNet(self.cnn_type, s2d_stem)
+        self.planes = planes
+        self.sfnet = SRFNet(self.cnn_type, s2d_stem, last_channel=planes)
 
     def _add_trunk(self, block) -> None:
         """`st_layer` of `num_stblock` blocks made by `block()`, and
         `fust_layer`."""
         self.st_layer = nn.ModuleList([block() for _ in range(self.num_stblock)])
-        self.fust_layer = nn.Sequential(DWBlock(PLANES, PLANES, 3))
+        self.fust_layer = nn.Sequential(DWBlock(self.planes, self.planes, 3))
 
     def _st_block(self, block_cls):
-        """A maker of `block_cls` as the JAX `_Trunk` builds it: 256 -> 256
-        with the identity residual, and a temporal width of 256 / 8 where it
-        has a temporal branch; the 3-D blocks take `time_dims` instead."""
+        """A maker of `block_cls` as the JAX `_Trunk` builds it: planes ->
+        planes with the identity residual, and a temporal width of planes /
+        (planes // 32) where it has a temporal branch; the 3-D blocks take
+        `time_dims` instead."""
         if block_cls in (STC3D, STC23D):
-            return functools.partial(block_cls, PLANES, PLANES, self.time_dims)
-        return functools.partial(block_cls, PLANES, PLANES, reduction=PLANES // 32)
+            return functools.partial(block_cls, self.planes, self.planes, self.time_dims)
+        return functools.partial(block_cls, self.planes, self.planes,
+                                 reduction=self.planes // 32)
 
     def _add_priors(self, bias_type: Sequence[int]) -> None:
         """The prior streams that `bias_type` switches on, and with any on
@@ -115,12 +118,13 @@ class _Zoo(nn.Module):
             [DWBlock(NB_OB, CB_OUPLANES[1]),
              DWBlock(CB_OUPLANES[1], CB_OUPLANES[1])]) if use_ob else None
         self.cxt_cb_prior = nn.ModuleList(
-            [DWBlock(PLANES, CB_OUPLANES[2], stride=2),
+            [DWBlock(self.planes, CB_OUPLANES[2], stride=2),
              DWBlock(CB_OUPLANES[2], CB_OUPLANES[2], stride=2)]) if use_cxt else None
         if any(self.bias_type):
             width = sum(c for c, on in zip(CB_OUPLANES, self.bias_type) if on)
-            self.fucb_layer = nn.Sequential(DWBlock(width, PLANES // 4))
-            self.fucbst_layer = nn.Sequential(DWBlock(PLANES + PLANES // 4, PLANES))
+            cb_last = self.planes // 4
+            self.fucb_layer = nn.Sequential(DWBlock(width, cb_last))
+            self.fucbst_layer = nn.Sequential(DWBlock(self.planes + cb_last, self.planes))
 
     def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
         """SRF-Net -> ST blocks -> fuse DWBlock over (N, 3, H, W) frames."""
@@ -179,7 +183,7 @@ class _Zoo(nn.Module):
         return self.fucbst_layer(torch.cat([x, laid_out_as(x_cb, x)], dim=1))
 
     def head(self, feats: torch.Tensor) -> torch.Tensor:
-        """(N, 256, Ho, Wo) features -> saliency (N, Ho, Wo, 1)."""
+        """(N, planes, Ho, Wo) features -> saliency (N, Ho, Wo, 1)."""
         return torch.sigmoid(self.conv_out_st(feats)).permute(0, 2, 3, 1)
 
     def _check_clip(self, s: int) -> None:
@@ -189,26 +193,31 @@ class _Zoo(nn.Module):
 
 class _Stateful(_Zoo):
     """UAVSal and UAVSalLSTM: trunk -> MultiPriors -> a recurrence `rnn`
-    over (V, S, Ho, Wo, 256) -> head, on (V, S, H, W, 3) frames with the
+    over (V, S, Ho, Wo, planes) -> head, on (V, S, H, W, 3) frames with the
     carried state. `compat_cxt_tile` holds for one video: with V > 1 the
     context is tiled frame-aligned and the temporal differences are bounded
-    per video, as in the JAX classes."""
+    per video, as in the JAX classes. V is the whole batch's: `videos`
+    where a data-parallel train step gives this rank its rows of a batch of
+    `videos` (the JAX step's jit sees the whole batch), else x's own, as a
+    serving rank's (its `shard_map` runs each device's program on its
+    shard)."""
 
     compat_cxt_tile = True
 
     def forward(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
-                ob_prior: Optional[torch.Tensor],
-                state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                ob_prior: Optional[torch.Tensor], state: torch.Tensor,
+                videos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         v, s, h, w, c = x.shape
         self._check_clip(s)
+        videos = v if videos is None else videos
         feats = self.trunk(_frames_nchw(x.reshape(v * s, h, w, c)),
-                           diff_group=s if v > 1 else None)
+                           diff_group=s if videos > 1 else None)
         feats = self.multi_priors(feats, gauss_prior, ob_prior,
-                                  compat_cxt_tile=self.compat_cxt_tile and v == 1)
+                                  compat_cxt_tile=self.compat_cxt_tile and videos == 1)
         ho, wo = feats.shape[-2], feats.shape[-1]
-        seq = feats.permute(0, 2, 3, 1).reshape(v, s, ho, wo, PLANES)
+        seq = feats.permute(0, 2, 3, 1).reshape(v, s, ho, wo, self.planes)
         ys, new_state = self.rnn(seq, state)
-        out = self.head(_frames_nchw(ys.reshape(v * s, ho, wo, PLANES)))
+        out = self.head(_frames_nchw(ys.reshape(v * s, ho, wo, self.planes)))
         return out.reshape(v, s, ho, wo, 1), new_state
 
     def init_state(self, height: int, width: int, n_videos: int = 1,
@@ -227,8 +236,11 @@ class UAVSal(_Stateful):
     x           : (V, S, H, W, 3) normalized frames, S % time_dims == 0
     gauss_prior : (H/8, W/8, 8), or None when bias_type[0] == 0
     ob_prior    : (H/8, W/8, 20), or None when bias_type[1] == 0
-    state       : (V, H/8, W/8, 256) carried TWA hidden state
+    state       : (V, H/8, W/8, planes) carried TWA hidden state
     saliency    : (V, S, H/8, W/8, 1)
+
+    `planes` is the trunk's width (256; the JAX field: 128 takes SRF-Net's
+    narrow laterals, `models/srfnet.py`).
 
     `fused_dwblock=True` switches `use_kernel` on for every DWBlock of the
     model; each block then runs as one fused kernel call (K2 on the card)
@@ -240,12 +252,13 @@ class UAVSal(_Stateful):
 
     def __init__(self, time_dims: int = 5, fused_dwblock: bool = False,
                  cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
-                 bias_type: Sequence[int] = (1, 1, 1), s2d_stem: bool = False):
-        super().__init__(cnn_type, time_dims, num_stblock, s2d_stem)
+                 bias_type: Sequence[int] = (1, 1, 1), s2d_stem: bool = False,
+                 planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, s2d_stem, planes)
         self._add_trunk(self._st_block(STBlock))
         self._add_priors(bias_type)
-        self.rnn = ConvTWA(PLANES)
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.rnn = ConvTWA(planes)
+        self.conv_out_st = DWBlock(planes, 1, 3)
         if fused_dwblock:
             for module in self.modules():
                 if isinstance(module, DWBlock):
@@ -254,19 +267,19 @@ class UAVSal(_Stateful):
 
 class UAVSalLSTM(_Stateful):
     """UAVSal with a ConvLSTM for the TWA cell: the same call, a state of
-    (V, 2, H/8, W/8, 256) (h and c)."""
+    (V, 2, H/8, W/8, planes) (h and c)."""
 
     model_name = "uavsal_lstm"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
                  num_stblock: int = NUM_STBLOCK, bias_type: Sequence[int] = (1, 1, 1),
-                 compat_cxt_tile: bool = True):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 compat_cxt_tile: bool = True, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self.compat_cxt_tile = compat_cxt_tile
         self._add_trunk(self._st_block(STBlock))
         self._add_priors(bias_type)
-        self.rnn = ConvLSTM(PLANES)
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.rnn = ConvLSTM(planes)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
 
 class _Stateless(_Zoo):
@@ -283,10 +296,11 @@ class UAVSalSpConv(_Stateless):
 
     model_name = "uavsal_spconv"
 
-    def __init__(self, cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK):
-        super().__init__(cnn_type, None, num_stblock)  # no temporal op, no time_dims
-        self._add_trunk(functools.partial(DWBlock, PLANES, PLANES, 3, res_connect=True))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+    def __init__(self, cnn_type: str = "mobilenet_v2", num_stblock: int = NUM_STBLOCK,
+                 planes: int = 256):
+        super().__init__(cnn_type, None, num_stblock, planes=planes)  # no time_dims
+        self._add_trunk(functools.partial(DWBlock, planes, planes, 3, res_connect=True))
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
     def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
         x = self.sfnet(x)
@@ -302,24 +316,24 @@ class UAVSalTeConv(_Stateless):
     model_name = "uavsal_teconv"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
-                 num_stblock: int = NUM_STBLOCK):
-        super().__init__(cnn_type, time_dims, num_stblock)
-        self._add_trunk(functools.partial(TeConvSub, PLANES, PLANES, PLANES // 32,
+                 num_stblock: int = NUM_STBLOCK, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
+        self._add_trunk(functools.partial(TeConvSub, planes, planes, planes // 32,
                                           res_connect=True))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
 
 class UAVSalSTBlocks(_Stateless):
     """ST-Net: the trunk and the head, no priors, no recurrence. Returns
-    (saliency, the trunk's features (S, H/8, W/8, 256))."""
+    (saliency, the trunk's features (S, H/8, W/8, planes))."""
 
     model_name = "uavsal_stblocks"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
-                 num_stblock: int = NUM_STBLOCK):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 num_stblock: int = NUM_STBLOCK, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self._add_trunk(self._st_block(STBlock))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
     def forward(self, x: torch.Tensor,
                 diff_group: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -334,11 +348,11 @@ class UAVSalSTBlocksType(_Stateless):
     model_name = "uavsal_stblocks_type"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
-                 num_stblock: int = NUM_STBLOCK, st_type: str = "st"):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 num_stblock: int = NUM_STBLOCK, st_type: str = "st", planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self.st_type = st_type
         self._add_trunk(self._st_block(ST_TYPES[st_type]))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
 
 class UAVSalSTC3D(_Stateless):
@@ -349,10 +363,10 @@ class UAVSalSTC3D(_Stateless):
     model_name = "uavsal_stc3d"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
-                 num_stblock: int = NUM_STBLOCK):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 num_stblock: int = NUM_STBLOCK, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self._add_trunk(self._st_block(STC3D))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
 
 class UAVSalSTC23D(_Stateless):
@@ -362,10 +376,10 @@ class UAVSalSTC23D(_Stateless):
     model_name = "uavsal_stc2_3d"
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
-                 num_stblock: int = NUM_STBLOCK):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 num_stblock: int = NUM_STBLOCK, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self._add_trunk(self._st_block(STC23D))
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
 
 class UAVSalMP(_Zoo):
@@ -378,12 +392,12 @@ class UAVSalMP(_Zoo):
 
     def __init__(self, cnn_type: str = "mobilenet_v2", time_dims: int = 5,
                  num_stblock: int = NUM_STBLOCK, bias_type: Sequence[int] = (1, 1, 1),
-                 compat_cxt_tile: bool = True):
-        super().__init__(cnn_type, time_dims, num_stblock)
+                 compat_cxt_tile: bool = True, planes: int = 256):
+        super().__init__(cnn_type, time_dims, num_stblock, planes=planes)
         self.compat_cxt_tile = compat_cxt_tile
         self._add_trunk(self._st_block(STBlock))
         self._add_priors(bias_type)
-        self.conv_out_st = DWBlock(PLANES, 1, 3)
+        self.conv_out_st = DWBlock(planes, 1, 3)
 
     def forward(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
                 ob_prior: Optional[torch.Tensor], diff_group: Optional[int] = None,

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.batchnorm import cross_rank_batch_norm
+from ..parallel.mesh import batch_group
 from .dwblock import fused_dwblock, pack_dwblock_weights, supports_fused_dwblock
 
 BN_EPS = 1e-5
@@ -117,7 +119,10 @@ class BatchNorm(nn.Module):
     after ReLU6 (mean >> std). Parameters of another dtype than f32 (the
     bf16 copies of a mixed-precision step) are widened to f32 for it, as
     the JAX module widens them to its stat dtype; the output keeps the
-    activation dtype."""
+    activation dtype. Inside `parallel.batch_over(group)` of more than one
+    rank the statistics are those of every rank's batch together
+    (`parallel/batchnorm.py`), as in the JAX package's step over a sharded
+    batch; with no group, or one rank, the path above is unchanged."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -149,8 +154,13 @@ class BatchNorm(nn.Module):
             stats = (self.running_mean, self.running_var)
             if _stats_held:  # copies that take the EMA (no stats at all save fewer tensors,
                 stats = tuple(t.clone() for t in stats)  # which the recompute check refuses)
-            y = F.batch_norm(x, *stats, self.weight.to(dt), self.bias.to(dt), True,
-                             1.0 - BN_MOMENTUM, self.eps)
+            group = batch_group()
+            if group is not None and group.world > 1:
+                y = cross_rank_batch_norm(x, self.weight.to(dt), self.bias.to(dt), *stats,
+                                          1.0 - BN_MOMENTUM, self.eps, group)
+            else:
+                y = F.batch_norm(x, *stats, self.weight.to(dt), self.bias.to(dt), True,
+                                 1.0 - BN_MOMENTUM, self.eps)
             return y.contiguous(memory_format=layout) if cpu_channels_last else y
         s, b = self.affine()
         shape = (1, -1) + (1,) * (x.dim() - 2)

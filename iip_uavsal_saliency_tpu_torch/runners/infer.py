@@ -46,7 +46,8 @@ from ..models.adapters import build_adapted_model
 from ..models.convert import from_jax_variables, table_of
 from ..ops.fold import fold_conv_bn
 from ..ops.layers import to_channels_last
-from ..serving.steps import graph_step, make_baked_infer_step
+from ..parallel.mesh import RankGroup, rank0_first
+from ..serving.steps import graph_step, make_baked_infer_step, make_infer_step
 from ..training.checkpoint import load_checkpoint
 from ..utils.logging import get_logger
 
@@ -67,6 +68,7 @@ def load_model_for_inference(
     s2d_stem: bool = False,
     model_name: str = "uavsal",
     st_type: str = "st",
+    planes: int = 256,
 ) -> torch.nn.Module:
     """The zoo model `model_name` of this configuration in eval form on
     `device` (CUDA by default): `UAVSal` for "uavsal", `UAVSalLSTM` for
@@ -82,7 +84,8 @@ def load_model_for_inference(
     (MobileNetV2 only) computes the stem as its space-to-depth form from
     the same weights. Both are the flagship's: another `model_name` with
     either raises NotImplementedError, as the JAX loader refuses
-    `s2d_stem` there (the JAX zoo has no fused dwBlock path)."""
+    `s2d_stem` there (the JAX zoo has no fused dwBlock path). `planes` is
+    the model's width (`models/uavsal.py`)."""
     if model_name.lower() != "uavsal" and (s2d_stem or fused_dwblock):
         raise NotImplementedError(
             f"s2d_stem and fused_dwblock are only implemented for the flagship 'uavsal' "
@@ -92,7 +95,7 @@ def load_model_for_inference(
     model = build_adapted_model(model_name, filter_kwargs=True, time_dims=time_dims,
                                 cnn_type=cnn_type, num_stblock=num_stblock,
                                 bias_type=bias_type, st_type=st_type,
-                                fused_dwblock=fused_dwblock, s2d_stem=s2d_stem)
+                                fused_dwblock=fused_dwblock, s2d_stem=s2d_stem, planes=planes)
     if isinstance(model_path_or_variables, (str, os.PathLike)):
         tree = load_checkpoint(os.fspath(model_path_or_variables))
     else:
@@ -279,9 +282,12 @@ def test_videos(
     videos_per_batch: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
     infer_step=None,
-) -> None:
+    bake_params: bool = True,
+    group: Optional[RankGroup] = None,
+) -> List[str]:
     """Saliency for every video in `input_path` (sorted `*.avi`, `*.AVI`,
-    `*.mp4`), one `<name>.mat` each under `output_path[/method_name]`:
+    `*.mp4`), one `<name>.mat` each under `output_path[/method_name]`
+    (the paths written are returned):
     `{'salmap': (H, W, 1, min(T, save_frames))}` uint8 at the video's
     native size, T its decoded frames cut to a multiple of `time_dims`.
 
@@ -302,8 +308,20 @@ def test_videos(
     model's baked step (as the JAX runner's `infer_step=`): then `model` is
     what gives its zero state, an artifact (`runners/export.py::
     ExportedServing`) whose priors are inside it, so `bias_type` must be (0,
-    0, 0) and no prior is built. On the card either step is replayed from
-    a CUDA graph."""
+    0, 0) and no prior is built. `bake_params=False` serves the
+    argument-passing step (`serving/steps.py::make_infer_step`) instead of
+    the baked one, as the JAX runner does. On the card any of these steps
+    is replayed from a CUDA graph.
+
+    `group` (a `parallel.RankGroup`) serves data-parallel, as the JAX runner
+    under a mesh's `data` axis: `videos_per_batch` must be a multiple of
+    the world size, every rank takes rank 0's list of videos, a short last
+    group is padded to `videos_per_batch` with empty videos, and each rank
+    decodes and serves its contiguous rows of each group with its own step
+    (no collective: each rank runs the single-device program on its V /
+    world videos, as the JAX `shard_map` does) and writes its own videos'
+    files; a rank whose rows are all padding writes nothing. Every rank
+    returns once every file is written."""
     if infer_step is not None and any(bias_type):
         raise ValueError(f"bias_type={tuple(bias_type)} with a prebuilt step: its priors are "
                          "its own, pass (0, 0, 0)")
@@ -311,15 +329,21 @@ def test_videos(
     if model_bias is not None and tuple(int(bool(b)) for b in bias_type) != model_bias:
         raise ValueError(f"bias_type={tuple(bias_type)} but the model was built with "
                          f"{model_bias}")
+    v_per = max(1, videos_per_batch)
+    if group is not None and v_per % group.world:
+        raise ValueError(f"videos_per_batch={v_per} must be a multiple of the mesh 'data' axis "
+                         f"({group.world}) so the video batch shards evenly")
     if method_name:
         output_path = os.path.join(output_path, method_name)
     os.makedirs(output_path, exist_ok=True)
     shape_r, shape_c, shape_r_out, shape_c_out = iosize
     if infer_step is None:
         gauss = get_gauss_priors(shape_r_out, shape_c_out, 8) if bias_type[0] else None
-        ob = get_ob_priors(train_data_dir, dataset, "train", shape_r_out, shape_c_out, 20,
-                           priors_cache_dir) if bias_type[1] else None
-        step = make_baked_infer_step(model, gauss, ob, compute_dtype=compute_dtype)
+        ob = rank0_first(group, lambda: get_ob_priors(
+            train_data_dir, dataset, "train", shape_r_out, shape_c_out, 20,
+            priors_cache_dir)) if bias_type[1] else None
+        make = make_baked_infer_step if bake_params else make_infer_step
+        step = make(model, gauss, ob, compute_dtype=compute_dtype)
         on_card = next(model.parameters()).device.type == "cuda"
     else:
         step, on_card = infer_step, model.device.type == "cuda"
@@ -330,12 +354,14 @@ def test_videos(
         f for f in sorted(os.listdir(input_path)) if f.endswith(VIDEO_EXTS)
         and not os.path.exists(os.path.join(output_path, os.path.splitext(f)[0] + ".mat"))
     ]
+    if group is not None:  # one list for every rank, before any rank writes
+        file_names = group.broadcast_object(file_names)
     clip_len = batch_size * time_dims
-    v_per = max(1, videos_per_batch)
+    rows = slice(None) if group is None else group.rows(v_per)
 
-    def decode_group(group):
+    def decode_group(members):
         decoded = []
-        for name in group:
+        for name in members[rows]:
             frames, nframes, height, width = preprocess_videos(
                 os.path.join(input_path, name), shape_r, shape_c, save_frames,
                 mode="RGB", normalize=False)
@@ -349,23 +375,31 @@ def test_videos(
     # decode group g+1 while group g is served (cv2 releases the GIL); up
     # to two decoded groups are held in host memory at once
     groups = [file_names[g0:g0 + v_per] for g0 in range(0, len(file_names), v_per)]
+    # every group at the same V, and always under a group of ranks (each
+    # rank's rows of a short last group padded to its share)
+    pad_to = v_per if len(groups) > 1 or group is not None else None
+    if group is not None:
+        pad_to //= group.world
     pool = ThreadPoolExecutor(max_workers=1)
     future = None
+    written: List[str] = []
     try:
         future = pool.submit(decode_group, groups[0]) if groups else None
-        for gi, group in enumerate(groups):
-            log.info("videos %d-%d/%d: %s", gi * v_per + 1, gi * v_per + len(group),
-                     len(file_names), group)
+        for gi, members in enumerate(groups):
+            log.info("videos %d-%d/%d: %s", gi * v_per + 1, gi * v_per + len(members),
+                     len(file_names), members[rows])
             t0 = time.time()
             decoded = future.result()
             future = pool.submit(decode_group, groups[gi + 1]) if gi + 1 < len(groups) else None
+            if not decoded:  # this rank's rows of a short last group are all padding
+                continue
             maps = _serve_group(step, model, [d[1] for d in decoded],
                                [(d[2], d[3]) for d in decoded], clip_len,
-                               v_per if len(groups) > 1 else len(decoded))
+                               pad_to or len(decoded))
             for (name, frames, _, _), pred in zip(decoded, maps):
                 keep = int(min(frames.shape[0], save_frames))
-                savemat(os.path.join(output_path, os.path.splitext(name)[0] + ".mat"),
-                        {"salmap": pred[:, :, :, :keep]})
+                written.append(os.path.join(output_path, os.path.splitext(name)[0] + ".mat"))
+                savemat(written[-1], {"salmap": pred[:, :, :, :keep]})
             n_frames = sum(d[1].shape[0] for d in decoded)
             seconds = max(time.time() - t0, 1e-9)
             log.info("  %d frames in %.2fs (%.1f FPS end-to-end)", n_frames, seconds,
@@ -383,3 +417,6 @@ def test_videos(
                 exc = None
             if exc is not None:
                 log.error("prefetch decode failed: %s", exc)
+    if group is not None:  # every rank's files are written
+        group.barrier()
+    return written

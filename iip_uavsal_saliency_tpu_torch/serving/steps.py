@@ -57,6 +57,29 @@ def build_infer_fn(model: nn.Module, compute_dtype: Optional[torch.dtype] = None
     return step
 
 
+def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
+                    ob: Optional[torch.Tensor] = None,
+                    compute_dtype: Optional[torch.dtype] = None) -> Step:
+    """`step(x, state) -> (saliency, new_state)` over the argument-passing
+    step (`build_infer_fn`), the priors handed to it on every call: what
+    the JAX runner serves (`make_infer_step`) when `bake_params` is false.
+    Takes `model` over as `bake_model` does (cast to `compute_dtype`, its
+    weights channels-last), but packs nothing: the fused dwBlock's kernel
+    packs its weights from the parameters at each call."""
+    device = _model_device(model)
+    model.eval().requires_grad_(False)
+    if compute_dtype is not None:
+        model.to(compute_dtype)
+    to_channels_last(model)
+    fn = build_infer_fn(model, compute_dtype)
+    gauss, ob = (None if p is None else torch.as_tensor(p).to(device) for p in (gauss, ob))
+
+    def step(x, state):
+        return fn(x, gauss, ob, state)
+
+    return step
+
+
 class BakedStep(nn.Module):
     """`forward(x, state) -> (saliency, new_state)`: the body of the baked
     serving step as a module, the priors and the normalization held as

@@ -29,10 +29,17 @@ activations it needs. The recompute runs inside
 once a step, in the forward, as in the JAX package; K1's forward runs again
 in it (ConvTWA's `autograd.Function` is part of what is recomputed).
 
-Meshes, sharding and `donate` are not part of this module: the port trains
-on one card (several videos per step stack on V; multi-GPU data parallelism
-is ROADMAP A.11b), and a PyTorch optimizer updates the parameters in place,
-which is what donation buys.
+`group` (a `parallel.RankGroup`) trains data-parallel, the counterpart of
+the JAX step jitted over a mesh's `data` axis: each rank holds its rows of
+the V batch, the forward runs inside `parallel.batch_over(group)` (train-mode
+BatchNorm takes the statistics of every rank's batch) and is given the whole
+batch's V (`videos=`), the loss is this rank's share of the loss of the
+whole batch (`rank_share`), the f32 master gradients are summed over the
+ranks in one flat all-reduce after the backward, and Adam then takes the
+same step on every rank, so the replicas stay equal. The loss that comes
+back is the whole batch's on every rank. The mesh's other axes are not
+ported (ROADMAP A.13), and a PyTorch optimizer updates the parameters in
+place, which is what `donate` buys.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import running_stats_held
+from ..parallel.mesh import RankGroup, batch_over
 from .losses import loss_fu
 
 
@@ -91,24 +99,71 @@ def _recompute_contexts():
     return contextlib.nullcontext(), running_stats_held()
 
 
+def rank_share(loss_fn: Callable, group: Optional[RankGroup]) -> Callable:
+    """`loss_fn` as this rank's share of the loss of every rank's batch,
+    whose sum over the ranks is the whole batch's loss: a masked loss made
+    for `group` (`training/trainer.py::_masked_loss`, which divides by the
+    count of valid frames of every rank) as it is, a mean over the frames
+    (the losses of `training/losses.py`; each rank holds as many) divided by
+    the world size. Without a group, `loss_fn` itself. A masked loss made
+    for no group, or another, is refused: the mean of each rank's masked
+    mean is not the whole batch's where the ranks hold different counts of
+    valid frames."""
+    if group is None:
+        return loss_fn
+    if hasattr(loss_fn, "group"):
+        if loss_fn.group is not group:
+            raise ValueError("a masked loss in a data-parallel step must be made for the "
+                             "step's group (`_masked_loss(loss, group)`)")
+        return loss_fn
+
+    def share(pred, true):
+        return loss_fn(pred, true) / group.world
+
+    return share
+
+
+def _whole_batch(x: torch.Tensor, group: Optional[RankGroup]) -> dict:
+    """The model's `videos` keyword where x is this rank's rows of the
+    whole batch: the V the model's context tile and temporal-difference
+    bound read (the JAX step's jit sees the whole batch)."""
+    return {} if group is None else {"videos": x.shape[0] * group.world}
+
+
+def all_reduce_grads(model: nn.Module, group: RankGroup) -> None:
+    """Sum the parameters' gradients over the ranks, in place, in one flat
+    all-reduce (every rank has gradients for the same parameters)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+
+
 def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
-                    compute_dtype: Optional[torch.dtype] = None, remat: bool = False):
+                    compute_dtype: Optional[torch.dtype] = None, remat: bool = False,
+                    group: Optional[RankGroup] = None):
     """step(x, gauss, ob, rnn_state, y_true) -> (loss, new_rnn_state) over
     `state` (its model and optimizer are updated in place, its step counted).
 
     x: (V, S, H, W, 3) uint8 or normalized f32; y_true: (V, S, Ho, Wo, C);
-    rnn_state: (V, Ho, Wo, 256); a prior the model's `bias_type` leaves
+    rnn_state: (V, Ho, Wo, planes); a prior the model's `bias_type` leaves
     off is None. The loss comes back as a detached f32
     scalar on the device, the new state detached and in f32. `remat`
-    recomputes the forward in the backward (module docstring)."""
+    recomputes the forward in the backward, and `group` trains
+    data-parallel, x, y_true and rnn_state being this rank's rows (module
+    docstring)."""
     model, optimizer = state.model, state.optimizer
+    share = rank_share(loss_fn, group)
 
     def forward(x, gauss, ob, rnn_state):
+        kw = _whole_batch(x, group)
         if compute_dtype is None:
-            return model(x, gauss, ob, rnn_state)
+            return model(x, gauss, ob, rnn_state, **kw)
         cast = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
         args = tuple(None if t is None else t.to(compute_dtype) for t in (x, gauss, ob, rnn_state))
-        return torch.func.functional_call(model, cast, args)
+        return torch.func.functional_call(model, cast, args, kw)
 
     def rematerialized(*args):
         return checkpoint(forward, *args, use_reentrant=False, context_fn=_recompute_contexts)
@@ -118,9 +173,13 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out, new_rnn = run(_maybe_normalize(x), gauss, ob, rnn_state.detach())
-        loss = _loss(loss_fn, out, y_true)
-        loss.backward()
+        with batch_over(group):  # the recompute of remat runs in the backward
+            out, new_rnn = run(_maybe_normalize(x), gauss, ob, rnn_state.detach())
+            loss = _loss(share, out, y_true)
+            loss.backward()
+        if group is not None:
+            all_reduce_grads(model, group)
+            loss = group.all_reduce(loss.detach())
         optimizer.step()
         state.step += 1
         return loss.detach(), new_rnn.detach().to(torch.promote_types(new_rnn.dtype,
@@ -129,17 +188,22 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     return step
 
 
-def make_eval_step(model: nn.Module, loss_fn: Callable = loss_fu):
+def make_eval_step(model: nn.Module, loss_fn: Callable = loss_fu,
+                   group: Optional[RankGroup] = None):
     """step(x, gauss, ob, rnn_state, y_true) -> (loss, new_rnn_state): the
     model in eval mode (BatchNorm from the running stats) in f32, no
     gradient, the state carried. It runs the model as it is, not the folded
-    serving step."""
+    serving step. With `group`, x, y_true and rnn_state are this rank's rows
+    and the loss is the whole batch's, as in `make_train_step`."""
+    share = rank_share(loss_fn, group)
 
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
-        with torch.no_grad():
-            out, new_rnn = model(_maybe_normalize(x), gauss, ob, rnn_state)
-            return _loss(loss_fn, out, y_true), new_rnn
+        with torch.no_grad(), batch_over(group):
+            out, new_rnn = model(_maybe_normalize(x), gauss, ob, rnn_state,
+                                 **_whole_batch(x, group))
+            loss = _loss(share, out, y_true)
+        return (loss if group is None else group.all_reduce(loss)), new_rnn
 
     return step
 

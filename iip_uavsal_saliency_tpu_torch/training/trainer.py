@@ -1,6 +1,6 @@
 """The training loop: whole videos as clips with the TWA state carried
-(counterpart of `iip_uavsal_saliency_tpu/training/trainer.py` without a
-mesh).
+(counterpart of `iip_uavsal_saliency_tpu/training/trainer.py`; of its
+mesh, the `data` axis: `group`, below).
 
 - per epoch, a train and a val phase over the txt split lists;
 - per video: decode and letterbox every frame, cut to a multiple of
@@ -24,6 +24,16 @@ mesh).
   An epoch checkpoint holds Adam's state in optax's layout
   (`training/optim.py::optax_tree`), so either package resumes a run the
   other began; the port's own layout of earlier versions is read too.
+
+`group` (a `parallel.RankGroup`) trains data-parallel, the JAX trainer
+under a mesh's `data` axis: `videos_per_step` must be a multiple of the
+world size, every rank walks the same groups in the same order (rank 0's
+shuffle and sort, broadcast), decodes only its rows of each group (and the
+video a padded row repeats, where that is another rank's), and steps with
+the group (`training/steps.py`); the losses, and so the epoch means and
+early stop, are the whole batch's on every rank. Only rank 0 writes
+checkpoints and metrics, and every rank waits for it before a resume reads
+them and before `train` returns.
 
 The clip loop takes videos as paths (decoded one video, or one group,
 ahead on a worker thread; the frame count for the sort read from the
@@ -56,6 +66,7 @@ from ..models.srfnet_image import is_image_stage_variables, transfer_sfnet
 from ..models.uavsal import init_model
 from ..ops.fold import looks_folded
 from ..ops.layers import to_channels_last
+from ..parallel.mesh import RankGroup, rank0_first
 from ..utils.logging import get_logger
 from ..utils.metrics_log import MetricsLogger
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -103,10 +114,14 @@ class TrainConfig:
     prefetch_decode: bool = True  # decode video k+1 while video k trains
 
 
-def _masked_loss(loss_fn: Callable):
+def _masked_loss(loss_fn: Callable, group: Optional[RankGroup] = None):
     """`loss_fn` over (pred, [true | validity mask]): the per-frame terms
     weighted by the mask, so padded frames contribute nothing; on full clips
-    the result is `loss_fn(pred, true)`."""
+    the result is `loss_fn(pred, true)`. With `group`, this rank's share of
+    the loss of every rank's batch, sum(per * w) / max(sum of w over every
+    rank, 1): the count is all-reduced (no gradient through it), so the
+    shares add up to the JAX package's loss over the sharded batch, whose
+    gradient the train step then sums over the ranks."""
     per_frame = PER_FRAME.get(loss_fn)
     if per_frame is None:
         raise ValueError(f"no per-frame form registered for {loss_fn!r}; "
@@ -116,9 +131,21 @@ def _masked_loss(loss_fn: Callable):
         true, mask = true_and_mask[..., :2], true_and_mask[..., 2]
         per = per_frame(pred, true)
         w = (mask[:, 0, 0] > 0.5).to(per.dtype)
-        return (per * w).sum() / w.sum().clamp(min=1.0)
+        count = w.sum() if group is None else group.all_reduce(w.sum().detach())
+        return (per * w).sum() / count.clamp(min=1.0)
 
+    fn.group = group
     return fn
+
+
+class _NoMetrics:
+    """The metrics logger of a rank that does not write."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _masked_off(y: np.ndarray) -> np.ndarray:
@@ -170,22 +197,30 @@ class Trainer:
     the train split as the JAX trainer builds it (neither when `bias_type`
     leaves the stream off). `videos`: {"train": [...],
     "val": [...]} of `ArrayVideo`s to train on instead of the txt splits
-    under `train_data_dir`."""
+    under `train_data_dir`. `group`: this rank of a data-parallel run
+    (module docstring), on the group's device."""
 
     def __init__(self, config: TrainConfig, train_data_dir: str, dataset: str,
                  save_model_dir: str, ext: str = ".avi", pre_variables=None,
                  priors_cache_dir: str = "", device=None, ob_prior: Optional[np.ndarray] = None,
-                 videos: Optional[Mapping[str, Sequence[ArrayVideo]]] = None):
+                 videos: Optional[Mapping[str, Sequence[ArrayVideo]]] = None,
+                 group: Optional[RankGroup] = None):
         self.cfg = config
         self._nframes_cache: Dict[str, int] = {}
-        self.device = resolve_device(device)
+        self.group = group
+        if group is not None and config.videos_per_step % group.world:
+            raise ValueError(f"videos_per_step={config.videos_per_step} must be a multiple of "
+                             f"the mesh 'data' axis ({group.world}) so the video batch shards "
+                             "evenly")
+        self.device = resolve_device(device) if group is None else group.device
+        self.writes = group is None or group.is_first
         self.train_data_dir = train_data_dir
         self.ext = ext
         self.videos = videos
         self.model_dir = os.path.join(save_model_dir, config.method_name)
         os.makedirs(self.model_dir, exist_ok=True)
         self.prefix = os.path.join(self.model_dir, config.method_name)
-        self.metrics = MetricsLogger(self.model_dir)
+        self.metrics = MetricsLogger(self.model_dir) if self.writes else _NoMetrics()
 
         model = build_adapted_model(config.model_name, filter_kwargs=True,
                                     time_dims=config.time_dims, cnn_type=config.cnn_type,
@@ -194,9 +229,9 @@ class Trainer:
         self.table = table_of(model)
         _, _, out_r, out_c = config.iosize
         use_gauss, use_ob, _ = config.bias_type
-        if use_ob and ob_prior is None:
-            ob_prior = get_ob_priors(train_data_dir, dataset, "train", out_r, out_c, 20,
-                                     priors_cache_dir)
+        if use_ob and ob_prior is None:  # rank 0 builds the cache, the others read it
+            ob_prior = rank0_first(group, lambda: get_ob_priors(
+                train_data_dir, dataset, "train", out_r, out_c, 20, priors_cache_dir))
         self.gauss = (torch.from_numpy(get_gauss_priors(out_r, out_c, 8)).to(self.device)
                       if use_gauss else None)
         self.ob = (torch.as_tensor(np.asarray(ob_prior, np.float32)).to(self.device)
@@ -223,11 +258,11 @@ class Trainer:
         optimizer = make_optimizer(model, config.learning_rate, config.weight_decay,
                                    trainable_mask=mask)
         self.state = create_train_state(model, optimizer)
-        loss = _masked_loss(LOSSES[config.loss_name])
+        loss = _masked_loss(LOSSES[config.loss_name], group)
         self.train_step = make_train_step(
             self.state, loss, torch.bfloat16 if config.mixed_precision else None,
-            remat=config.remat)
-        self.eval_step = make_eval_step(model, loss)
+            remat=config.remat, group=group)
+        self.eval_step = make_eval_step(model, loss, group)
 
     @property
     def model(self) -> torch.nn.Module:
@@ -276,6 +311,8 @@ class Trainer:
         shuffle = self.cfg.shuffle_train if phase == "train" else False
         triples = list(zip(*read_video_list(self.train_data_dir, phase, shuffle=shuffle,
                                             ext=self.ext)))
+        if self.group is not None:  # one shuffle for every rank
+            triples = self.group.broadcast_object(triples)
 
         def load_file(triple, pad_ragged=False):
             return self._video_clips(*triple, max_frames, pad_ragged=pad_ragged)
@@ -328,31 +365,51 @@ class Trainer:
                       nframes: Callable, max_frames: float) -> List[float]:
         """Groups of `videos_per_step` videos in lock-step (the JAX
         trainer's `_run_epoch_multivideo`, module docstring): the loss of
-        every step. An unreadable header keeps the list order."""
+        every step. An unreadable header keeps the list order. With a group
+        this rank steps its rows of each group."""
         v_per = self.cfg.videos_per_step
         shape_r, shape_c = self.cfg.iosize[:2]
+        rows = range(v_per)[self.group.rows(v_per)] if self.group is not None else range(v_per)
         order = list(range(len(items)))
         try:
             lengths = [min(nframes(item), max_frames) for item in items]
             order.sort(key=lengths.__getitem__)  # stable: a shuffle stays within equal lengths
         except Exception:  # noqa: BLE001 -- any probe failure keeps the list order
             log.warning("length bucketing skipped: the frame-count probe failed")
+        if self.group is not None:  # one order for every rank
+            order = self.group.broadcast_object(order)
         items, names = [items[i] for i in order], [names[i] for i in order]
         groups = [items[g0:g0 + v_per] for g0 in range(0, len(items), v_per)]
+
+        def load_rows(members):
+            """This rank's rows of a group, as clip lists: a row past a
+            short last group repeats the group's first video, masked."""
+            lists = {i: load(members[i], pad_ragged=True) for i in rows if i < len(members)}
+            if rows[-1] >= len(members):
+                first = lists[0] if 0 in lists else load(members[0], pad_ragged=True)
+                lists.update({i: [(x, _masked_off(y)) for x, y in first]
+                              for i in rows if i >= len(members)})
+            return [lists[i] for i in rows]
+
         losses: List[float] = []
-        clip_groups = self._decode_iter(
-            groups, lambda group: [load(item, pad_ragged=True) for item in group])
-        for gi, clip_lists in enumerate(clip_groups):
+        for gi, clip_lists in enumerate(self._decode_iter(groups, load_rows)):
             g0 = gi * v_per
-            log.info("%s videos %d-%d/%d: %s", phase, g0 + 1, g0 + len(clip_lists), len(items),
+            log.info("%s videos %d-%d/%d: %s", phase, g0 + 1, g0 + len(groups[gi]), len(items),
                      ", ".join(names[g0:g0 + v_per]))
-            while len(clip_lists) < v_per:  # a short last group: its first video, masked
-                clip_lists.append([(x, _masked_off(y)) for x, y in clip_lists[0]])
-            if not any(clip_lists):
+            counts = [0] * v_per
+            for i, clips in zip(rows, clip_lists):
+                counts[i] = len(clips)
+            if self.group is not None:  # every row's clip count, on every rank
+                counts = self.group.all_reduce(torch.tensor(counts)).tolist()
+            if not any(counts):
                 continue
-            donor = next(c for c in clip_lists if c)
-            rnn_state = self.model.init_state(shape_r, shape_c, v_per, device=self.device)
-            for t in range(max(len(c) for c in clip_lists)):
+            # out of clips: its last one again, or the first video's with clips
+            first = next(i for i, n in enumerate(counts) if n)
+            donor = (clip_lists[rows.index(first)] if first in rows
+                     else load(groups[gi][first], pad_ragged=True) if not all(clip_lists)
+                     else None)
+            rnn_state = self.model.init_state(shape_r, shape_c, len(rows), device=self.device)
+            for t in range(max(counts)):
                 xs, ys = [], []
                 for clips in clip_lists:
                     if t < len(clips):
@@ -399,6 +456,8 @@ class Trainer:
         """(start epoch, min val loss, patience, best weights) from the
         newest epoch checkpoint, which either package wrote; the weights,
         BatchNorm stats, Adam's state and the step are loaded."""
+        if self.group is not None:  # rank 0's last checkpoint is on disk
+            self.group.barrier()
         latest = latest_checkpoint(self.model_dir, self.cfg.method_name)
         if not latest:
             return 0, float("inf"), 0, None
@@ -441,13 +500,13 @@ class Trainer:
             is_new_best = mean_loss < min_val_loss
             if is_new_best:
                 best = self._snapshot()
-                if not cfg.is_best_only:
+                if self.writes and not cfg.is_best_only:
                     # the new best is on disk before the epoch checkpoint names
                     # its loss as min_val_loss, so a resume never points at
                     # weights that were not saved
                     save_checkpoint(f"{self.prefix}_best.ckpt",
                                     to_jax_variables(best, self.table))
-            if not cfg.is_best_only:
+            if self.writes and not cfg.is_best_only:
                 save_checkpoint(f"{self.prefix}_{epoch:02d}_{mean_loss:.4f}.ckpt",
                                 self._epoch_payload(epoch, min(mean_loss, min_val_loss),
                                                     0 if is_new_best else num_patience + 1))
@@ -460,6 +519,9 @@ class Trainer:
                     break
             log.info("epoch time: %.1fs", time.time() - t0)
 
-        save_checkpoint(f"{self.prefix}_final.ckpt", to_jax_variables(best, self.table))
+        if self.writes:
+            save_checkpoint(f"{self.prefix}_final.ckpt", to_jax_variables(best, self.table))
+        if self.group is not None:  # returns once the final checkpoint is on disk
+            self.group.barrier()
         self.model.load_state_dict(best, strict=True)
         return self.state

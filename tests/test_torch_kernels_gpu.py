@@ -67,6 +67,7 @@ STEP_CASES = {
     "flagship": ((1, 20, 45, 80, 256), ("f32",)),           # as the f32 paths serve it
     "c40": ((2, 3, 9, 11, 40), ("f32",)),                   # N and K not multiples of the tiles
     "c264": ((1, 3, 7, 19, 264), ("f32",)),                 # a second, 8-column block of N
+    "planes128": ((1, 20, 45, 80, 128), ("f32",)),          # UAVSal(planes=128), f32
 }
 STEP_TOL = {"f32": (torch.float32, 1e-5), "bf16": (torch.bfloat16, 2e-2)}
 
@@ -147,6 +148,7 @@ BF16_STEP_SHAPES = {
     "ragged": (2, 3, 13, 7, 24),
     "c8": (2, 3, 6, 5, 8),
     "w300_c64": (1, 3, 4, 300, 64),
+    "planes128": (1, 20, 45, 80, 128),  # UAVSal(planes=128), forced to the per-frame kernel
 }
 
 
@@ -228,6 +230,7 @@ CLIP_SHAPES = {
     "narrow_c64": (2, 3, 7, 50, 64),           # tiles of 5 and 2 rows, two slices
     "one_row_tiles": (1, 2, 4, 128, 256),      # the halo tile fits one row only
     "one_pixel": (1, 2, 1, 1, 32),
+    "planes128": (1, 20, 45, 80, 128),         # UAVSal(planes=128), as it serves in bf16
 }
 
 
@@ -333,6 +336,9 @@ DW_SHAPES = {
     # the flagship widths: st_layer / fust_layer and fucbst_layer.0
     "c256": ((2, 9, 20, 256, 1536, 256), True),
     "c320_to_256": ((1, 11, 18, 320, 1920, 256), False),
+    # UAVSal(planes=128): st_layer / fust_layer, fucbst_layer.0 (128 + 32 in)
+    "planes128": ((2, 9, 20, 128, 768, 128), True),
+    "planes128_fucbst": ((1, 11, 18, 160, 960, 128), False),
 }
 
 
@@ -1163,3 +1169,48 @@ def test_artifact_graphed_equals_eager_and_the_live_step(card, seeded_variables,
         out, state = graphed(x, state)
         assert torch.equal(out, eager[k][0]) and torch.equal(state, eager[k][1]), k
     assert graphed.graph_launches() == {name: n // 3 for name, n in counted.items()}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ranks", ["none", "nccl"])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_cross_rank_batch_norm_at_one_rank_equals_batch_norm(card, dtype, atol, ranks, parts,
+                                                             tmp_path):
+    """`parallel/batchnorm.py` on CUDA tensors at one rank (no group, and a
+    one-rank NCCL group, whose collectives then run), the batch reduced
+    whole or as two parts, against `F.batch_norm` in train mode: the
+    output, the gradients of x, the scale and the bias, and the running
+    stats after, on a channels-last (N, C, H, W) batch with a mean far
+    above its spread (as after ReLU6)."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from iip_uavsal_saliency_tpu_torch.parallel import cross_rank_batch_norm, init_ranks
+
+    group = init_ranks(0, 1, "nccl", str(tmp_path / "rendezvous"), "cuda") \
+        if ranks == "nccl" else None
+    try:
+        rng = np.random.RandomState(4)
+        x0 = torch.tensor(rng.rand(6, 40, 23, 17) * 0.3 + 4.0, dtype=torch.float32)
+        x0 = x0.to(card, dtype).contiguous(memory_format=torch.channels_last)
+        w0 = torch.tensor(rng.rand(40) + 0.5, dtype=torch.float32, device=card)
+        b0 = torch.tensor(rng.randn(40) * 0.1, dtype=torch.float32, device=card)
+        dy = torch.tensor(rng.randn(6, 40, 23, 17), dtype=torch.float32).to(card, dtype)
+        out = {}
+        for how in ("ours", "torch"):
+            x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+            stats = (torch.zeros(40, device=card), torch.ones(40, device=card))
+            if how == "ours":
+                y = cross_rank_batch_norm(x, w, b, *stats, 0.1, 1e-5, group, parts)
+            else:
+                y = F.batch_norm(x, *stats, w, b, True, 0.1, 1e-5)
+            y.backward(dy)
+            out[how] = (y.float(), x.grad.float(), w.grad, b.grad, *stats)
+        for name, a, ref in zip(("y", "dx", "dw", "db", "mean", "var"), out["ours"],
+                                out["torch"]):
+            scale = max(ref.abs().max().item(), 1.0)
+            assert (a - ref).abs().max().item() <= atol * scale, name
+    finally:
+        if group is not None:
+            dist.destroy_process_group()

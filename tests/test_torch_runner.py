@@ -336,7 +336,10 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value, world, port_maps, 
     """What the JAX CLI does with each: a `model_name` outside `MODEL_ZOO`
     raises KeyError before any file is read; `st_type` on `uavsal` is
     accepted and ignored (the files of the run without it, bit for bit);
-    `dp_devices` above 1 is still refused, naming ROADMAP A.11."""
+    `dp_devices` above 1 runs its ranks on the cards unless `--device cpu`
+    is given (`test_torch_dp_serve.py` serves that way), so without as
+    many cards the run ends before any rank starts, as the JAX CLI's
+    check of the devices it sees ends it."""
     if flag == "model_name":
         with pytest.raises(KeyError, match=value):
             cli.main(["test", f"--{flag}", value, "--device", "cpu"])
@@ -359,8 +362,10 @@ def test_cli_refuses_what_the_port_does_not_have(flag, value, world, port_maps, 
         for name, maps in got.items():
             np.testing.assert_array_equal(maps, port_maps[name])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            cli.main(["test", f"--{flag}", value, "--device", "cpu"])
+        if torch.cuda.is_available() and torch.cuda.device_count() >= int(value):
+            pytest.skip("enough cards are present")
+        with pytest.raises(SystemExit, match="CUDA cards"):
+            cli.main(["test", f"--{flag}", value])
 
 
 def test_cli_only_registers_test():

@@ -47,7 +47,6 @@ import torch
 from flax.core import unfreeze
 
 from iip_uavsal_saliency_tpu.models import UAVSal as JUAVSal
-from iip_uavsal_saliency_tpu.models import init_variables
 from iip_uavsal_saliency_tpu.parallel.steps import create_train_state as j_create
 from iip_uavsal_saliency_tpu.parallel.steps import make_train_step as j_make_train_step
 from iip_uavsal_saliency_tpu.training.optim import make_frozen_mask as j_frozen_mask
@@ -124,12 +123,17 @@ def few_threads():
 
 @pytest.fixture(scope="module")
 def variables():
-    """The JAX package's init of the flagship at 64x128, then seeded values."""
+    """The JAX package's variables tree of the flagship at 64x128 with
+    seeded values: `randomized` reads the tree's shapes only, so
+    `jax.eval_shape` of the init gives it without compiling the init (18 s
+    on the CPU)."""
     model = JUAVSal(time_dims=T)
     g, o = priors()
     x = jnp.zeros((1, S, H, W, 3), jnp.float32)
-    v = init_variables(model, jax.random.PRNGKey(0), x, g, o, model.init_state(H, W, 1))
-    return randomized(jax.tree_util.tree_map(np.asarray, unfreeze(v)), np.random.RandomState(0))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, g, o,
+                            model.init_state(H, W, 1))
+    zeros = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), unfreeze(shapes))
+    return randomized(zeros, np.random.RandomState(0))
 
 
 def _port_named(params, batch_stats, like=None):

@@ -242,18 +242,20 @@ def test_cli_train_end_to_end(dataset, tmp_path):
     ("videos_per_step", "2", "A.9b"), ("remat", "true", "A.9b"),
     ("model_name", "uavsal_lstm", "A.10"), ("dp_devices", "2", "A.11")])
 def test_cli_train_refuses_what_the_port_does_not_have(flag, value, item, tmp_path):
-    """Only multi-GPU data parallelism (A.11) is refused, naming its ROADMAP
-    item. The zoo (A.10), several videos per step and remat (A.9b), which
-    the port now trains, pass through: the model is built and the run stops
+    """The zoo (A.10), several videos per step and remat (A.9b), which the
+    port now trains, pass through: the model is built and the run stops
     where the JAX trainer's stops without a dataset, at the missing train
-    split."""
+    split. Data parallelism (A.11) is taken too, and refused as the JAX
+    trainer refuses it where `videos_per_step` (1 here) does not split over
+    the ranks, before any rank starts."""
     argv = ["train", f"--{flag}", value, "--device", "cpu",
             "--save_model_dir", str(tmp_path), "--data_dir", str(tmp_path / "none")]
     if item in ("A.9b", "A.10"):
         with pytest.raises(FileNotFoundError):
             cli.main(argv)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match=r"videos_per_step=1 must be a multiple of the mesh "
+                       r"'data' axis \(2\)"):
         cli.main(argv)
 
 

@@ -224,6 +224,16 @@
    as served and K2 at each admitted block against their plain versions,
    graphed equal to eager, bf16 against f32 at CC >= 0.99), and K1's f32
    kernel at 1x20x45x80x128 against the plain version; the phase's seconds.
+8. The spatial axis (`spatial_phase`): two gloo ranks on this card, each
+   holding half of the image's rows, serve the flagship at 720x1280 over 2
+   carried clips of S=20 (`make_infer_step(mesh=)`, eager), bf16 K2 off and
+   on and f32, their bands put back together against one process's step:
+   f32 within `TOL_F32` of the largest value, bf16 at CC >= 0.99 per frame
+   (the largest uint8 difference printed); K1 once per frame per rank on
+   its band with halo rows and K2 once per admitted DWBlock call, exactly;
+   an f32 train step at 720x1280, S=5, on the same ranks against one
+   process's at `TOL_TRAIN_*`; each rank's peak memory, the phase's
+   seconds.
 
 The line before the last is a JSON object with one entry per kernel
 (`twa_scan`, `twa_step` for K1's per-frame kernel as the f32 paths launch
@@ -234,8 +244,9 @@ it serves (`twa_step_bf16`: bf16 mixed at 720x1280), K2's with the fused
 dwBlock on, and `config_launches`, its launches on each path of phase 3b,
 3c and 5b, under `recipe` those of 5c, under `lockstep` those of 5d,
 under `artifact` those of the three artifacts of 4b, under `dp` phase 7's
-per rank (serving: a replay's graph nodes; training: one step) and under
-`planes128` phase 7's planes=128 paths per 3 clips);
+per rank (serving: a replay's graph nodes; training: one step), under
+`planes128` phase 7's planes=128 paths per 3 clips and under `spatial`
+phase 8's per rank (serving: per clip; training: one step));
 the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
@@ -822,6 +833,21 @@ def k1_bound(shape, itemsize, peak_flops):
     v, s, h, w, c = shape
     flops_ms = 2.0 * s * v * h * w * 9 * c * c / peak_flops * 1e3
     bytes_ms = (4.0 * s * v * h * w * c + 9 * c * c) * itemsize / PEAK_BYTES * 1e3
+    return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
+
+
+def k1_vjp_bound(shape, itemsize, peak_flops):
+    """(ms, bound_by) the card needs at least for K1's backward as the port
+    runs it (the recompute through the plain scan, then autograd's
+    gradients of x, gx and W_h): per frame the recompute's 3x3 conv of
+    h_{s-1}, the conv that takes the gradient back to h_{s-1} and the one
+    that forms W_h's, 3 times the forward's 2*9*C*C flops per pixel; x, gx
+    and the gradient of ys read once, h0 and W_h once, the gradients of x
+    and gx and of W_h written once."""
+    v, s, h, w, c = shape
+    flops_ms = 3 * 2.0 * s * v * h * w * 9 * c * c / peak_flops * 1e3
+    bytes_ms = (5.0 * s * v * h * w * c + v * h * w * c + 2 * 9 * c * c) * itemsize \
+        / PEAK_BYTES * 1e3
     return max(flops_ms, bytes_ms), "operations" if flops_ms >= bytes_ms else "bytes"
 
 
@@ -2032,6 +2058,7 @@ def train_phase(torch, kernels, twa):
     k1_dev = sum(e.self_device_time_total for e in events if "twa_clip_kernel" in e.key) / 1e3
     adam = sum(e.self_device_time_total for e in annotations if "Optimizer.step" in e.key) / 1e3
     bf16_ms = float(np.median(windows[torch.bfloat16]))
+    vjp_bound = k1_vjp_bound(shape, 2, PEAK_BF16_FLOPS)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke_profile_train.txt"), "w") as f:
@@ -2040,8 +2067,8 @@ def train_phase(torch, kernels, twa):
           f"{total:.3f} ms ({total / bf16_ms:.1%} of the step's median), Adam's step "
           f"{adam:.3f} ms, K1 (twa_clip_kernel) {k1_dev:.3f} ms ({k1_dev / total:.1%}); K1's "
           f"forward alone {k1_fwd_ms:.3f} ms, the TWA backward's recompute through twa_scan_ref "
-          f"alone (bf16, {shape}) {recompute_ms:.3f} ms, {recompute_ms / bf16_ms:.1%} of the "
-          f"bf16 step's {bf16_ms:.3f} ms")
+          f"alone (bf16, {shape}) {recompute_ms:.3f} ms (bound {vjp_bound[0]:.4f} ms, "
+          f"{vjp_bound[1]}), {recompute_ms / bf16_ms:.1%} of the bf16 step's {bf16_ms:.3f} ms")
     return launches
 
 
@@ -3341,6 +3368,8 @@ def main() -> None:
     # 7. data parallelism over videos, and planes=128
     dp_launches = dp_phase(torch, kernels, twa, dwblock, DWBlock, serve, drive, compare, weights,
                            gauss, ob, first_clip, len(admitted), smi)
+    # 8. the spatial axis
+    spatial_launches = spatial_phase(torch, kernels, twa, weights, smi)
 
     def by_config(kernel):
         """The kernel's launches on each path of each configuration of phase
@@ -3357,6 +3386,7 @@ def main() -> None:
                         if not path.startswith("planes128")}
         counts["planes128"] = {path[len("planes128 "):]: n[kernel]
                                for path, n in dp_launches.items() if path.startswith("planes128")}
+        counts["spatial"] = {path: n[kernel] for path, n in spatial_launches.items()}
         return counts
 
     print(smi)
@@ -3651,6 +3681,134 @@ def dp_phase(torch, kernels, twa, dwblock, DWBlock, serve, drive, compare, weigh
     if not err <= TOL_F32 or kernels.launches["twa_step"] != S:
         fail(f"K1 f32 at {shape} disagrees with twa_scan_ref: {err}")
     print(f"phase 7 (data parallelism, planes=128) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. The spatial axis: image rows over ranks
+
+SPATIAL_RANKS = 2
+SPATIAL_CLIPS = 2     # carried clips of S frames served
+SPATIAL_TRAIN_S = 5   # frames of the f32 train step
+SPATIAL_TIMEOUT_S = 300
+
+
+def spatial_phase(torch, kernels, twa, weights, smi):
+    """8. Two gloo ranks on this card, a spatial mesh of 2 (each rank 360 of
+    the 720 rows, 45 of the state's 90), serve the flagship at 720x1280
+    (`make_infer_step(mesh=)`, eager: a graph cannot capture the exchanges)
+    over 2 carried clips of S=20, in bf16 with K2 off and on and in f32
+    (TF32 off); their bands put back together against one process's step
+    on the same clips: f32 within TOL_F32 of the largest value of the
+    saliency and of the state, bf16 at CC >= CC_MIN per frame (the largest
+    uint8 difference printed). K1 runs once per frame on each rank's band
+    with its halo rows (its route at that shape: the per-frame kernel, W =
+    160), K2 once per DWBlock call whose whole-map input its gate admits
+    (counted by a hook on the blocks); each rank's launches must be exactly
+    these, and so must one process's. Then an f32 train step at 720x1280,
+    V=1, S=5 on the same two ranks against one process's, at the bounds of
+    an f32 run's drift (`TOL_TRAIN_*`), K1 once per frame per rank. Prints
+    each rank's peak memory and the phase's seconds; no scaling figure (the
+    ranks share one card). Returns the launches of each path, per rank."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.parallel import spawn
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _dp_runs import train_steps  # shared with the tests
+    from _spatial_runs import assemble, infer_clips, run_jobs
+
+    t_phase = time.perf_counter()
+    in_h, in_w, out_h, out_w = NATIVE_IO
+    rng = np.random.default_rng(SEED + 18)  # its own: the other phases' draws stay as they were
+    gauss = get_gauss_priors(out_h, out_w, 8)
+    ob = rng.uniform(0.0, 1.0, (out_h, out_w, 20)).astype(np.float32)
+    video = synthetic_video(rng, SPATIAL_CLIPS * S, in_h, in_w)[None]
+    arrays = {k: v.numpy() for k, v in weights.items()}
+    mesh = (1, SPATIAL_RANKS)
+    base = {"mesh": mesh, "weights": arrays, "x": video, "clips": SPATIAL_CLIPS,
+            "state": np.zeros((1, out_h, out_w, 256), np.float32), "gauss": gauss, "ob": ob,
+            "tf32": False}
+    paths = {"bf16 K2 off": dict(base, compute_dtype="bfloat16"),
+             "bf16 K2 on": dict(base, compute_dtype="bfloat16", model={"fused_dwblock": True}),
+             "f32": dict(base)}
+    gaze = rng.uniform(0.0, 1.0, (1, SPATIAL_TRAIN_S, out_h, out_w, 2)).astype(np.float32)
+    gaze[..., 1] = gaze[..., 1] < 0.01
+    gaze[:, :, out_h // 2, out_w // 2, 1] = 1.0
+    train = {"mesh": mesh, "model": {}, "weights": arrays, "tf32": False, "lr": TRAIN_LR,
+             "wd": TRAIN_WD, "clips": [(video[:, :SPATIAL_TRAIN_S], gaze)],
+             "rnn": rng.normal(0.0, 0.5, (1, out_h, out_w, 256)).astype(np.float32),
+             "gauss": gauss, "ob": ob}
+    t0 = time.perf_counter()
+    ranks = spawn(run_jobs, SPATIAL_RANKS, "gloo",
+                  ([("infer_clips", run) for run in paths.values()]
+                   + [("train_steps", [train])],), device_type="cuda",
+                  timeout_s=SPATIAL_TIMEOUT_S, deadline_s=SPATIAL_TIMEOUT_S)
+    print(f"spatial: two gloo ranks on one card served and trained in "
+          f"{time.perf_counter() - t0:.1f} s (the processes' start, CUDA and the kernels' load "
+          "included)")
+    route = twa.kernel_route((1, 1, out_h // SPATIAL_RANKS + 2, out_w, 256), torch.bfloat16)
+    launches = {}
+    for j, (path, run) in enumerate(paths.items()):
+        one = infer_clips(None, dict(run, mesh=None, device="cuda"))
+        got = [rank[j] for rank in ranks]
+        k1 = {"twa_scan": 0, "twa_step": 0}
+        k1[route if run.get("compute_dtype") else "twa_step"] = S
+        k2 = run.get("model", {}).get("fused_dwblock", False)
+        for k in range(SPATIAL_CLIPS):
+            want = dict(k1, dwblock=one["admitted"][k] if k2 else 0)
+            for who, r in [("one process", one)] + [(f"rank {i}", g) for i, g in enumerate(got)]:
+                if r["launches"][k] != want or r["admitted"][k] != one["admitted"][k]:
+                    fail(f"spatial {path}, clip {k}, {who}: launched {r['launches'][k]}, "
+                         f"expected {want}")
+            sal, state = assemble(got, "saliency", k, 2), assemble(got, "state", k, 1)
+            ref_sal, ref_state = one["saliency"][k], one["state"][k]
+            if path == "f32":
+                errs = [np.abs(a - b).max() / np.abs(b).max()
+                        for a, b in ((sal, ref_sal), (state, ref_state))]
+                print(f"spatial {path}, clip {k}: two ranks' bands against one process: "
+                      f"saliency {errs[0]:.3g}, state {errs[1]:.3g} of the largest value "
+                      f"(tolerance {TOL_F32})")
+                if not max(errs) <= TOL_F32:
+                    fail(f"spatial {path}, clip {k}: {errs} above {TOL_F32}")
+            else:
+                a, b = (torch.from_numpy(m[0, :, :, :, 0]) for m in (sal, ref_sal))
+                cc = frame_cc(torch, a, b)
+                u8 = np.abs(np.rint(sal * 255) - np.rint(ref_sal * 255)).max()
+                print(f"spatial {path}, clip {k}: two ranks' bands against one process: CC per "
+                      f"frame min {cc.min().item():.6f}, largest uint8 difference {u8:.0f}, "
+                      f"state max abs diff {np.abs(state - ref_state).max():.3g}")
+                if not cc.min().item() >= CC_MIN:
+                    fail(f"spatial {path}, clip {k}: min CC {cc.min().item()} < {CC_MIN}")
+        for i, g in enumerate(got):
+            print(f"spatial {path}, rank {i}: launches per clip {g['launches'][0]}, "
+                  f"{g['seconds']:.3f} s for {SPATIAL_CLIPS} clips, peak memory "
+                  f"{g['peak_bytes'] / 2 ** 30:.2f} GiB")
+        print(f"spatial {path}, one process: {one['seconds']:.3f} s for {SPATIAL_CLIPS} clips "
+              f"({smi})")
+        launches[f"serve {path}, a rank, per clip"] = got[0]["launches"][0]
+
+    # the f32 train step
+    one, = train_steps(None, [dict(train, mesh=None, device="cuda")])
+    got = [rank[-1][0] for rank in ranks]
+
+    def as_step(r, state):
+        return (r["losses"][0], {n: torch.from_numpy(a) for n, a in r["grads"][0].items()},
+                {n: torch.from_numpy(a) for n, a in r["after"].items() if "running" in n},
+                torch.from_numpy(state), r["launches"][0])
+
+    held_train("spatial f32 train step, two ranks' bands against one process",
+               train_diffs(as_step(one, one["rnn"][0]), as_step(got[0], assemble(got, "rnn", 0, 1))),
+               TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+    want = {"twa_scan": 0, "twa_step": SPATIAL_TRAIN_S, "dwblock": 0}
+    for i, g in enumerate(got):
+        print(f"spatial f32 train step, rank {i}: loss {g['losses'][0]:.6f}, launches "
+              f"{g['launches'][0]}, peak memory {g['peak_bytes'] / 2 ** 30:.2f} GiB")
+        if g["launches"][0] != want:
+            fail(f"spatial f32 train step, rank {i}: launched {g['launches'][0]}, expected {want}")
+    if got[0]["digest"] != got[1]["digest"]:
+        fail("spatial f32 train step: the two ranks' parameters differ after the step")
+    print(f"spatial f32 train step, one process: peak memory {one['peak_bytes'] / 2 ** 30:.2f} GiB")
+    launches["train step f32, a rank"] = got[0]["launches"][0]
+    print(f"phase 8 (the spatial axis) took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -18,17 +18,23 @@ with torchvision's module names, so that the state_dict keys under
   the four layers.
 - VGG16: `features.{i}` at torchvision's indices (convs with a bias and no
   BatchNorm, ReLUs, max-pools); each stage ends in its 2x2 max-pool.
+
+On a spatial mesh (`parallel.spatial.over`) MobileNetV2 takes a band of the
+image's rows and `height`, the image's rows, and runs its layers on bands
+(`ops/layers.py`); ResNet and VGG, with their max-pools, raise
+(ROADMAP A.13.1b).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layers import BatchNorm, ConvBNAct, DWBlock, S2DStem
+from ..parallel import spatial
 
 # c2..c5 widths per backbone
 FEATURE_INPLANES = {
@@ -77,13 +83,41 @@ class MobileNetV2Pyramid(nn.Module):
                 in_ch = ch
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    @staticmethod
+    def _out_rows(layer: nn.Module, height: int) -> int:
+        """The rows a layer of the pyramid gives for `height` input rows (the
+        stem is a 3x3 stride-2 conv, padded by 1, with or without S2D)."""
+        return (layer.out_height(height) if isinstance(layer, DWBlock)
+                else spatial.conv_rows(height, 3, 2, 1, 1))
+
+    def stage_heights(self, height: int) -> Tuple[int, ...]:
+        """The rows of c1..c5 for an image of `height` rows."""
         outs = []
         for i, layer in enumerate(self.features):
-            x = layer(x)
+            height = self._out_rows(layer, height)
+            if i in STAGE_ENDS:
+                outs.append(height)
+        return tuple(outs)
+
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        """c1..c5; on a spatial mesh, their bands, x being a band of an
+        image of `height` rows."""
+        outs = []
+        for i, layer in enumerate(self.features):
+            if spatial.current() is None:
+                x = layer(x)
+            else:
+                x = layer(x, height=height)
+                height = self._out_rows(layer, height)
             if i in STAGE_ENDS:
                 outs.append(x)
         return tuple(outs)
+
+
+def _no_bands(name: str) -> None:
+    if spatial.current() is not None:
+        raise NotImplementedError(f"{name} on a spatial mesh (its max-pools have no band form "
+                                  "yet): ROADMAP A.13.1b")
 
 
 def _downsample(in_ch: int, out_ch: int, stride: int):
@@ -160,7 +194,8 @@ class ResNetPyramid(nn.Module):
                 in_ch = out_ch
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        _no_bands("ResNet")
         x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
         outs = [x]
         for i in range(1, 5):
@@ -183,7 +218,8 @@ class VGGPyramid(nn.Module):
             layers.append(nn.MaxPool2d(2, 2))
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        _no_bands("VGG16")
         outs = []
         for layer in self.features:
             x = layer(x)

@@ -13,6 +13,14 @@ card) runs only the hidden half and the gate. Where the scan runs a
 per-frame kernel (f32, and bf16 at shapes the persistent kernel refuses) the
 hidden half is also packed for it (`ops/twa.py::pack_twa_weights`,
 `pack_twa_weights_bf16`), once for serving.
+
+On a spatial mesh (`parallel.spatial.over`) ConvTWA takes this rank's band
+of rows: the input half's conv fetches a row of x each side once per clip,
+and the scan runs a frame at a time, since each frame's gate reads a row of
+h_{s-1} each side from the neighbours' bands: K1 (through `twa_scan`, which
+picks its kernel) runs on the band with those rows (zeros beyond the image,
+the gate conv's own padding) and with zero rows of x and gx there, whose
+outputs are dropped.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 
 from ..ops.layers import DWBlock, laid_out_as
 from ..ops.twa import kernel_route, pack_twa_weights, pack_twa_weights_bf16, twa_scan
+from ..parallel import spatial
 
 
 class _GateCell(nn.Module):
@@ -121,7 +130,12 @@ class ConvTWA(nn.Module):
         return (w[:, :self.hidden_dim].contiguous(memory_format=torch.channels_last),
                 w[:, self.hidden_dim:].permute(2, 3, 1, 0).contiguous())
 
-    def forward(self, x: torch.Tensor, state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, state: torch.Tensor,
+                height: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`height` is for a spatial mesh alone: the state's rows in the
+        whole map (module docstring)."""
+        if spatial.current() is not None:
+            return self._band(x, state, height)
         v, s, h, w, c = x.shape
         w_x, w_h = self.split_weight()
         frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
@@ -133,6 +147,35 @@ class ConvTWA(nn.Module):
         if _packs(w_h) and kernel_route(x.shape, x.dtype) == "twa_step":
             packed = self.packed_weight(x.dtype)
         return twa_scan(x.contiguous(), gx, w_h, state, packed=packed)
+
+    def _band(self, x: torch.Tensor, state: torch.Tensor,
+              height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        axis = spatial.current()
+        v, s, h, w, c = x.shape
+        w_x, w_h = self.split_weight()
+        halo = spatial.window_needs(height, axis.world, 1, -1, 3)  # a row each side
+        frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
+        frames = spatial.rows(frames, height, halo)
+        gx = F.conv2d(frames, w_x, padding=(0, 1)).permute(0, 2, 3, 1)
+        gx = gx.contiguous().reshape(v, s, h, w, c)
+        zero = x.new_zeros((v, 1, 1, w, c))
+        shape = (v, 1, h + 2, w, c)
+        packed = None
+        if self.scan is None and _packs(w_h) and kernel_route(shape, x.dtype) == "twa_step":
+            packed = self.packed_weight(x.dtype)
+        h_prev, ys = state, []
+        for t in range(s):
+            h_ext = spatial.rows(h_prev, height, halo, dim=1).contiguous()
+            x_ext = torch.cat([zero, x[:, t:t + 1], zero], 2)
+            g_ext = torch.cat([zero, gx[:, t:t + 1], zero], 2)
+            if self.scan is not None:
+                y, _ = self.scan(x_ext, g_ext, w_h, h_ext)
+            else:
+                y, _ = twa_scan(x_ext, g_ext, w_h, h_ext, packed=packed)
+            h_prev = y[:, 0, 1:h + 1]
+            ys.append(h_prev)
+        out = torch.stack(ys, 1)
+        return out, out[:, -1].clone()
 
 
 class _GatedScan(nn.Module):

@@ -10,6 +10,11 @@ differences of a temporal branch (see `temporal_differences`). The 3-D
 blocks convolve each run of `time_dims` frames as one (C, T, H, W) volume,
 which never crosses a video of a whole number of such runs, so they take
 the argument and need none.
+
+On a spatial mesh the 2-D blocks and their branches take `height`, the
+rows of the map whose band they hold, for their DWBlocks
+(`ops/layers.py`); the frame differences are per pixel and run on the band
+as they are. The 3-D blocks have no band form (ROADMAP A.13.1b).
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ class SpConv(nn.Module):
         super().__init__()
         self.spconv = DWBlock(in_ch, planes, 3, res_connect=res_connect)
 
-    def forward(self, x):
-        return self.spconv(x)
+    def forward(self, x, height: Optional[int] = None):
+        return self.spconv(x, height=height)
 
 
 class TeConvSub(nn.Module):
@@ -76,9 +81,9 @@ class TeConvSub(nn.Module):
         self.sub_conv = DWBlock(2 * width, width, 3, res_connect=False)
         self.last_conv = ConvBNAct(width, planes, 1)
 
-    def forward(self, x, diff_group: Optional[int] = None):
+    def forward(self, x, diff_group: Optional[int] = None, height: Optional[int] = None):
         x_sub = temporal_differences(self.reduce_conv(x), diff_group)
-        out = self.last_conv(self.sub_conv(x_sub))
+        out = self.last_conv(self.sub_conv(x_sub, height=height))
         return x + out if self.use_res else out
 
 
@@ -95,11 +100,11 @@ class _STPair(nn.Module):
         self.stconv_te = TeConvSub(te_in, planes, reduction)
         self.stconv_last = ConvBNAct(last_in, planes, 1)
 
-    def fuse(self, x, diff_group):
+    def fuse(self, x, diff_group, height=None):
         raise NotImplementedError
 
-    def forward(self, x, diff_group: Optional[int] = None):
-        out = self.stconv_last(self.fuse(x, diff_group))
+    def forward(self, x, diff_group: Optional[int] = None, height: Optional[int] = None):
+        out = self.stconv_last(self.fuse(x, diff_group, height))
         return x + out if self.use_res else out
 
 
@@ -114,8 +119,9 @@ class STBlock(_STPair):
                          planes if fu_type == "sum" else 2 * planes)
         self.fu_type = fu_type
 
-    def fuse(self, x, diff_group):
-        return _fused(self.fu_type, self.stconv_sp(x), self.stconv_te(x, diff_group))
+    def fuse(self, x, diff_group, height=None):
+        return _fused(self.fu_type, self.stconv_sp(x, height),
+                      self.stconv_te(x, diff_group, height))
 
 
 class STBlockS2T(_STPair):
@@ -124,8 +130,8 @@ class STBlockS2T(_STPair):
     def __init__(self, in_ch: int, planes: int = 256, reduction: int = 8):
         super().__init__(in_ch, planes, reduction, in_ch, planes, planes)
 
-    def fuse(self, x, diff_group):
-        return self.stconv_te(self.stconv_sp(x), diff_group)
+    def fuse(self, x, diff_group, height=None):
+        return self.stconv_te(self.stconv_sp(x, height), diff_group, height)
 
 
 class STBlockT2S(_STPair):
@@ -134,8 +140,8 @@ class STBlockT2S(_STPair):
     def __init__(self, in_ch: int, planes: int = 256, reduction: int = 8):
         super().__init__(in_ch, planes, reduction, planes, in_ch, planes)
 
-    def fuse(self, x, diff_group):
-        return self.stconv_sp(self.stconv_te(x, diff_group))
+    def fuse(self, x, diff_group, height=None):
+        return self.stconv_sp(self.stconv_te(x, diff_group, height), height)
 
 
 class STBlockSS2T(_STPair):
@@ -144,9 +150,9 @@ class STBlockSS2T(_STPair):
     def __init__(self, in_ch: int, planes: int = 256, reduction: int = 8):
         super().__init__(in_ch, planes, reduction, in_ch, planes, planes)
 
-    def fuse(self, x, diff_group):
-        x_sp = self.stconv_sp(x)
-        return x_sp + self.stconv_te(x_sp, diff_group)
+    def fuse(self, x, diff_group, height=None):
+        x_sp = self.stconv_sp(x, height)
+        return x_sp + self.stconv_te(x_sp, diff_group, height)
 
 
 def conv3d_over_groups(conv: nn.Module, x: torch.Tensor, time_dims: int) -> torch.Tensor:

@@ -32,6 +32,14 @@ Every class takes the JAX field `planes`, the trunk's width (256).
 `models/adapters.py` gives them all UAVSal's interface. Where the JAX
 classes set `diff_group` (and UAVSalMP `compat_cxt_tile`) as fields that
 the adapter clones, these take them as arguments of `forward`.
+
+On a spatial mesh (`parallel.spatial.over(axis)`) UAVSal takes this rank's
+band of the frames' rows and of the state's and returns its band of the
+saliency and of the new state: every layer runs on its band
+(`ops/layers.py`), the priors are cut to the band, the context stream
+keeps its bands down to H/32 and is resized back to the band, and the TWA
+scan fetches a row of h_{s-1} each side each frame (`models/recurrent.py`).
+The other classes of the zoo have no band form (ROADMAP A.13.1b).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from torch import nn
 from ..ops.initializers import kaiming_normal_, lecun_normal_, xavier_uniform_
 from ..ops.layers import BatchNorm, DWBlock, laid_out_as
 from ..ops.resize import resize_bilinear_align_corners
+from ..parallel import spatial
 from .recurrent import ConvLSTM, ConvTWA
 from .srfnet import SRFNet
 from .stblock import ST_TYPES, STC23D, STC3D, STBlock, TeConvSub
@@ -126,15 +135,20 @@ class _Zoo(nn.Module):
             self.fucb_layer = nn.Sequential(DWBlock(width, cb_last))
             self.fucbst_layer = nn.Sequential(DWBlock(self.planes + cb_last, self.planes))
 
-    def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None) -> torch.Tensor:
-        """SRF-Net -> ST blocks -> fuse DWBlock over (N, 3, H, W) frames."""
-        x = self.sfnet(x)
+    def trunk(self, x: torch.Tensor, diff_group: Optional[int] = None,
+              height: Optional[int] = None) -> torch.Tensor:
+        """SRF-Net -> ST blocks -> fuse DWBlock over (N, 3, H, W) frames; on
+        a spatial mesh over a band of an image of `height` rows."""
+        x = self.sfnet(x, height=height)
+        ho = None if height is None else self.sfnet.features.stage_heights(height)[2]
+        band = {} if height is None else {"height": ho}  # the 3-D blocks have no band form
         for block in self.st_layer:
-            x = block(x, diff_group)
-        return self.fust_layer(x)
+            x = block(x, diff_group, **band)
+        return self.fust_layer[0](x, height=ho)
 
     def multi_priors(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
-                     ob_prior: Optional[torch.Tensor], compat_cxt_tile: bool) -> torch.Tensor:
+                     ob_prior: Optional[torch.Tensor], compat_cxt_tile: bool,
+                     height: Optional[int] = None) -> torch.Tensor:
         """MP-Net prior fusion over (S, C, Ho, Wo) trunk features, with the
         streams `bias_type` switches on; with none, x as it is.
 
@@ -146,19 +160,26 @@ class _Zoo(nn.Module):
         on all S rows, because the running-var EMA's n/(n-1) factor depends
         on the batch size. `compat_cxt_tile` tiles the context t-major, as
         the reference does; it holds for one video only, since with V > 1
-        it would mix context across videos."""
+        it would mix context across videos.
+
+        On a spatial mesh x is a band of a map of `height` rows: the priors
+        are cut to it and every stream keeps its bands."""
         use_gauss, use_ob, use_cxt = self.bias_type
         if not (use_gauss or use_ob or use_cxt):
             return x
         s, c, ho, wo = x.shape
         t = self.time_dims
+        axis = spatial.current()
+        band = None if axis is None else spatial.owned(height, axis.world, axis.rank)
 
         def stream(prior, layers):
+            if band is not None:
+                prior = prior[band[0]:band[1]]
             p = _prior_nchw(prior)  # (1, C, Ho, Wo) in channels-last memory
             if self.training:
                 p = p.expand(s, -1, -1, -1).contiguous(memory_format=torch.channels_last)
             for layer in layers:
-                p = layer(p)
+                p = layer(p, height=height)
             return p
 
         def tile(p):
@@ -171,20 +192,23 @@ class _Zoo(nn.Module):
             streams.append(stream(ob_prior, self.ob_cb_layer))
         if use_cxt:
             cxt = x.reshape(s // t, t, c, ho, wo).sum(dim=1)
+            hc = height
             for layer in self.cxt_cb_prior:
-                cxt = layer(cxt)
-            cxt = resize_bilinear_align_corners(cxt, ho, wo)
+                cxt = layer(cxt, height=hc)
+                hc = None if hc is None else layer.out_height(hc)
+            cxt = resize_bilinear_align_corners(cxt, ho if height is None else height, wo,
+                                                height=hc)
             streams.append(tile(cxt) if self.training else cxt)
         rows = s if self.training else (s // t if use_cxt else 1)
         cb = torch.cat([p.expand(rows, *p.shape[1:]) for p in streams], dim=1)
-        x_cb = self.fucb_layer(laid_out_as(cb, x))
+        x_cb = self.fucb_layer[0](laid_out_as(cb, x), height=height)
         if rows != s:
             x_cb = tile(x_cb) if use_cxt else x_cb.expand(s, -1, -1, -1)
-        return self.fucbst_layer(torch.cat([x, laid_out_as(x_cb, x)], dim=1))
+        return self.fucbst_layer[0](torch.cat([x, laid_out_as(x_cb, x)], dim=1), height=height)
 
-    def head(self, feats: torch.Tensor) -> torch.Tensor:
+    def head(self, feats: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
         """(N, planes, Ho, Wo) features -> saliency (N, Ho, Wo, 1)."""
-        return torch.sigmoid(self.conv_out_st(feats)).permute(0, 2, 3, 1)
+        return torch.sigmoid(self.conv_out_st(feats, height=height)).permute(0, 2, 3, 1)
 
     def _check_clip(self, s: int) -> None:
         if s % self.time_dims:
@@ -200,7 +224,9 @@ class _Stateful(_Zoo):
     where a data-parallel train step gives this rank its rows of a batch of
     `videos` (the JAX step's jit sees the whole batch), else x's own, as a
     serving rank's (its `shard_map` runs each device's program on its
-    shard)."""
+    shard). On a spatial mesh x and the state are this rank's bands of
+    rows, which hold equal shares of the image's rows and of the state's
+    (module docstring)."""
 
     compat_cxt_tile = True
 
@@ -210,14 +236,25 @@ class _Stateful(_Zoo):
         v, s, h, w, c = x.shape
         self._check_clip(s)
         videos = v if videos is None else videos
+        axis = spatial.current()
+        height = out_height = None
+        band = {}
+        if axis is not None:
+            spatial.check_model(self)
+            if h % 8 or state.shape[1] * 8 != h:
+                raise ValueError(f"a band of {h} image rows needs one of {h // 8} state rows, got "
+                                 f"{state.shape[1]} (H and H/8 must divide by {axis.world})")
+            height, out_height = h * axis.world, h * axis.world // 8
+            band = {"height": out_height}
         feats = self.trunk(_frames_nchw(x.reshape(v * s, h, w, c)),
-                           diff_group=s if videos > 1 else None)
+                           diff_group=s if videos > 1 else None, height=height)
         feats = self.multi_priors(feats, gauss_prior, ob_prior,
-                                  compat_cxt_tile=self.compat_cxt_tile and videos == 1)
+                                  compat_cxt_tile=self.compat_cxt_tile and videos == 1,
+                                  height=out_height)
         ho, wo = feats.shape[-2], feats.shape[-1]
         seq = feats.permute(0, 2, 3, 1).reshape(v, s, ho, wo, self.planes)
-        ys, new_state = self.rnn(seq, state)
-        out = self.head(_frames_nchw(ys.reshape(v * s, ho, wo, self.planes)))
+        ys, new_state = self.rnn(seq, state, **band)
+        out = self.head(_frames_nchw(ys.reshape(v * s, ho, wo, self.planes)), height=out_height)
         return out.reshape(v, s, ho, wo, 1), new_state
 
     def init_state(self, height: int, width: int, n_videos: int = 1,

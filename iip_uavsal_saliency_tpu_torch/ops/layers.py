@@ -24,6 +24,18 @@ Counterparts of `iip_uavsal_saliency_tpu/ops/layers.py`:
   mode that `ops/dwblock.py::supports_fused_dwblock` admits runs as one
   call of `fused_dwblock` (kernel K2 on the card).
 
+On a spatial mesh (inside `parallel.spatial.over(axis)`) `ConvBNAct`,
+`S2DStem` and `DWBlock` take a band of the rows of their input and give
+their band of the output rows: called with `height`, the input's rows in
+the whole map, each conv fetches the input rows its output band reads
+(`band_conv`: zeros beyond the image, which is the conv's own zero
+padding) and runs with its row padding off, so each BatchNorm sees this
+rank's rows alone and reduces them with every other rank's
+(`parallel/batchnorm.py`). A DWBlock that takes the fused kernel fetches
+a row of x each side instead (real rows only: at the image's edges the
+kernel's own padding of its expansion acts) and keeps its band of the
+kernel's output. A band of no rows runs no conv.
+
 Module names follow the reference's state_dict keys (`<conv>.0/.1`,
 `<block>.conv.{0..3}`), so a state_dict from `models/convert.py` loads
 with `strict=True`.
@@ -38,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from ..parallel.batchnorm import cross_rank_batch_norm
 from ..parallel.mesh import batch_group
 from .dwblock import fused_dwblock, pack_dwblock_weights, supports_fused_dwblock
@@ -167,8 +180,66 @@ class BatchNorm(nn.Module):
         return torch.addcmul(b.to(x.dtype).view(shape), x, s.to(x.dtype).view(shape))
 
 
+class _EmptyConv(torch.autograd.Function):
+    """A conv's output of no rows (no `F.conv2d`: it refuses an input of
+    no rows), wired to its input and weight so that the backward reaches
+    the layers before it as it does on every other rank."""
+
+    @staticmethod
+    def forward(ctx, x, weight, shape):
+        ctx.save_for_backward(x, weight)
+        return x.new_zeros(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        return torch.zeros_like(x), torch.zeros_like(weight), None
+
+
+def band_conv(conv: nn.Conv2d, x: torch.Tensor,
+              height: Optional[int]) -> Tuple[torch.Tensor, Optional[int]]:
+    """`conv` on this rank's band of a map of `height` rows, inside
+    `parallel.spatial.over`: (its band of the output, the output's rows in
+    the whole map). A 1x1 stride-1 conv runs on the band as it is (no
+    `height` needed); any other fetches the input rows its output band
+    reads, zeros beyond the image, and runs with its row padding off, which
+    anchors a strided conv's grid on the right row."""
+    axis = spatial.current()
+    (k, _), (s, s_w), (d, d_w), (p, p_w) = conv.kernel_size, conv.stride, conv.dilation, \
+        conv.padding
+    if k == 1 and s == 1 and p == 0:
+        out_height, xe = height, x
+    else:
+        if height is None:
+            raise ValueError("a conv with a halo needs its input's rows in the whole map "
+                             "(height=) on a spatial mesh")
+        out_height = spatial.conv_rows(height, k, s, d, p)
+        needs = spatial.window_needs(out_height, axis.world, s, -p, d * (k - 1) + 1)
+        xe = laid_out_as(spatial.rows(x, height, needs), x)
+    if (xe.shape[2] - d * (k - 1) - 1) // s + 1 <= 0:  # a band of no rows
+        w_out = (x.shape[3] + 2 * p_w - d_w * (conv.kernel_size[1] - 1) - 1) // s_w + 1
+        y = _EmptyConv.apply(xe, conv.weight, (x.shape[0], conv.out_channels, 0, w_out))
+        return laid_out_as(y, x), out_height
+    y = F.conv2d(xe, conv.weight, conv.bias, (s, s_w), (0, p_w), (d, d_w), conv.groups)
+    return laid_out_as(y, x), out_height
+
+
 class ConvBNAct(nn.Sequential):
-    """Conv2d(bias=False) -> BatchNorm -> [ReLU6]; keys `0.weight`, `1.*`."""
+    """Conv2d(bias=False) -> BatchNorm -> [ReLU6]; keys `0.weight`, `1.*`.
+    `height` is for a spatial mesh alone (`band_conv`)."""
+
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        if spatial.current() is None:
+            return super().forward(x)
+        return self.band(x, height)[0]
+
+    def band(self, x: torch.Tensor, height: Optional[int]) -> Tuple[torch.Tensor, Optional[int]]:
+        """(this rank's band of the output, the output's rows in the whole
+        map) for x a band of a map of `height` rows (`band_conv`)."""
+        y, out_height = band_conv(self[0], x, height)
+        for layer in list(self)[1:]:
+            y = layer(y)
+        return y, out_height
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
@@ -230,10 +301,22 @@ class S2DStem(ConvBNAct):
         k2 = kp.reshape(f, c, 2, 2, 2, 2)  # [f, c, ki, a, kj, b]
         return k2.permute(0, 3, 5, 1, 2, 4).reshape(f, 4 * c, 2, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
         conv = self[0]
-        y = F.conv2d(F.pad(space_to_depth(x), (1, 0, 1, 0)), self.s2d_weight().to(x.dtype),
-                     None if conv.bias is None else conv.bias.to(x.dtype))
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        axis = spatial.current()
+        if axis is None:
+            y = F.conv2d(F.pad(space_to_depth(x), (1, 0, 1, 0)), self.s2d_weight().to(x.dtype),
+                         bias)
+        else:  # output row o reads rows 2o - 2 .. 2o + 1 (a zero row pair above row 0)
+            needs = spatial.window_needs(height // 2, axis.world, 2, -2, 4)
+            xe = F.pad(space_to_depth(laid_out_as(spatial.rows(x, height, needs), x)), (1, 0))
+            weight = self.s2d_weight().to(x.dtype)
+            if xe.shape[2] < 2:  # a band of no rows
+                y = _EmptyConv.apply(xe, weight, (x.shape[0], conv.out_channels, 0,
+                                                  x.shape[3] // 2))
+            else:
+                y = F.conv2d(xe, weight, bias)
         y = laid_out_as(y, x)
         for layer in list(self)[1:]:
             y = layer(y)
@@ -353,7 +436,15 @@ class DWBlock(nn.Module):
                   w2[:, :, 0, 0].t(), b2)
         return tuple(t.to(dtype).contiguous() for t in packed)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_height(self, height: int) -> int:
+        """The block's output rows for `height` input rows."""
+        k, s, d, _ = self.geometry
+        return spatial.conv_rows(height, k, s, d, d * (k - 1) // 2)
+
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        """`height` is for a spatial mesh alone: the rows of x's map."""
+        if spatial.current() is not None:
+            return self._band(x, height)
         if self.takes_kernel(x.shape, x.dtype):
             # NCHW tensor in channels-last memory <-> the NHWC the kernel reads;
             # on the card the kernel's wrapper raises on any other memory
@@ -361,4 +452,31 @@ class DWBlock(nn.Module):
             out = fused_dwblock(x.permute(0, 2, 3, 1), *weights, self.use_res, blobs)
             return out.permute(0, 3, 1, 2)
         y = self.conv(x)
+        return x + y if self.use_res else y
+
+    def _band(self, x: torch.Tensor, height: Optional[int]) -> torch.Tensor:
+        """The block on this rank's band (module docstring). Whether the
+        fused kernel runs is read off the whole map's shape, so every rank
+        of the axis takes the same path and the same exchanges."""
+        axis = spatial.current()
+        n, c, _, w = x.shape
+        if height is not None and self.takes_kernel((n, c, height, w), x.dtype):
+            lo, hi = spatial.owned(height, axis.world, axis.rank)
+            needs = [(max(a - 1, 0), min(b + 1, height)) if b > a else (0, 0)
+                     for a, b in (spatial.owned(height, axis.world, q) for q in range(axis.world))]
+            xe = laid_out_as(spatial.rows(x, height, needs), x)
+            weights, blobs = self.kernel_weights(x.dtype)
+            if hi == lo:
+                return laid_out_as(_EmptyConv.apply(xe, weights[0], (n, self.out_ch, 0, w)), x)
+            out = fused_dwblock(xe.permute(0, 2, 3, 1), *weights, self.use_res, blobs)
+            return laid_out_as(out.permute(0, 3, 1, 2).narrow(2, lo - needs[axis.rank][0], hi - lo),
+                               x)
+        y, h = x, height
+        for layer in self.conv:
+            if isinstance(layer, ConvBNAct):
+                y, h = layer.band(y, h)
+            elif isinstance(layer, nn.Conv2d):
+                y, h = band_conv(layer, y, h)
+            else:
+                y = layer(y)
         return x + y if self.use_res else y

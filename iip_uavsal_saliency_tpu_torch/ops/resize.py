@@ -8,16 +8,22 @@ the interpolation matrices:
 - half-pixel (`cv2.resize(..., INTER_LINEAR)` in the reference
   postprocess): `src = (dst + 0.5) * in / out - 0.5`, clamped at the edges.
 
-Inputs are (..., H, W): NCHW activations or stacks of 2-D maps.
+Inputs are (..., H, W): NCHW activations or stacks of 2-D maps. On a
+spatial mesh (`parallel.spatial.over`) the align-corners resize takes a
+band of an NCHW map of `height` rows and gives its band of the output: the
+rows of A_h for the band, times the input rows those rows touch (fetched by
+`parallel.spatial.rows`).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import spatial
 
 
 @lru_cache(maxsize=128)
@@ -83,8 +89,30 @@ def _resize(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torch.Tensor:
     return torch.matmul(torch.matmul(ah, x), aw.t())
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Matches F.interpolate(mode='bilinear', align_corners=True)."""
+def _resize_band(x: torch.Tensor, height: int, out_h: int, out_w: int) -> torch.Tensor:
+    """The align-corners resize of this rank's band of a map of `height`
+    rows to its band of `out_h` rows: each rank asks for the input rows
+    that its rows of A_h touch."""
+    axis = spatial.current()
+    a = interp_matrix_align_corners(height, out_h)
+    needs = []
+    for q in range(axis.world):
+        lo, hi = spatial.owned(out_h, axis.world, q)
+        cols = np.nonzero(a[lo:hi].any(axis=0))[0]
+        needs.append((int(cols[0]), int(cols[-1]) + 1) if len(cols) else (0, 0))
+    xe = spatial.rows(x, height, needs)
+    (lo, hi), (c0, c1) = spatial.owned(out_h, axis.world, axis.rank), needs[axis.rank]
+    ah = torch.from_numpy(a[lo:hi, c0:c1].copy()).to(device=x.device, dtype=x.dtype)
+    aw = _matrix("align_corners", x.shape[-1], out_w, x.dtype, x.device)
+    return torch.matmul(torch.matmul(ah, xe), aw.t())
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int,
+                                  height: Optional[int] = None) -> torch.Tensor:
+    """Matches F.interpolate(mode='bilinear', align_corners=True). On a
+    spatial mesh x is a band of a map of `height` rows (module docstring)."""
+    if spatial.current() is not None:
+        return _resize_band(x, height, out_h, out_w)
     return _resize(x, out_h, out_w, "align_corners")
 
 

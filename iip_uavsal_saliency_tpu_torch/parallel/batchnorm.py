@@ -12,6 +12,11 @@ the global count. The backward all-reduces sum(dy) and sum(dy * x_hat) per
 channel before the usual formula; the gradients of the scale and the bias
 it returns are this rank's sums, which the train step's gradient
 all-reduce adds up with every other parameter's.
+
+On a spatial mesh the group is every rank of the mesh and each rank holds
+its band of the rows (`parallel/spatial.py`): each part counts its own
+pixels, which differ between bands (a band may hold none), and no map is
+held whole by several ranks, so no pixel is counted twice.
 """
 
 from __future__ import annotations
@@ -54,7 +59,10 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         rows = []
         for chunk in xf.chunk(parts):
             local_n = chunk.numel() // x.shape[1]
-            var, mean = torch.var_mean(chunk, dim=dims, unbiased=False)
+            if local_n:
+                var, mean = torch.var_mean(chunk, dim=dims, unbiased=False)
+            else:  # a band of no rows (`parallel/spatial.py`) adds nothing
+                var = mean = chunk.new_zeros(x.shape[1])
             rows.append(torch.cat([mean.new_full((1,), float(local_n)), mean, var * local_n]))
         moments = torch.stack(rows)
         if group is not None:

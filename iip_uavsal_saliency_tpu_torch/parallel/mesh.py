@@ -14,7 +14,15 @@ group:
   and its device; `rows(v)` is its contiguous rows of a V batch, as
   `P("data")` places them (rank r holds rows r*V/N ... (r+1)*V/N - 1);
 - the collectives the port runs over it (`all_reduce`, `all_gather`,
-  `broadcast_object`, `barrier`, and `rank0_first`).
+  `broadcast_object`, `barrier`, and `rank0_first`);
+- `make_mesh(group, n_data, n_spatial)` lays the ranks out as the JAX
+  `make_mesh` lays devices out (`devices[:n].reshape(n_data, n_spatial,
+  n_seq, n_model)`: rank d * n_spatial + s holds data coordinate d and
+  spatial coordinate s) and gives each rank a `Mesh`: an `Axis` per mesh
+  axis (its index along it, the axis's ranks and a `torch.distributed`
+  subgroup over them) and one over every rank of the mesh (train-mode
+  BatchNorm and the gradients). The `seq` and `model` axes are not ported
+  (ROADMAP A.13.2, A.13.3).
 
 The backend is the caller's choice and is never replaced by another:
 "nccl" when every rank has a card of its own (`--dp_devices N`), "gloo" on
@@ -27,13 +35,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import logging
 import os
 import pickle
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -263,3 +272,142 @@ def batch_over(group: Optional[RankGroup]) -> Iterator[None]:
         yield
     finally:
         _batch_group = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of a mesh as one of its ranks sees it: `rank`, this rank's
+    index along the axis, of `world`; `ranks`, the global ranks on the axis
+    in index order; and `pg`, the `torch.distributed` group over them (None
+    for the default group, which is the whole world). Its collectives are
+    `RankGroup`'s over that group, so it stands where a `RankGroup` does
+    (`batch_over`, `all_reduce_grads`, a masked loss's count)."""
+
+    rank: int
+    world: int
+    ranks: Tuple[int, ...]
+    backend: str
+    device: torch.device
+    pg: Any = None
+
+    def peer(self, index: int) -> int:
+        """The global rank at `index` along the axis."""
+        return self.ranks[index]
+
+    def staged(self, t: torch.Tensor) -> torch.Tensor:
+        """t where this backend moves it: gloo on host copies, nccl on the
+        rank's card."""
+        return t.cpu() if self.backend == "gloo" else t.to(self.device)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        staged = self.staged(t).clone()
+        if self.world > 1:
+            dist.all_reduce(staged, group=self.pg)
+        return staged.to(t.device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        staged = self.staged(t).contiguous()
+        if self.world == 1:
+            return staged.unsqueeze(0).to(t.device)
+        out = [torch.empty_like(staged) for _ in range(self.world)]
+        dist.all_gather(out, staged, group=self.pg)
+        return torch.stack(out).to(t.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A rank's place in a ('data', 'spatial', 'seq', 'model') mesh
+    (`make_mesh`): `shape` holds each axis's size, `group` the rank's
+    `RankGroup`; `data` and `spatial` are its axes and `everyone` the axis
+    of every rank of the mesh, all three None on a rank the mesh leaves
+    idle."""
+
+    shape: Dict[str, int]
+    group: RankGroup
+    data: Optional[Axis]
+    spatial: Optional[Axis]
+    everyone: Optional[Axis]
+
+    @property
+    def active(self) -> bool:
+        return self.data is not None
+
+    @property
+    def n_data(self) -> int:
+        return self.shape["data"]
+
+    @property
+    def n_spatial(self) -> int:
+        return self.shape["spatial"]
+
+    def videos(self, v: int) -> slice:
+        """This rank's rows of a batch of V videos over the data axis."""
+        self.check_active()
+        if v % self.n_data:
+            raise ValueError(f"a batch of {v} videos does not split over {self.n_data} data ranks")
+        n = v // self.n_data
+        return slice(self.data.rank * n, (self.data.rank + 1) * n)
+
+    def band(self, a, dim: int):
+        """This rank's rows of the whole array or tensor `a` along `dim`, as
+        `P("spatial")` places them at a step's boundary: equal bands, and a
+        ValueError where the rows do not split evenly (what the JAX step's
+        jit raises)."""
+        self.check_active()
+        rows = a.shape[dim]
+        if rows % self.n_spatial:
+            raise ValueError(f"{rows} image rows do not split over {self.n_spatial} spatial ranks")
+        n = rows // self.n_spatial
+        index = [slice(None)] * len(a.shape)
+        index[dim] = slice(self.spatial.rank * n, (self.spatial.rank + 1) * n)
+        return a[tuple(index)]
+
+    def check_active(self) -> None:
+        if not self.active:
+            raise ValueError(f"rank {self.group.rank} is idle in this {self.shape} mesh")
+
+
+def make_mesh(group: RankGroup, n_data: Optional[int] = None, n_spatial: int = 1,
+              n_seq: int = 1, n_model: int = 1) -> Mesh:
+    """This rank's place in a (data, spatial, seq, model) mesh over the
+    ranks of `group`'s world (counterpart of the JAX `make_mesh`; every rank
+    must call it, with the same arguments, as it creates the axes' groups).
+    `n_data` None takes every rank the other axes leave. Too few ranks
+    raise ValueError; ranks left over are idle (a warning, and a mesh whose
+    axes are None). The `seq` and `model` axes are not ported."""
+    if n_seq > 1:
+        raise NotImplementedError("the mesh's seq axis is not ported (ROADMAP A.13.2)")
+    if n_model > 1:
+        raise NotImplementedError("the mesh's model axis is not ported (ROADMAP A.13.3)")
+    world = group.world
+    if n_data is None:
+        n_data = world // n_spatial
+    if n_data < 1 or n_spatial < 1:
+        raise ValueError(f"mesh needs n_spatial*n_seq*n_model = {n_spatial * n_seq * n_model} "
+                         f"ranks per data shard, have {world}")
+    n = n_data * n_spatial
+    if n > world:
+        raise ValueError(f"mesh {n_data}x{n_spatial}x{n_seq}x{n_model} needs {n} ranks, "
+                         f"have {world}")
+    if n < world:
+        logging.getLogger("uavsal.mesh").warning(
+            "mesh %dx%dx%dx%d uses %d of %d ranks — %d sit idle", n_data, n_spatial, n_seq,
+            n_model, n, world, world - n)
+
+    def axis_of(ranks: Sequence[int]) -> Optional[Axis]:
+        """The axis over `ranks`; every rank of the world takes part in
+        making its group, in the same order."""
+        ranks = tuple(ranks)
+        pg = None
+        if 1 < len(ranks) < world:
+            pg = dist.new_group(list(ranks))
+        if group.rank not in ranks:
+            return None
+        return Axis(ranks.index(group.rank), len(ranks), ranks, group.backend, group.device, pg)
+
+    data = [axis_of(range(s, n, n_spatial)) for s in range(n_spatial)]
+    spatial = [axis_of(range(d * n_spatial, (d + 1) * n_spatial)) for d in range(n_data)]
+    everyone = axis_of(range(n))
+    mine = (lambda axes: next((a for a in axes if a is not None), None))
+    shape = {"data": n_data, "spatial": n_spatial, "seq": n_seq, "model": n_model}
+    return Mesh(shape, group, mine(data), mine(spatial), everyone)

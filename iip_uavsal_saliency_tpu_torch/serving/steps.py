@@ -19,6 +19,8 @@ from torch import nn
 from .. import kernels
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import DWBlock, to_channels_last
+from ..parallel import spatial
+from ..parallel.mesh import Mesh
 
 Step = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -28,15 +30,15 @@ def _model_device(model: nn.Module) -> torch.device:
 
 
 def _serve(model: nn.Module, mean: torch.Tensor, std: torch.Tensor,
-           compute_dtype: Optional[torch.dtype], x, gauss, ob, state):
+           compute_dtype: Optional[torch.dtype], x, gauss, ob, state, **kw):
     """The serving step's body: uint8 frames normalized in f32, the inputs
-    cast to `compute_dtype`, the model, the saliency in f32."""
+    cast to `compute_dtype`, the model (given `kw`), the saliency in f32."""
     if x.dtype == torch.uint8:
         x = (x.float() / 255.0 - mean) / std
     if compute_dtype is not None:
         x, state, gauss, ob = (None if t is None else t.to(compute_dtype)
                                for t in (x, state, gauss, ob))
-    out, new_state = model(x, gauss, ob, state)
+    out, new_state = model(x, gauss, ob, state, **kw)
     return out.float(), new_state
 
 
@@ -50,23 +52,41 @@ def build_infer_fn(model: nn.Module, compute_dtype: Optional[torch.dtype] = None
     is (its parameters must already be in `compute_dtype`)."""
     mean, std = _normalization(_model_device(model))
 
-    def step(x, gauss, ob, state):
+    def step(x, gauss, ob, state, **kw):
         with torch.inference_mode():
-            return _serve(model, mean, std, compute_dtype, x, gauss, ob, state)
+            return _serve(model, mean, std, compute_dtype, x, gauss, ob, state, **kw)
 
     return step
 
 
+def spatial_mesh(mesh: Optional[Mesh]) -> bool:
+    """Whether `mesh` splits image rows (a spatial axis of more than one)."""
+    return mesh is not None and mesh.n_spatial > 1
+
+
 def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
                     ob: Optional[torch.Tensor] = None,
-                    compute_dtype: Optional[torch.dtype] = None) -> Step:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    mesh: Optional[Mesh] = None) -> Step:
     """`step(x, state) -> (saliency, new_state)` over the argument-passing
     step (`build_infer_fn`), the priors handed to it on every call: what
     the JAX runner serves (`make_infer_step`) when `bake_params` is false.
     Takes `model` over as `bake_model` does (cast to `compute_dtype`, its
     weights channels-last), but packs nothing: the fused dwBlock's kernel
-    packs its weights from the parameters at each call."""
+    packs its weights from the parameters at each call.
+
+    With `mesh`, x and the state are this rank's videos (`Mesh.videos`)
+    and, on a spatial axis, its band of their rows (`Mesh.band`: x's H and
+    the state's H/8 rows split evenly), and so are the saliency and the
+    state it returns; the priors are whole. On a spatial axis the model
+    sees the whole batch's V (as the JAX step's jit over the mesh does) and
+    must be UAVSal on MobileNetV2; on a data axis alone each rank serves
+    its videos by themselves (the JAX step's `shard_map`)."""
     device = _model_device(model)
+    if mesh is not None:
+        mesh.check_active()
+    if spatial_mesh(mesh):
+        spatial.check_model(model)
     model.eval().requires_grad_(False)
     if compute_dtype is not None:
         model.to(compute_dtype)
@@ -74,10 +94,18 @@ def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
     fn = build_infer_fn(model, compute_dtype)
     gauss, ob = (None if p is None else torch.as_tensor(p).to(device) for p in (gauss, ob))
 
-    def step(x, state):
-        return fn(x, gauss, ob, state)
+    if not spatial_mesh(mesh):
+        def step(x, state):
+            return fn(x, gauss, ob, state)
 
-    return step
+        return step
+
+    def banded(x, state):
+        with spatial.over(mesh.spatial):
+            return fn(x, gauss, ob, state, videos=x.shape[0] * mesh.n_data)
+
+    banded.mesh = mesh  # what `graph_step` refuses
+    return banded
 
 
 class BakedStep(nn.Module):
@@ -132,10 +160,17 @@ def bake_model(model: nn.Module, gauss: Optional[torch.Tensor] = None,
 
 def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
                           ob: Optional[torch.Tensor] = None,
-                          compute_dtype: Optional[torch.dtype] = None) -> Step:
+                          compute_dtype: Optional[torch.dtype] = None,
+                          mesh: Optional[Mesh] = None) -> Step:
     """`step(x, state) -> (saliency, new_state)`: `bake_model` of these
     arguments (which takes `model` over) served under
-    `torch.inference_mode()`."""
+    `torch.inference_mode()`. A mesh with a data axis alone serves each
+    rank's videos by themselves (the JAX baked step's `shard_map`); a
+    spatial axis raises ValueError, as the JAX baked step refuses any axis
+    but `data` (use `make_infer_step`)."""
+    if spatial_mesh(mesh):
+        raise ValueError(f"make_baked_infer_step wants a pure-'data' mesh (got {mesh.shape}); "
+                         "a spatial mesh serves through make_infer_step")
     baked = bake_model(model, gauss, ob, compute_dtype)
 
     def step(x, state):
@@ -242,5 +277,10 @@ class GraphedStep:
 
 def graph_step(step: Step) -> GraphedStep:
     """`step` served by CUDA-graph replay (`GraphedStep`); a step that is
-    already graphed is returned as it is, so that its captures are kept."""
+    already graphed is returned as it is, so that its captures are kept. A
+    step on a spatial mesh raises ValueError: its exchanges between
+    processes cannot be captured."""
+    if spatial_mesh(getattr(step, "mesh", None)):
+        raise ValueError("a step on a spatial mesh cannot be graphed: its row exchanges run "
+                         "between processes, outside any CUDA graph")
     return step if isinstance(step, GraphedStep) else GraphedStep(step)

@@ -37,9 +37,20 @@ batch's V (`videos=`), the loss is this rank's share of the loss of the
 whole batch (`rank_share`), the f32 master gradients are summed over the
 ranks in one flat all-reduce after the backward, and Adam then takes the
 same step on every rank, so the replicas stay equal. The loss that comes
-back is the whole batch's on every rank. The mesh's other axes are not
-ported (ROADMAP A.13), and a PyTorch optimizer updates the parameters in
-place, which is what `donate` buys.
+back is the whole batch's on every rank. A PyTorch optimizer updates the
+parameters in place, which is what `donate` buys.
+
+`mesh` (`parallel.make_mesh`) trains on a data x spatial mesh, the JAX step
+jitted over such a mesh: each rank holds its videos (its rows of V over the
+data axis) and its band of their rows, of y's and of the state's
+(`Mesh.band`). The forward runs on bands (`parallel/spatial.py`), its
+train-mode BatchNorms reduce over every rank of the mesh, each with its own
+count of pixels; the saliency and y are gathered over the spatial axis
+before the loss, whose share is the data axis's (each spatial rank computes
+the same loss, and its backward carries its band's part of it); the
+gradients are summed over the whole mesh and the loss reported is summed
+over the data axis alone. The `seq` and `model` axes are not ported
+(ROADMAP A.13.2, A.13.3).
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import running_stats_held
-from ..parallel.mesh import RankGroup, batch_over
+from ..parallel import spatial
+from ..parallel.mesh import Mesh, RankGroup, batch_over
 from .losses import loss_fu
 
 
@@ -123,6 +135,28 @@ def rank_share(loss_fn: Callable, group: Optional[RankGroup]) -> Callable:
     return share
 
 
+def _axes(group: Optional[RankGroup], mesh: Optional[Mesh]):
+    """(the group whose ranks share the loss, the group of every rank the
+    BatchNorms and the gradients reduce over, the spatial axis or None) of
+    a step made with `group` or with `mesh`."""
+    if mesh is None:
+        return group, group, None
+    if group is not None:
+        raise ValueError("a step takes a group or a mesh, not both")
+    mesh.check_active()
+    if mesh.n_spatial == 1:
+        return mesh.data, mesh.everyone, None
+    return mesh.data, mesh.everyone, mesh.spatial
+
+
+def _gathered(out, y_true, axis):
+    """The saliency and y over the whole image: their rows gathered over the
+    spatial axis (the loss normalizes over the whole map)."""
+    if axis is None:
+        return out, y_true
+    return (spatial.gather_rows(t, t.shape[2] * axis.world, 2, axis) for t in (out, y_true))
+
+
 def _whole_batch(x: torch.Tensor, group: Optional[RankGroup]) -> dict:
     """The model's `videos` keyword where x is this rank's rows of the
     whole batch: the V the model's context tile and temporal-difference
@@ -130,7 +164,7 @@ def _whole_batch(x: torch.Tensor, group: Optional[RankGroup]) -> dict:
     return {} if group is None else {"videos": x.shape[0] * group.world}
 
 
-def all_reduce_grads(model: nn.Module, group: RankGroup) -> None:
+def all_reduce_grads(model: nn.Module, group) -> None:
     """Sum the parameters' gradients over the ranks, in place, in one flat
     all-reduce (every rank has gradients for the same parameters)."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -143,7 +177,7 @@ def all_reduce_grads(model: nn.Module, group: RankGroup) -> None:
 
 def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
                     compute_dtype: Optional[torch.dtype] = None, remat: bool = False,
-                    group: Optional[RankGroup] = None):
+                    group: Optional[RankGroup] = None, mesh: Optional[Mesh] = None):
     """step(x, gauss, ob, rnn_state, y_true) -> (loss, new_rnn_state) over
     `state` (its model and optimizer are updated in place, its step counted).
 
@@ -152,13 +186,17 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     off is None. The loss comes back as a detached f32
     scalar on the device, the new state detached and in f32. `remat`
     recomputes the forward in the backward, and `group` trains
-    data-parallel, x, y_true and rnn_state being this rank's rows (module
-    docstring)."""
+    data-parallel, x, y_true and rnn_state being this rank's rows; `mesh`
+    trains on a data x spatial mesh, x, y_true and rnn_state being this
+    rank's videos and its band of their rows (module docstring)."""
     model, optimizer = state.model, state.optimizer
-    share = rank_share(loss_fn, group)
+    data, everyone, bands = _axes(group, mesh)
+    if bands is not None:
+        spatial.check_model(model)
+    share = rank_share(loss_fn, data)
 
     def forward(x, gauss, ob, rnn_state):
-        kw = _whole_batch(x, group)
+        kw = _whole_batch(x, data)
         if compute_dtype is None:
             return model(x, gauss, ob, rnn_state, **kw)
         cast = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
@@ -173,13 +211,14 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with batch_over(group):  # the recompute of remat runs in the backward
+        # the recompute of remat runs in the backward
+        with batch_over(everyone), spatial.over(bands):
             out, new_rnn = run(_maybe_normalize(x), gauss, ob, rnn_state.detach())
-            loss = _loss(share, out, y_true)
+            loss = _loss(share, *_gathered(out, y_true, bands))
             loss.backward()
-        if group is not None:
-            all_reduce_grads(model, group)
-            loss = group.all_reduce(loss.detach())
+        if everyone is not None:
+            all_reduce_grads(model, everyone)
+            loss = data.all_reduce(loss.detach())
         optimizer.step()
         state.step += 1
         return loss.detach(), new_rnn.detach().to(torch.promote_types(new_rnn.dtype,
@@ -189,21 +228,25 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
 
 
 def make_eval_step(model: nn.Module, loss_fn: Callable = loss_fu,
-                   group: Optional[RankGroup] = None):
+                   group: Optional[RankGroup] = None, mesh: Optional[Mesh] = None):
     """step(x, gauss, ob, rnn_state, y_true) -> (loss, new_rnn_state): the
     model in eval mode (BatchNorm from the running stats) in f32, no
     gradient, the state carried. It runs the model as it is, not the folded
-    serving step. With `group`, x, y_true and rnn_state are this rank's rows
-    and the loss is the whole batch's, as in `make_train_step`."""
-    share = rank_share(loss_fn, group)
+    serving step. With `group` (or `mesh`), x, y_true and rnn_state are this
+    rank's rows (and band) and the loss is the whole batch's, as in
+    `make_train_step`."""
+    data, everyone, bands = _axes(group, mesh)
+    if bands is not None:
+        spatial.check_model(model)
+    share = rank_share(loss_fn, data)
 
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
-        with torch.no_grad(), batch_over(group):
+        with torch.no_grad(), batch_over(everyone), spatial.over(bands):
             out, new_rnn = model(_maybe_normalize(x), gauss, ob, rnn_state,
-                                 **_whole_batch(x, group))
-            loss = _loss(share, out, y_true)
-        return (loss if group is None else group.all_reduce(loss)), new_rnn
+                                 **_whole_batch(x, data))
+            loss = _loss(share, *_gathered(out, y_true, bands))
+        return (loss if data is None else data.all_reduce(loss)), new_rnn
 
     return step
 

@@ -19,10 +19,15 @@ that it pickles into a spawned rank:
   (`loss_fu`), `"remat"`, `"lr"`, `"wd"`, `"tf32"` for
   cuDNN's and cuBLAS's TF32 switches (a spawned rank starts with PyTorch's
   defaults, cuDNN's TF32 on, whatever its parent set), `"deterministic"`
-  for their deterministic algorithms, and `"grouped"` False to run the
-  plain step of one process on this rank (without the group). Returns per step the loss, the gradients Adam took (after the
-  all-reduce), the kernel launches and this rank's rows of the carried
-  state; the state_dict after; and a digest of the parameters' bytes;
+  for their deterministic algorithms, `"grouped"` False to run the
+  plain step of one process on this rank (without the group), and
+  `"mesh"` (n_data, n_spatial) to run the steps on that mesh
+  (`tests/_spatial_runs.py::mesh_of`), each rank taking its videos and its
+  band of their rows. Returns per step the loss, the gradients Adam took
+  (after the all-reduce), the kernel launches and this rank's rows (and
+  band) of the carried state; the state_dict after; a digest of the
+  parameters' bytes; the rank's mesh coordinates (None without a mesh);
+  and on the card the peak of its allocated memory;
 - `train_videos(group, runs)`, for each run of the list: `Trainer.train`
   with `TrainConfig(**run["config"])` over the in-memory videos
   `run["videos"]` into `run["save_model_dir"]`, from `run["weights"]` (a
@@ -113,8 +118,15 @@ def train_steps(group: Optional[RankGroup], runs: List[Dict[str, Any]]) -> List[
 
 
 def _train_steps(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, Any]:
-    step_group = group if run.get("grouped", True) else None
+    from _spatial_runs import mesh_of  # it imports this module's functions by name
+
+    mesh = mesh_of(group, run["mesh"]) if group is not None and run.get("mesh") else None
+    if mesh is not None and not mesh.active:
+        return {"coords": None}
+    step_group = group if run.get("grouped", True) and mesh is None else None
     device = group.device if group is not None else torch.device(run.get("device", "cpu"))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     if "tf32" in run:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = run["tf32"]
     if run.get("deterministic"):
@@ -138,18 +150,28 @@ def _train_steps(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, A
                     "step": torch.tensor(float(adam["step"])),
                     "exp_avg": torch.as_tensor(adam["mu"][n]).to(device, dtype),
                     "exp_avg_sq": torch.as_tensor(adam["nu"][n]).to(device, dtype)}
-    loss_fn = _masked_loss(loss_fu, step_group) if run.get("loss") == "masked" else loss_fu
+    loss_group = step_group if mesh is None else mesh.data
+    loss_fn = _masked_loss(loss_fu, loss_group) if run.get("loss") == "masked" else loss_fu
     if run.get("eval"):
-        step = make_eval_step(model, loss_fn, step_group)
+        step = make_eval_step(model, loss_fn, step_group, mesh=mesh)
     else:
         state = create_train_state(model, optimizer)
         step = make_train_step(state, loss_fn, compute, remat=run.get("remat", False),
-                               group=step_group)
+                               group=step_group, mesh=mesh)
+
+    def mine(a, row_axis):
+        """This rank's rows of a whole batch, and its band on a mesh."""
+        if mesh is None:
+            return _rows(step_group, a)
+        return mesh.band(np.asarray(a)[mesh.videos(len(a))], row_axis)
+
     gauss, ob = (_tensor(p, device, dtype) for p in (run.get("gauss"), run.get("ob")))
-    rnn = _tensor(_rows(step_group, run["rnn"]), device, dtype)
-    out: Dict[str, List] = {"losses": [], "grads": [], "launches": [], "rnn": []}
+    rnn = _tensor(mine(run["rnn"], 1), device, dtype)
+    out: Dict[str, Any] = {"losses": [], "grads": [], "launches": [], "rnn": [],
+                           "coords": None if mesh is None else (mesh.data.rank,
+                                                                mesh.spatial.rank)}
     for x, y in run["clips"]:
-        x, y = (_tensor(_rows(step_group, a), device, dtype) for a in (x, y))
+        x, y = (_tensor(mine(a, 2), device, dtype) for a in (x, y))
         kernels.reset_launches()
         loss, rnn = step(x, gauss, ob, rnn, y)
         if device.type == "cuda":
@@ -162,6 +184,8 @@ def _train_steps(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, A
         rnn = rnn.to(dtype)
     out["after"] = {n: t.detach().double().cpu().numpy() for n, t in model.state_dict().items()}
     out["digest"] = param_digest(model)
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     return out
 
 

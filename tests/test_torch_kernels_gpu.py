@@ -296,6 +296,63 @@ def test_twa_kernel_is_shard_invariant(card, shape, dtype, atol):
     torch.testing.assert_close(ys.float(), ref.float(), atol=atol, rtol=0)
 
 
+def _halo(t, lo, hi, axis=1):
+    """Rows lo - 1 .. hi of t along `axis` (the band and a row each side),
+    zeros beyond the map: what a rank of a spatial mesh fetches."""
+    h = t.shape[axis]
+    parts = [t.narrow(axis, max(lo - 1, 0), min(hi + 1, h) - max(lo - 1, 0))]
+    edge = list(t.shape)
+    edge[axis] = 1
+    if lo == 0:
+        parts.insert(0, t.new_zeros(edge))
+    if hi == h:
+        parts.append(t.new_zeros(edge))
+    return torch.cat(parts, axis).contiguous()
+
+
+# the state's bands on a spatial mesh: 720x1280 over 2 ranks (the per-frame
+# kernel in bf16 too: W = 160), 360x640 over 3 (the persistent kernel in bf16)
+BAND_SCANS = {"720x1280_over_2": ((1, 3, 90, 160, 256), 2),
+              "360x640_over_3": ((1, 3, 45, 80, 256), 3)}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(BAND_SCANS))
+def test_twa_kernel_per_frame_on_bands_with_halo_rows(card, name, dtype, atol):
+    """K1 as the spatial scan runs it (`models/recurrent.py::ConvTWA._band`):
+    a frame at a time, on each band with a row of h_{s-1} each side (zeros
+    beyond the image) and zero rows of x and gx there, the band's rows kept;
+    the bands cut from a whole map in one process, against the plain scan
+    on the whole map, one launch per frame per band."""
+    shape, n = BAND_SCANS[name]
+    v, s, h, w, c = shape
+    x, gx, w_h, h0 = [torch.tensor(a, dtype=torch.float32).to(card, dtype)
+                      for a in _case(*shape)]
+    ref, ref_last = twa_scan_ref(x, gx, w_h, h0)
+    band = -(-h // n)
+    route = kernel_route((v, 1, band + 2, w, c), dtype)
+    kernels.reset_launches()
+    prev, ys = h0, []
+    for t in range(s):
+        rows = []
+        for lo in range(0, h, band):
+            hi = min(lo + band, h)
+            zero = x.new_zeros((v, 1, 1, w, c))
+            x_ext = torch.cat([zero, x[:, t:t + 1, lo:hi], zero], 2)
+            g_ext = torch.cat([zero, gx[:, t:t + 1, lo:hi], zero], 2)
+            y, _ = twa_scan(x_ext, g_ext, w_h, _halo(prev, lo, hi))
+            rows.append(y[:, 0, 1:hi - lo + 1])
+        prev = torch.cat(rows, 1)
+        ys.append(prev)
+    torch.cuda.synchronize()
+    got = torch.stack(ys, 1)
+    assert dict(kernels.launches) == {**_launches(route, 1), route: s * n}
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.equal(got[:, -1], prev) and torch.allclose(prev.float(), ref_last.float(),
+                                                            atol=atol, rtol=0)
+
+
 def test_twa_kernel_raises_on_what_it_does_not_take(card):
     """A CUDA tensor launches the kernel or raises; nothing falls back."""
     x, gx, w_h, h0 = [torch.zeros(s, device=card) for s in
@@ -360,6 +417,38 @@ def test_dwblock_kernel_matches_ref(card, name, dtype, atol):
     ref = dwblock_ref(*args, residual)
     assert out.shape == ref.shape and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+# (n, h, w, c, e, co), residual, bands: the flagship's STBlock width at
+# 720x1280 over 2 ranks, and a residual block over 3 uneven bands
+DW_BANDS = {"c256_720x1280_over_2": ((2, 90, 160, 256, 1536, 256), True, 2),
+            "residual_over_3": ((2, 13, 16, 64, 384, 64), True, 3)}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 0.0625)])
+@pytest.mark.parametrize("name", sorted(DW_BANDS))
+def test_dwblock_kernel_on_bands_with_halo_rows(card, name, dtype, atol):
+    """K2 as a DWBlock runs it on a spatial mesh (`ops/layers.py::
+    DWBlock._band`): each band with a real row of x each side (none beyond
+    the image, where the kernel's own padding of its expansion acts), the
+    band's rows kept; the bands cut from a whole map in one process,
+    against the plain version on the whole map, one launch per band."""
+    shape, residual, n = DW_BANDS[name]
+    args = [torch.tensor(a, dtype=torch.float32).to(card, dtype) for a in _dw_case(*shape)]
+    x, weights = args[0], args[1:]
+    h = x.shape[1]
+    band = -(-h // n)
+    kernels.reset_launches()
+    rows = []
+    for lo in range(0, h, band):
+        hi = min(lo + band, h)
+        start = max(lo - 1, 0)
+        out = fused_dwblock_kernel(x[:, start:min(hi + 1, h)].contiguous(), *weights, residual)
+        rows.append(out[:, lo - start:hi - start])
+    torch.cuda.synchronize()
+    assert kernels.launches["dwblock"] == n
+    ref = dwblock_ref(x, *weights, residual)
+    torch.testing.assert_close(torch.cat(rows, 1).float(), ref.float(), atol=atol, rtol=0)
 
 
 def test_dwblock_layout_constants_are_the_kernels(card):

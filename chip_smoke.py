@@ -234,6 +234,17 @@
    an f32 train step at 720x1280, S=5, on the same ranks against one
    process's at `TOL_TRAIN_*`; each rank's peak memory, the phase's
    seconds.
+9. The seq axis (`seq_phase`): two gloo ranks on this card, each holding
+   10 of each clip's 20 frames and the whole state, serve the flagship at
+   360x640 over 2 carried clips (`make_infer_step(mesh=)`, eager), bf16
+   K2 off and on and f32, their frames put back together against one
+   process's step: f32 within `TOL_F32` of the largest value, bf16 at
+   CC >= 0.999 per frame and within one uint8 level; each rank runs K1
+   once over its frames from the state the rank before hands it (the
+   persistent kernel once a clip in bf16, the per-frame kernel 10 times in
+   f32) and K2 once per admitted DWBlock call, exactly; an f32 train step
+   at S=10 on the same ranks against one process's at `TOL_TRAIN_*`; each
+   rank's peak memory and seconds, the phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel
 (`twa_scan`, `twa_step` for K1's per-frame kernel as the f32 paths launch
@@ -245,8 +256,9 @@ dwBlock on, and `config_launches`, its launches on each path of phase 3b,
 3c and 5b, under `recipe` those of 5c, under `lockstep` those of 5d,
 under `artifact` those of the three artifacts of 4b, under `dp` phase 7's
 per rank (serving: a replay's graph nodes; training: one step), under
-`planes128` phase 7's planes=128 paths per 3 clips and under `spatial`
-phase 8's per rank (serving: per clip; training: one step));
+`planes128` phase 7's planes=128 paths per 3 clips, under `spatial`
+phase 8's per rank (serving: per clip; training: one step) and under
+`seq` phase 9's per rank (likewise));
 the
 last line is `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line is printed. Needs no network and starts no process that
@@ -3370,6 +3382,8 @@ def main() -> None:
                            gauss, ob, first_clip, len(admitted), smi)
     # 8. the spatial axis
     spatial_launches = spatial_phase(torch, kernels, twa, weights, smi)
+    # 9. the seq axis
+    seq_launches = seq_phase(torch, kernels, twa, weights, smi)
 
     def by_config(kernel):
         """The kernel's launches on each path of each configuration of phase
@@ -3387,6 +3401,7 @@ def main() -> None:
         counts["planes128"] = {path[len("planes128 "):]: n[kernel]
                                for path, n in dp_launches.items() if path.startswith("planes128")}
         counts["spatial"] = {path: n[kernel] for path, n in spatial_launches.items()}
+        counts["seq"] = {path: n[kernel] for path, n in seq_launches.items()}
         return counts
 
     print(smi)
@@ -3809,6 +3824,137 @@ def spatial_phase(torch, kernels, twa, weights, smi):
     print(f"spatial f32 train step, one process: peak memory {one['peak_bytes'] / 2 ** 30:.2f} GiB")
     launches["train step f32, a rank"] = got[0]["launches"][0]
     print(f"phase 8 (the spatial axis) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+SEQ_RANKS = 2
+SEQ_CLIPS = 2      # carried clips of S frames served, S / SEQ_RANKS frames a rank
+SEQ_TRAIN_S = 10   # frames of the f32 train step, 5 a rank
+SEQ_TIMEOUT_S = 300
+CC_SEQ = 0.999     # bf16, the ranks' frames against one process's, Pearson CC per frame
+
+
+def seq_phase(torch, kernels, twa, weights, smi):
+    """9. Two gloo ranks on this card, a seq mesh of 2 (each rank 10 of a
+    clip's 20 frames, the state whole on both), serve the flagship at
+    360x640 (`make_infer_step(mesh=)`, eager: a graph cannot capture the
+    exchanges) over 2 carried clips of S=20, in bf16 with K2 off and on and
+    in f32 (TF32 off); their frames put back together against one
+    process's step on the same clips: f32 within TOL_F32 of the largest
+    value of the saliency and of the state, bf16 at CC >= CC_SEQ per frame
+    and within one uint8 level. Each rank runs K1 once over its frames from
+    the state the rank before hands it: the persistent kernel once a clip
+    in bf16, the per-frame kernel once a frame (10) in f32, and K2 once per
+    DWBlock call whose input its gate admits (counted by a hook on the
+    blocks); each rank's launches must be exactly these. Then an f32 train
+    step at 360x640, V=1, S=10 on the same two ranks against one process's,
+    at the bounds of an f32 run's drift (`TOL_TRAIN_*`), K1 once a frame a
+    rank. Prints each rank's peak memory and seconds, and the phase's
+    seconds; no scaling figure (the ranks share one card and wait for each
+    other's scan). Returns the launches of each path, per rank."""
+    from iip_uavsal_saliency_tpu_torch.data.priors import get_gauss_priors
+    from iip_uavsal_saliency_tpu_torch.parallel import spawn
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _dp_runs import train_steps  # shared with the tests
+    from _seq_runs import assemble_frames, assemble_state
+    from _spatial_runs import infer_clips, run_jobs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 19)  # its own: the other phases' draws stay as they were
+    gauss = get_gauss_priors(OUT_H, OUT_W, 8)
+    ob = rng.uniform(0.0, 1.0, (OUT_H, OUT_W, 20)).astype(np.float32)
+    video = synthetic_video(rng, SEQ_CLIPS * S, IN_H, IN_W)[None]
+    arrays = {k: v.numpy() for k, v in weights.items()}
+    mesh = (1, 1, SEQ_RANKS)
+    base = {"mesh": mesh, "weights": arrays, "x": video, "clips": SEQ_CLIPS,
+            "state": rng.normal(0.0, 0.5, (1, OUT_H, OUT_W, 256)).astype(np.float32),
+            "gauss": gauss, "ob": ob, "tf32": False}
+    paths = {"bf16 K2 off": dict(base, compute_dtype="bfloat16"),
+             "bf16 K2 on": dict(base, compute_dtype="bfloat16", model={"fused_dwblock": True}),
+             "f32": dict(base)}
+    gaze = rng.uniform(0.0, 1.0, (1, SEQ_TRAIN_S, OUT_H, OUT_W, 2)).astype(np.float32)
+    gaze[..., 1] = gaze[..., 1] < 0.01
+    gaze[:, :, OUT_H // 2, OUT_W // 2, 1] = 1.0
+    train = {"mesh": mesh, "model": {}, "weights": arrays, "tf32": False, "lr": TRAIN_LR,
+             "wd": TRAIN_WD, "clips": [(video[:, :SEQ_TRAIN_S], gaze)],
+             "rnn": rng.normal(0.0, 0.5, (1, OUT_H, OUT_W, 256)).astype(np.float32),
+             "gauss": gauss, "ob": ob}
+    t0 = time.perf_counter()
+    ranks = spawn(run_jobs, SEQ_RANKS, "gloo",
+                  ([("infer_clips", run) for run in paths.values()]
+                   + [("train_steps", [train])],), device_type="cuda",
+                  timeout_s=SEQ_TIMEOUT_S, deadline_s=SEQ_TIMEOUT_S)
+    print(f"seq: two gloo ranks on one card served and trained in "
+          f"{time.perf_counter() - t0:.1f} s (the processes' start, CUDA and the kernels' load "
+          "included)")
+    frames = S // SEQ_RANKS
+    launches = {}
+    for j, (path, run) in enumerate(paths.items()):
+        one = infer_clips(None, dict(run, mesh=None, device="cuda"))
+        got = [rank[j] for rank in ranks]
+        bf16 = bool(run.get("compute_dtype"))
+        k1 = {"twa_scan": 1, "twa_step": 0} if bf16 else {"twa_scan": 0, "twa_step": frames}
+        k2 = run.get("model", {}).get("fused_dwblock", False)
+        for k in range(SEQ_CLIPS):
+            for i, g in enumerate(got):
+                want = dict(k1, dwblock=g["admitted"][k] if k2 else 0)
+                if g["launches"][k] != want or g["admitted"][k] != one["admitted"][k]:
+                    fail(f"seq {path}, clip {k}, rank {i}: launched {g['launches'][k]} "
+                         f"({g['admitted'][k]} DWBlock calls admitted, one process "
+                         f"{one['admitted'][k]}), expected {want}")
+            sal, state = assemble_frames(got, "saliency", k), assemble_state(got, "state", k)
+            ref_sal, ref_state = one["saliency"][k], one["state"][k]
+            if not bf16:
+                errs = [np.abs(a - b).max() / np.abs(b).max()
+                        for a, b in ((sal, ref_sal), (state, ref_state))]
+                print(f"seq {path}, clip {k}: two ranks' frames against one process: "
+                      f"saliency {errs[0]:.3g}, state {errs[1]:.3g} of the largest value "
+                      f"(tolerance {TOL_F32})")
+                if not max(errs) <= TOL_F32:
+                    fail(f"seq {path}, clip {k}: {errs} above {TOL_F32}")
+            else:
+                a, b = (torch.from_numpy(m[0, :, :, :, 0]) for m in (sal, ref_sal))
+                cc = frame_cc(torch, a, b)
+                u8 = np.abs(np.rint(sal * 255) - np.rint(ref_sal * 255)).max()
+                print(f"seq {path}, clip {k}: two ranks' frames against one process: CC per "
+                      f"frame min {cc.min().item():.6f}, largest uint8 difference {u8:.0f}, "
+                      f"state max abs diff {np.abs(state - ref_state).max():.3g}, saliency "
+                      f"{'bit for bit' if np.array_equal(sal, ref_sal) else 'not bit for bit'}")
+                if not (cc.min().item() >= CC_SEQ and u8 <= 1):
+                    fail(f"seq {path}, clip {k}: min CC {cc.min().item()} < {CC_SEQ} or uint8 "
+                         f"difference {u8} > 1")
+        for i, g in enumerate(got):
+            print(f"seq {path}, rank {i}: launches per clip {g['launches'][0]}, "
+                  f"{g['seconds']:.3f} s for {SEQ_CLIPS} clips, peak memory "
+                  f"{g['peak_bytes'] / 2 ** 30:.2f} GiB")
+        print(f"seq {path}, one process: {one['seconds']:.3f} s for {SEQ_CLIPS} clips, peak "
+              f"memory {one['peak_bytes'] / 2 ** 30:.2f} GiB ({smi})")
+        launches[f"serve {path}, a rank, per clip"] = got[0]["launches"][0]
+
+    # the f32 train step
+    one, = train_steps(None, [dict(train, mesh=None, device="cuda")])
+    got = [rank[-1][0] for rank in ranks]
+
+    def as_step(r, state):
+        return (r["losses"][0], {n: torch.from_numpy(a) for n, a in r["grads"][0].items()},
+                {n: torch.from_numpy(a) for n, a in r["after"].items() if "running" in n},
+                torch.from_numpy(state), r["launches"][0])
+
+    held_train("seq f32 train step, two ranks' frames against one process",
+               train_diffs(as_step(one, one["rnn"][0]), as_step(got[0],
+                                                                 assemble_state(got, "rnn", 0))),
+               TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_GRAD_LEAF, TOL_TRAIN_BN, TOL_TRAIN_STATE)
+    want = {"twa_scan": 0, "twa_step": SEQ_TRAIN_S // SEQ_RANKS, "dwblock": 0}
+    for i, g in enumerate(got):
+        print(f"seq f32 train step, rank {i}: loss {g['losses'][0]:.6f}, launches "
+              f"{g['launches'][0]}, peak memory {g['peak_bytes'] / 2 ** 30:.2f} GiB")
+        if g["launches"][0] != want:
+            fail(f"seq f32 train step, rank {i}: launched {g['launches'][0]}, expected {want}")
+    if got[0]["digest"] != got[1]["digest"]:
+        fail("seq f32 train step: the two ranks' parameters differ after the step")
+    print(f"seq f32 train step, one process: peak memory {one['peak_bytes'] / 2 ** 30:.2f} GiB")
+    launches["train step f32, a rank"] = got[0]["launches"][0]
+    print(f"phase 9 (the seq axis) took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

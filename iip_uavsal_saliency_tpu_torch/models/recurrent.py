@@ -21,10 +21,18 @@ h_{s-1} each side from the neighbours' bands: K1 (through `twa_scan`, which
 picks its kernel) runs on the band with those rows (zeros beyond the image,
 the gate conv's own padding) and with zero rows of x and gx there, whose
 outputs are dropped.
+
+On a seq mesh (`parallel.seq.over`) ConvTWA takes this rank's run of each
+clip's frames: the input half's conv runs on them, then the rank waits for
+h from the rank before (the carried state on the first rank), runs the scan
+once over its frames (`twa_scan`: K1's persistent kernel once, or its
+per-frame kernel once a frame, from that h) and hands its last h on
+(`parallel.seq.hand_state`); the clip's new state is the last rank's.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -33,6 +41,7 @@ from torch import nn
 
 from ..ops.layers import DWBlock, laid_out_as
 from ..ops.twa import kernel_route, pack_twa_weights, pack_twa_weights_bf16, twa_scan
+from ..parallel import seq as seq_axis
 from ..parallel import spatial
 
 
@@ -141,12 +150,16 @@ class ConvTWA(nn.Module):
         frames = x.reshape(v * s, h, w, c).permute(0, 3, 1, 2)
         gx = F.conv2d(frames, w_x, padding=1).permute(0, 2, 3, 1)
         gx = gx.contiguous().reshape(v, s, h, w, c)
-        if self.scan is not None:
-            return self.scan(x.contiguous(), gx, w_h, state)
-        packed = None
-        if _packs(w_h) and kernel_route(x.shape, x.dtype) == "twa_step":
-            packed = self.packed_weight(x.dtype)
-        return twa_scan(x.contiguous(), gx, w_h, state, packed=packed)
+        x = x.contiguous()
+        scan = self.scan
+        if scan is None:
+            packed = None
+            if _packs(w_h) and kernel_route(x.shape, x.dtype) == "twa_step":
+                packed = self.packed_weight(x.dtype)
+            scan = functools.partial(twa_scan, packed=packed)
+        if seq_axis.current() is not None:
+            return seq_axis.hand_state(lambda *args: scan(*args)[0], x, gx, w_h, state)
+        return scan(x, gx, w_h, state)
 
     def _band(self, x: torch.Tensor, state: torch.Tensor,
               height: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,6 +15,12 @@ On a spatial mesh the 2-D blocks and their branches take `height`, the
 rows of the map whose band they hold, for their DWBlocks
 (`ops/layers.py`); the frame differences are per pixel and run on the band
 as they are. The 3-D blocks have no band form (ROADMAP A.13.1b).
+
+On a seq mesh (`parallel.seq.over`) each rank holds a run of each video's
+frames: the frame differences take a frame each side from the
+neighbouring ranks (`parallel.seq.halo_frames`), and the edge mirror holds
+at the clip's first and last frame alone. The 3-D blocks have no seq form
+(ROADMAP A.13.2b).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.layers import ConvBNAct, ConvBNAct3D, DWBlock, laid_out_as
+from ..parallel import seq as seq_axis
 
 
 def temporal_differences(x: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
@@ -32,15 +39,25 @@ def temporal_differences(x: torch.Tensor, group: Optional[int] = None) -> torch.
     [x_i - x_{i-1}, x_i - x_{i+1}], edges mirrored: with d_i = x_{i+1} - x_i,
     chanA = [d_0, d_0, ..., d_{S-2}] and chanB = -[d_0, ..., d_{S-2}, d_{S-2}].
     With `group`, each run of `group` consecutive frames is its own sequence.
-    The result lies in memory as x does (channels-last on the card)."""
+    The result lies in memory as x does (channels-last on the card).
+
+    On a seq mesh each run of `group` frames is this rank's part of a
+    video's clip: the frames beside it come from the neighbouring ranks,
+    and d_0 and d_{S-2} are the clip's (the first and the last rank's)."""
     s = x.shape[0]
     g = group if group is not None else s
     if s % g:
         raise ValueError(f"{s} frames do not split into groups of {g}")
     seq = x.reshape(s // g, g, *x.shape[1:])
-    d = seq[:, 1:] - seq[:, :-1]
-    chan_a = torch.cat([d[:, :1], d], dim=1)
-    chan_b = -torch.cat([d, d[:, -1:]], dim=1)
+    before, after = seq_axis.halo_frames(seq)  # (V, 0, ...) at the clip's ends and off a seq mesh
+    nb = before.shape[1]
+    ext = torch.cat([before, seq, after], dim=1) if nb or after.shape[1] else seq
+    d = ext[:, 1:] - ext[:, :-1]  # d[j] is the clip's d at this rank's frame j - nb
+    chan_a = d[:, :g] if nb else torch.cat([d[:, :1], d[:, :g - 1]], dim=1)
+    if after.shape[1]:
+        chan_b = -d[:, nb:nb + g]
+    else:  # the clip's last frame takes d_{S-2}
+        chan_b = -torch.cat([d[:, nb:nb + g - 1], d[:, nb + g - 2:nb + g - 1]], dim=1)
     out = torch.cat([chan_a, chan_b], dim=2).reshape(s, 2 * x.shape[1], *x.shape[2:])
     return laid_out_as(out, x)
 

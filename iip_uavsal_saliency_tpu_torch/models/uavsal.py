@@ -40,10 +40,20 @@ saliency and of the new state: every layer runs on its band
 keeps its bands down to H/32 and is resized back to the band, and the TWA
 scan fetches a row of h_{s-1} each side each frame (`models/recurrent.py`).
 The other classes of the zoo have no band form (ROADMAP A.13.1b).
+
+On a seq mesh (`parallel.seq.over(axis)`) UAVSal takes this rank's run of
+each clip's frames (`Mesh.frames`) and the whole carried state, and
+returns its frames of the saliency and the clip's new state: the per-frame
+layers run on its frames, the frame differences fetch a frame each side
+(`models/stblock.py`), the context stream sums the whole clip's groups,
+and the TWA scan runs on its frames from the state the rank before hands
+it (`models/recurrent.py`). UAVSalLSTM and the zoo have no seq form
+(ROADMAP A.13.2b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Sequence, Tuple
 
@@ -53,7 +63,9 @@ from torch import nn
 from ..ops.initializers import kaiming_normal_, lecun_normal_, xavier_uniform_
 from ..ops.layers import BatchNorm, DWBlock, laid_out_as
 from ..ops.resize import resize_bilinear_align_corners
+from ..parallel import seq as seq_axis
 from ..parallel import spatial
+from ..parallel.mesh import batch_over
 from .recurrent import ConvLSTM, ConvTWA
 from .srfnet import SRFNet
 from .stblock import ST_TYPES, STC23D, STC3D, STBlock, TeConvSub
@@ -148,7 +160,7 @@ class _Zoo(nn.Module):
 
     def multi_priors(self, x: torch.Tensor, gauss_prior: Optional[torch.Tensor],
                      ob_prior: Optional[torch.Tensor], compat_cxt_tile: bool,
-                     height: Optional[int] = None) -> torch.Tensor:
+                     height: Optional[int] = None, frames: Optional[int] = None) -> torch.Tensor:
         """MP-Net prior fusion over (S, C, Ho, Wo) trunk features, with the
         streams `bias_type` switches on; with none, x as it is.
 
@@ -163,7 +175,18 @@ class _Zoo(nn.Module):
         it would mix context across videos.
 
         On a spatial mesh x is a band of a map of `height` rows: the priors
-        are cut to it and every stream keeps its bands."""
+        are cut to it and every stream keeps its bands.
+
+        x holds `frames` frames of each video (None: all its rows are one
+        video's); on a seq mesh, this rank's run of each clip. The
+        context stream sums each group of the whole clip, which may lie
+        across ranks (`parallel.seq.gather_groups`), and every rank of the
+        seq axis runs the context's convs on all G groups: their train-mode
+        BatchNorms reduce over the data axis alone, where each group is
+        held once. The tile takes the rows of this rank's frames, frame i of
+        the clip the context of group i mod G (t-major) or i // t. The
+        prior streams and `fucb` run on the rank's own rows, which every
+        rank of the mesh counts once."""
         use_gauss, use_ob, use_cxt = self.bias_type
         if not (use_gauss or use_ob or use_cxt):
             return x
@@ -171,6 +194,7 @@ class _Zoo(nn.Module):
         t = self.time_dims
         axis = spatial.current()
         band = None if axis is None else spatial.owned(height, axis.world, axis.rank)
+        on_seq = seq_axis.current() is not None
 
         def stream(prior, layers):
             if band is not None:
@@ -182,8 +206,15 @@ class _Zoo(nn.Module):
                 p = layer(p, height=height)
             return p
 
+        frames = s if frames is None else frames
+        first, clip = seq_axis.segment(frames)  # (0, frames) off a seq mesh
+
         def tile(p):
-            return p.repeat(t, 1, 1, 1) if compat_cxt_tile else p.repeat_interleave(t, dim=0)
+            """(V * G, ...) per-group rows -> the rows of x's frames: frame i
+            of the clip takes group i mod G (t-major) or i // t."""
+            p = p.reshape(-1, clip // t, *p.shape[1:])
+            p = p.repeat(1, t, 1, 1, 1) if compat_cxt_tile else p.repeat_interleave(t, dim=1)
+            return p[:, first:first + frames].reshape(-1, *p.shape[2:])
 
         streams = []
         if use_gauss:
@@ -191,18 +222,20 @@ class _Zoo(nn.Module):
         if use_ob:
             streams.append(stream(ob_prior, self.ob_cb_layer))
         if use_cxt:
-            cxt = x.reshape(s // t, t, c, ho, wo).sum(dim=1)
+            cxt = seq_axis.gather_groups(x, t, frames)
             hc = height
-            for layer in self.cxt_cb_prior:
-                cxt = layer(cxt, height=hc)
-                hc = None if hc is None else layer.out_height(hc)
+            # on a seq mesh every seq rank holds all G rows: reduced over the data axis
+            with batch_over(seq_axis.data()) if on_seq else contextlib.nullcontext():
+                for layer in self.cxt_cb_prior:
+                    cxt = layer(cxt, height=hc)
+                    hc = None if hc is None else layer.out_height(hc)
             cxt = resize_bilinear_align_corners(cxt, ho if height is None else height, wo,
                                                 height=hc)
             streams.append(tile(cxt) if self.training else cxt)
-        rows = s if self.training else (s // t if use_cxt else 1)
+        rows = s if self.training else (cxt.shape[0] if use_cxt else 1)
         cb = torch.cat([p.expand(rows, *p.shape[1:]) for p in streams], dim=1)
         x_cb = self.fucb_layer[0](laid_out_as(cb, x), height=height)
-        if rows != s:
+        if not self.training:
             x_cb = tile(x_cb) if use_cxt else x_cb.expand(s, -1, -1, -1)
         return self.fucbst_layer[0](torch.cat([x, laid_out_as(x_cb, x)], dim=1), height=height)
 
@@ -225,8 +258,9 @@ class _Stateful(_Zoo):
     `videos` (the JAX step's jit sees the whole batch), else x's own, as a
     serving rank's (its `shard_map` runs each device's program on its
     shard). On a spatial mesh x and the state are this rank's bands of
-    rows, which hold equal shares of the image's rows and of the state's
-    (module docstring)."""
+    rows, which hold equal shares of the image's rows and of the state's;
+    on a seq mesh x is this rank's run of S frames of a clip of S times
+    the axis's ranks, and the state is whole (module docstring)."""
 
     compat_cxt_tile = True
 
@@ -234,7 +268,9 @@ class _Stateful(_Zoo):
                 ob_prior: Optional[torch.Tensor], state: torch.Tensor,
                 videos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         v, s, h, w, c = x.shape
-        self._check_clip(s)
+        if seq_axis.current() is not None:
+            seq_axis.check_model(self)
+        self._check_clip(seq_axis.segment(s)[1])  # x holds s of each video's clip
         videos = v if videos is None else videos
         axis = spatial.current()
         height = out_height = None
@@ -247,10 +283,10 @@ class _Stateful(_Zoo):
             height, out_height = h * axis.world, h * axis.world // 8
             band = {"height": out_height}
         feats = self.trunk(_frames_nchw(x.reshape(v * s, h, w, c)),
-                           diff_group=s if videos > 1 else None, height=height)
+                           diff_group=s, height=height)
         feats = self.multi_priors(feats, gauss_prior, ob_prior,
                                   compat_cxt_tile=self.compat_cxt_tile and videos == 1,
-                                  height=out_height)
+                                  height=out_height, frames=s)
         ho, wo = feats.shape[-2], feats.shape[-1]
         seq = feats.permute(0, 2, 3, 1).reshape(v, s, ho, wo, self.planes)
         ys, new_state = self.rnn(seq, state, **band)

@@ -15,14 +15,15 @@ group:
   `P("data")` places them (rank r holds rows r*V/N ... (r+1)*V/N - 1);
 - the collectives the port runs over it (`all_reduce`, `all_gather`,
   `broadcast_object`, `barrier`, and `rank0_first`);
-- `make_mesh(group, n_data, n_spatial)` lays the ranks out as the JAX
-  `make_mesh` lays devices out (`devices[:n].reshape(n_data, n_spatial,
-  n_seq, n_model)`: rank d * n_spatial + s holds data coordinate d and
-  spatial coordinate s) and gives each rank a `Mesh`: an `Axis` per mesh
-  axis (its index along it, the axis's ranks and a `torch.distributed`
-  subgroup over them) and one over every rank of the mesh (train-mode
-  BatchNorm and the gradients). The `seq` and `model` axes are not ported
-  (ROADMAP A.13.2, A.13.3).
+- `make_mesh(group, n_data, n_spatial, n_seq)` lays the ranks out as the
+  JAX `make_mesh` lays devices out (`devices[:n].reshape(n_data, n_spatial,
+  n_seq, n_model)`: rank (d * n_spatial + s) * n_seq + q holds data
+  coordinate d, spatial coordinate s and seq coordinate q) and gives each
+  rank a `Mesh`: an `Axis` per mesh axis (its index along it, the axis's
+  ranks and a `torch.distributed` subgroup over them) and one over every
+  rank of the mesh (train-mode BatchNorm and the gradients). The `model`
+  axis is not ported (ROADMAP A.13.3), nor a mesh with both a spatial and a
+  seq axis (A.13.2b).
 
 The backend is the caller's choice and is never replaced by another:
 "nccl" when every rank has a card of its own (`--dp_devices N`), "gloo" on
@@ -313,19 +314,38 @@ class Axis:
         dist.all_gather(out, staged, group=self.pg)
         return torch.stack(out).to(t.device)
 
+    def exchange(self, sends, recvs) -> None:
+        """Point to point: `sends` and `recvs` are (index on the axis,
+        tensor) pairs, the tensors where this backend moves them (`staged`);
+        every send is matched by the peer's recv of the same shape."""
+        ops = [dist.P2POp(dist.isend, t, self.peer(p), self.pg) for p, t in sends]
+        ops += [dist.P2POp(dist.irecv, t, self.peer(p), self.pg) for p, t in recvs]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+    def broadcast(self, t: torch.Tensor, index: int) -> torch.Tensor:
+        """The t of the rank at `index` along the axis, as a new tensor on
+        t's device on every rank (t of the same shape and dtype on each)."""
+        staged = self.staged(t).clone()
+        if self.world > 1:
+            dist.broadcast(staged, self.peer(index), group=self.pg)
+        return staged.to(t.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A rank's place in a ('data', 'spatial', 'seq', 'model') mesh
     (`make_mesh`): `shape` holds each axis's size, `group` the rank's
-    `RankGroup`; `data` and `spatial` are its axes and `everyone` the axis
-    of every rank of the mesh, all three None on a rank the mesh leaves
-    idle."""
+    `RankGroup`; `data`, `spatial` and `seq` are its axes and `everyone`
+    the axis of every rank of the mesh, all four None on a rank the mesh
+    leaves idle."""
 
     shape: Dict[str, int]
     group: RankGroup
     data: Optional[Axis]
     spatial: Optional[Axis]
+    seq: Optional[Axis]
     everyone: Optional[Axis]
 
     @property
@@ -339,6 +359,10 @@ class Mesh:
     @property
     def n_spatial(self) -> int:
         return self.shape["spatial"]
+
+    @property
+    def n_seq(self) -> int:
+        return self.shape["seq"]
 
     def videos(self, v: int) -> slice:
         """This rank's rows of a batch of V videos over the data axis."""
@@ -362,6 +386,20 @@ class Mesh:
         index[dim] = slice(self.spatial.rank * n, (self.spatial.rank + 1) * n)
         return a[tuple(index)]
 
+    def frames(self, a, dim: int):
+        """This rank's frames of the whole array or tensor `a` along `dim`,
+        as `P("seq")` places them at a step's boundary: equal runs of
+        consecutive frames in seq order, and a ValueError where the frames
+        do not split evenly (what the JAX step's jit raises)."""
+        self.check_active()
+        n_frames = a.shape[dim]
+        if n_frames % self.n_seq:
+            raise ValueError(f"{n_frames} frames do not split over {self.n_seq} seq ranks")
+        n = n_frames // self.n_seq
+        index = [slice(None)] * len(a.shape)
+        index[dim] = slice(self.seq.rank * n, (self.seq.rank + 1) * n)
+        return a[tuple(index)]
+
     def check_active(self) -> None:
         if not self.active:
             raise ValueError(f"rank {self.group.rank} is idle in this {self.shape} mesh")
@@ -374,18 +412,21 @@ def make_mesh(group: RankGroup, n_data: Optional[int] = None, n_spatial: int = 1
     must call it, with the same arguments, as it creates the axes' groups).
     `n_data` None takes every rank the other axes leave. Too few ranks
     raise ValueError; ranks left over are idle (a warning, and a mesh whose
-    axes are None). The `seq` and `model` axes are not ported."""
-    if n_seq > 1:
-        raise NotImplementedError("the mesh's seq axis is not ported (ROADMAP A.13.2)")
+    axes are None). The `model` axis, and a spatial axis beside a seq axis,
+    are not ported."""
     if n_model > 1:
         raise NotImplementedError("the mesh's model axis is not ported (ROADMAP A.13.3)")
+    if n_spatial > 1 and n_seq > 1:
+        raise NotImplementedError("a mesh with both a spatial and a seq axis is not ported "
+                                  "(ROADMAP A.13.2b)")
     world = group.world
+    per_shard = n_spatial * n_seq * n_model
     if n_data is None:
-        n_data = world // n_spatial
-    if n_data < 1 or n_spatial < 1:
-        raise ValueError(f"mesh needs n_spatial*n_seq*n_model = {n_spatial * n_seq * n_model} "
+        n_data = world // per_shard
+    if n_data < 1 or n_spatial < 1 or n_seq < 1:
+        raise ValueError(f"mesh needs n_spatial*n_seq*n_model = {per_shard} "
                          f"ranks per data shard, have {world}")
-    n = n_data * n_spatial
+    n = n_data * per_shard
     if n > world:
         raise ValueError(f"mesh {n_data}x{n_spatial}x{n_seq}x{n_model} needs {n} ranks, "
                          f"have {world}")
@@ -405,9 +446,16 @@ def make_mesh(group: RankGroup, n_data: Optional[int] = None, n_spatial: int = 1
             return None
         return Axis(ranks.index(group.rank), len(ranks), ranks, group.backend, group.device, pg)
 
-    data = [axis_of(range(s, n, n_spatial)) for s in range(n_spatial)]
-    spatial = [axis_of(range(d * n_spatial, (d + 1) * n_spatial)) for d in range(n_data)]
+    def rank(d: int, s: int, q: int) -> int:
+        return (d * n_spatial + s) * n_seq + q
+
+    data = [axis_of([rank(d, s, q) for d in range(n_data)])
+            for s in range(n_spatial) for q in range(n_seq)]
+    spatial = [axis_of([rank(d, s, q) for s in range(n_spatial)])
+               for d in range(n_data) for q in range(n_seq)]
+    seq = [axis_of([rank(d, s, q) for q in range(n_seq)])
+           for d in range(n_data) for s in range(n_spatial)]
     everyone = axis_of(range(n))
     mine = (lambda axes: next((a for a in axes if a is not None), None))
     shape = {"data": n_data, "spatial": n_spatial, "seq": n_seq, "model": n_model}
-    return Mesh(shape, group, mine(data), mine(spatial), everyone)
+    return Mesh(shape, group, mine(data), mine(spatial), mine(seq), everyone)

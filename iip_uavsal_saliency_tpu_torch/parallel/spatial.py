@@ -36,7 +36,6 @@ import contextlib
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from .mesh import Axis
 
@@ -126,16 +125,6 @@ def _zeros_like_rows(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return x.new_zeros(shape)
 
 
-def _exchange(axis: Axis, sends, recvs) -> None:
-    """Point-to-point: `sends` and `recvs` are (index on the axis, tensor)
-    pairs; every send is matched by the peer's recv of the same shape."""
-    ops = [dist.P2POp(dist.isend, t, axis.peer(p), axis.pg) for p, t in sends]
-    ops += [dist.P2POp(dist.irecv, t, axis.peer(p), axis.pg) for p, t in recvs]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-
-
 def _whole(axis: Axis, x: torch.Tensor, height: int, dim: int) -> torch.Tensor:
     """Every rank's band, gathered into the whole map (bands padded to
     ceil(height / n) rows for the gather)."""
@@ -183,7 +172,7 @@ class _Rows(torch.autograd.Function):
                     buf = axis.staged(x.new_empty(shape))
                     recvs.append((p, buf))
                     parts.append(buf)
-            _exchange(axis, sends, recvs)
+            axis.exchange(sends, recvs)
             parts = [t.to(x.device) for t in parts]
         top = max(0, min(0, hi) - lo) if hi > lo else 0
         bottom = max(0, hi - max(height, lo)) if hi > lo else 0
@@ -221,7 +210,7 @@ class _Rows(torch.autograd.Function):
                 shape = list(grad.shape)
                 shape[dim] = b - a
                 recvs.append((q, (a, axis.staged(grad.new_empty(shape)))))
-        _exchange(axis, sends, [(q, buf) for q, (_, buf) in recvs])
+        axis.exchange(sends, [(q, buf) for q, (_, buf) in recvs])
         for _, (a, buf) in recvs:
             out.narrow(dim, a - band[0], buf.shape[dim]).add_(buf.to(out.device))
         return out, None, None, None, None

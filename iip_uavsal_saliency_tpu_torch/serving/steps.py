@@ -19,7 +19,7 @@ from torch import nn
 from .. import kernels
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import DWBlock, to_channels_last
-from ..parallel import spatial
+from ..parallel import seq, spatial
 from ..parallel.mesh import Mesh
 
 Step = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -64,6 +64,11 @@ def spatial_mesh(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.n_spatial > 1
 
 
+def seq_mesh(mesh: Optional[Mesh]) -> bool:
+    """Whether `mesh` splits a clip's frames (a seq axis of more than one)."""
+    return mesh is not None and mesh.n_seq > 1
+
+
 def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
                     ob: Optional[torch.Tensor] = None,
                     compute_dtype: Optional[torch.dtype] = None,
@@ -78,15 +83,21 @@ def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
     With `mesh`, x and the state are this rank's videos (`Mesh.videos`)
     and, on a spatial axis, its band of their rows (`Mesh.band`: x's H and
     the state's H/8 rows split evenly), and so are the saliency and the
-    state it returns; the priors are whole. On a spatial axis the model
+    state it returns; the priors are whole. On a seq axis x is this rank's
+    run of each clip's frames (`Mesh.frames`: S splits evenly) and so is
+    the saliency; the state it takes and returns is the whole clip's, the
+    same on every rank of the axis. On a spatial or a seq axis the model
     sees the whole batch's V (as the JAX step's jit over the mesh does) and
-    must be UAVSal on MobileNetV2; on a data axis alone each rank serves
-    its videos by themselves (the JAX step's `shard_map`)."""
+    must be UAVSal (on MobileNetV2 for a spatial axis); on a data axis
+    alone each rank serves its videos by themselves (the JAX step's
+    `shard_map`)."""
     device = _model_device(model)
     if mesh is not None:
         mesh.check_active()
     if spatial_mesh(mesh):
         spatial.check_model(model)
+    if seq_mesh(mesh):
+        seq.check_model(model)
     model.eval().requires_grad_(False)
     if compute_dtype is not None:
         model.to(compute_dtype)
@@ -94,18 +105,18 @@ def make_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None,
     fn = build_infer_fn(model, compute_dtype)
     gauss, ob = (None if p is None else torch.as_tensor(p).to(device) for p in (gauss, ob))
 
-    if not spatial_mesh(mesh):
+    if not (spatial_mesh(mesh) or seq_mesh(mesh)):
         def step(x, state):
             return fn(x, gauss, ob, state)
 
         return step
 
-    def banded(x, state):
-        with spatial.over(mesh.spatial):
+    def split(x, state):
+        with spatial.over(mesh.spatial), seq.over(mesh.seq, mesh.data):
             return fn(x, gauss, ob, state, videos=x.shape[0] * mesh.n_data)
 
-    banded.mesh = mesh  # what `graph_step` refuses
-    return banded
+    split.mesh = mesh  # what `graph_step` refuses
+    return split
 
 
 class BakedStep(nn.Module):
@@ -166,11 +177,11 @@ def make_baked_infer_step(model: nn.Module, gauss: Optional[torch.Tensor] = None
     arguments (which takes `model` over) served under
     `torch.inference_mode()`. A mesh with a data axis alone serves each
     rank's videos by themselves (the JAX baked step's `shard_map`); a
-    spatial axis raises ValueError, as the JAX baked step refuses any axis
-    but `data` (use `make_infer_step`)."""
-    if spatial_mesh(mesh):
+    spatial or a seq axis raises ValueError, as the JAX baked step refuses
+    any axis but `data` (use `make_infer_step`)."""
+    if spatial_mesh(mesh) or seq_mesh(mesh):
         raise ValueError(f"make_baked_infer_step wants a pure-'data' mesh (got {mesh.shape}); "
-                         "a spatial mesh serves through make_infer_step")
+                         "a spatial or seq mesh serves through make_infer_step")
     baked = bake_model(model, gauss, ob, compute_dtype)
 
     def step(x, state):
@@ -278,9 +289,10 @@ class GraphedStep:
 def graph_step(step: Step) -> GraphedStep:
     """`step` served by CUDA-graph replay (`GraphedStep`); a step that is
     already graphed is returned as it is, so that its captures are kept. A
-    step on a spatial mesh raises ValueError: its exchanges between
+    step on a spatial or a seq mesh raises ValueError: its exchanges between
     processes cannot be captured."""
-    if spatial_mesh(getattr(step, "mesh", None)):
-        raise ValueError("a step on a spatial mesh cannot be graphed: its row exchanges run "
+    mesh = getattr(step, "mesh", None)
+    if spatial_mesh(mesh) or seq_mesh(mesh):
+        raise ValueError("a step on a spatial or seq mesh cannot be graphed: its exchanges run "
                          "between processes, outside any CUDA graph")
     return step if isinstance(step, GraphedStep) else GraphedStep(step)

@@ -49,15 +49,22 @@ count of pixels; the saliency and y are gathered over the spatial axis
 before the loss, whose share is the data axis's (each spatial rank computes
 the same loss, and its backward carries its band's part of it); the
 gradients are summed over the whole mesh and the loss reported is summed
-over the data axis alone. The `seq` and `model` axes are not ported
-(ROADMAP A.13.2, A.13.3).
+over the data axis alone. On a data x seq mesh each rank holds its videos
+and its run of their frames (`Mesh.frames`, x's and y's; the carried state
+is whole on every rank of the seq axis, and the new one comes back so):
+the forward runs on its frames (`parallel/seq.py`), its train-mode
+BatchNorms reduce over every rank of the mesh, the loss's terms are per
+frame, so each rank's share is the mean over its frames divided by the
+mesh's ranks (no map is gathered), and the gradients and the loss are
+summed over the whole mesh. The `model` axis is not ported (ROADMAP
+A.13.3).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -65,8 +72,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.letterbox import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.layers import running_stats_held
-from ..parallel import spatial
-from ..parallel.mesh import Mesh, RankGroup, batch_over
+from ..parallel import seq, spatial
+from ..parallel.mesh import Axis, Mesh, RankGroup, batch_over
 from .losses import loss_fu
 
 
@@ -135,18 +142,40 @@ def rank_share(loss_fn: Callable, group: Optional[RankGroup]) -> Callable:
     return share
 
 
-def _axes(group: Optional[RankGroup], mesh: Optional[Mesh]):
-    """(the group whose ranks share the loss, the group of every rank the
-    BatchNorms and the gradients reduce over, the spatial axis or None) of
-    a step made with `group` or with `mesh`."""
+class _Axes(NamedTuple):
+    """The groups a step made with a group or a mesh runs over."""
+    share: Optional[RankGroup]     # the ranks whose shares sum to the loss
+    everyone: Optional[RankGroup]  # what the BatchNorms and the gradients reduce over
+    data: Optional[RankGroup]      # the ranks whose videos make up the batch
+    bands: Optional[Axis] = None   # the spatial axis
+    frames: Optional[Axis] = None  # the seq axis
+
+
+def _axes(group: Optional[RankGroup], mesh: Optional[Mesh]) -> _Axes:
+    """The groups of a step made with `group` or with `mesh`."""
     if mesh is None:
-        return group, group, None
+        return _Axes(group, group, group)
     if group is not None:
         raise ValueError("a step takes a group or a mesh, not both")
     mesh.check_active()
-    if mesh.n_spatial == 1:
-        return mesh.data, mesh.everyone, None
-    return mesh.data, mesh.everyone, mesh.spatial
+    if mesh.n_seq > 1:  # each rank's frames are its share of the loss
+        return _Axes(mesh.everyone, mesh.everyone, mesh.data, frames=mesh.seq)
+    return _Axes(mesh.data, mesh.everyone, mesh.data,
+                 bands=mesh.spatial if mesh.n_spatial > 1 else None)
+
+
+def _check_model(model: nn.Module, axes: _Axes) -> None:
+    if axes.bands is not None:
+        spatial.check_model(model)
+    if axes.frames is not None:
+        seq.check_model(model)
+
+
+@contextlib.contextmanager
+def _split(axes: _Axes):
+    """The model's forward over the batch that `axes` split."""
+    with batch_over(axes.everyone), spatial.over(axes.bands), seq.over(axes.frames, axes.data):
+        yield
 
 
 def _gathered(out, y_true, axis):
@@ -157,11 +186,11 @@ def _gathered(out, y_true, axis):
     return (spatial.gather_rows(t, t.shape[2] * axis.world, 2, axis) for t in (out, y_true))
 
 
-def _whole_batch(x: torch.Tensor, group: Optional[RankGroup]) -> dict:
+def _whole_batch(x: torch.Tensor, axes: _Axes) -> dict:
     """The model's `videos` keyword where x is this rank's rows of the
     whole batch: the V the model's context tile and temporal-difference
     bound read (the JAX step's jit sees the whole batch)."""
-    return {} if group is None else {"videos": x.shape[0] * group.world}
+    return {} if axes.data is None else {"videos": x.shape[0] * axes.data.world}
 
 
 def all_reduce_grads(model: nn.Module, group) -> None:
@@ -188,15 +217,16 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
     recomputes the forward in the backward, and `group` trains
     data-parallel, x, y_true and rnn_state being this rank's rows; `mesh`
     trains on a data x spatial mesh, x, y_true and rnn_state being this
-    rank's videos and its band of their rows (module docstring)."""
+    rank's videos and its band of their rows, or on a data x seq mesh, x
+    and y_true being this rank's videos and its run of their frames and
+    rnn_state its videos' whole state (module docstring)."""
     model, optimizer = state.model, state.optimizer
-    data, everyone, bands = _axes(group, mesh)
-    if bands is not None:
-        spatial.check_model(model)
-    share = rank_share(loss_fn, data)
+    axes = _axes(group, mesh)
+    _check_model(model, axes)
+    share = rank_share(loss_fn, axes.share)
 
     def forward(x, gauss, ob, rnn_state):
-        kw = _whole_batch(x, data)
+        kw = _whole_batch(x, axes)
         if compute_dtype is None:
             return model(x, gauss, ob, rnn_state, **kw)
         cast = {name: p.to(compute_dtype) for name, p in model.named_parameters()}
@@ -212,13 +242,13 @@ def make_train_step(state: TrainState, loss_fn: Callable = loss_fu,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         # the recompute of remat runs in the backward
-        with batch_over(everyone), spatial.over(bands):
+        with _split(axes):
             out, new_rnn = run(_maybe_normalize(x), gauss, ob, rnn_state.detach())
-            loss = _loss(share, *_gathered(out, y_true, bands))
+            loss = _loss(share, *_gathered(out, y_true, axes.bands))
             loss.backward()
-        if everyone is not None:
-            all_reduce_grads(model, everyone)
-            loss = data.all_reduce(loss.detach())
+        if axes.everyone is not None:
+            all_reduce_grads(model, axes.everyone)
+            loss = axes.share.all_reduce(loss.detach())
         optimizer.step()
         state.step += 1
         return loss.detach(), new_rnn.detach().to(torch.promote_types(new_rnn.dtype,
@@ -235,18 +265,17 @@ def make_eval_step(model: nn.Module, loss_fn: Callable = loss_fu,
     serving step. With `group` (or `mesh`), x, y_true and rnn_state are this
     rank's rows (and band) and the loss is the whole batch's, as in
     `make_train_step`."""
-    data, everyone, bands = _axes(group, mesh)
-    if bands is not None:
-        spatial.check_model(model)
-    share = rank_share(loss_fn, data)
+    axes = _axes(group, mesh)
+    _check_model(model, axes)
+    share = rank_share(loss_fn, axes.share)
 
     def step(x, gauss, ob, rnn_state, y_true) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
-        with torch.no_grad(), batch_over(everyone), spatial.over(bands):
+        with torch.no_grad(), _split(axes):
             out, new_rnn = model(_maybe_normalize(x), gauss, ob, rnn_state,
-                                 **_whole_batch(x, data))
-            loss = _loss(share, *_gathered(out, y_true, bands))
-        return (loss if data is None else data.all_reduce(loss)), new_rnn
+                                 **_whole_batch(x, axes))
+            loss = _loss(share, *_gathered(out, y_true, axes.bands))
+        return (loss if axes.share is None else axes.share.all_reduce(loss)), new_rnn
 
     return step
 

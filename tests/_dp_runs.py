@@ -21,9 +21,10 @@ that it pickles into a spawned rank:
   defaults, cuDNN's TF32 on, whatever its parent set), `"deterministic"`
   for their deterministic algorithms, `"grouped"` False to run the
   plain step of one process on this rank (without the group), and
-  `"mesh"` (n_data, n_spatial) to run the steps on that mesh
-  (`tests/_spatial_runs.py::mesh_of`), each rank taking its videos and its
-  band of their rows. Returns per step the loss, the gradients Adam took
+  `"mesh"` (n_data, n_spatial[, n_seq]) to run the steps on that mesh
+  (`tests/_spatial_runs.py::mesh_of`), each rank taking its videos, its
+  band of their rows and its run of their frames (x and y; the state is
+  whole on a seq axis). Returns per step the loss, the gradients Adam took
   (after the all-reduce), the kernel launches and this rank's rows (and
   band) of the carried state; the state_dict after; a digest of the
   parameters' bytes; the rank's mesh coordinates (None without a mesh);
@@ -118,7 +119,7 @@ def train_steps(group: Optional[RankGroup], runs: List[Dict[str, Any]]) -> List[
 
 
 def _train_steps(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, Any]:
-    from _spatial_runs import mesh_of  # it imports this module's functions by name
+    from _spatial_runs import coords, mesh_of  # it imports this module's functions by name
 
     mesh = mesh_of(group, run["mesh"]) if group is not None and run.get("mesh") else None
     if mesh is not None and not mesh.active:
@@ -159,19 +160,20 @@ def _train_steps(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, A
         step = make_train_step(state, loss_fn, compute, remat=run.get("remat", False),
                                group=step_group, mesh=mesh)
 
-    def mine(a, row_axis):
-        """This rank's rows of a whole batch, and its band on a mesh."""
+    def mine(a, row_axis, frames=False):
+        """This rank's rows of a whole batch, and on a mesh its band and,
+        for x and y, its frames."""
         if mesh is None:
             return _rows(step_group, a)
-        return mesh.band(np.asarray(a)[mesh.videos(len(a))], row_axis)
+        a = mesh.band(np.asarray(a)[mesh.videos(len(a))], row_axis)
+        return mesh.frames(a, 1) if frames else a
 
     gauss, ob = (_tensor(p, device, dtype) for p in (run.get("gauss"), run.get("ob")))
     rnn = _tensor(mine(run["rnn"], 1), device, dtype)
     out: Dict[str, Any] = {"losses": [], "grads": [], "launches": [], "rnn": [],
-                           "coords": None if mesh is None else (mesh.data.rank,
-                                                                mesh.spatial.rank)}
+                           "coords": coords(mesh)}
     for x, y in run["clips"]:
-        x, y = (_tensor(mine(a, 2), device, dtype) for a in (x, y))
+        x, y = (_tensor(mine(a, 2, frames=True), device, dtype) for a in (x, y))
         kernels.reset_launches()
         loss, rnn = step(x, gauss, ob, rnn, y)
         if device.type == "cuda":

@@ -22,9 +22,12 @@ coordinates, so that `assemble` can put the ranks' bands back together:
   kernel launches and the DWBlock calls the fused kernel's gate admits (its
   launches where the fused dwBlock is on), and on the card the seconds and
   the peak of the rank's allocated memory;
-- `run_jobs(group, jobs)`: a list of (name, argument) of these and of
-  `tests/_dp_runs.py::train_steps` (whose runs take a `"mesh"`) in one
-  spawn.
+- `run_jobs(group, jobs)`: a list of (name, argument) of these, of
+  `tests/_dp_runs.py::train_steps` (whose runs take a `"mesh"`) and of
+  `tests/_seq_runs.py::seq_exchanges` in one spawn.
+
+A `"mesh"` may have a third entry, n_seq: then each rank takes its run of
+each clip's frames (`Mesh.frames`) and the whole state (`tests/_seq_runs.py`).
 
 A run without a group (`group` None) is the one process itself.
 """
@@ -49,16 +52,19 @@ _meshes: Dict[Tuple[int, int], Mesh] = {}
 
 
 def mesh_of(group: RankGroup, shape) -> Mesh:
-    """The mesh of (n_data, n_spatial), made once a spawn (every rank makes
-    the meshes of a spawn in the same order)."""
+    """The mesh of (n_data, n_spatial[, n_seq]), made once a spawn (every
+    rank makes the meshes of a spawn in the same order)."""
     key = tuple(shape)
     if key not in _meshes:
         _meshes[key] = make_mesh(group, *key)
     return _meshes[key]
 
 
-def coords(mesh: Optional[Mesh]) -> Optional[Tuple[int, int]]:
-    return None if mesh is None or not mesh.active else (mesh.data.rank, mesh.spatial.rank)
+def coords(mesh: Optional[Mesh]) -> Optional[Tuple[int, int, int]]:
+    """(data, spatial, seq) coordinates of an active rank, else None."""
+    if mesh is None or not mesh.active:
+        return None
+    return mesh.data.rank, mesh.spatial.rank, mesh.seq.rank
 
 
 def assemble(results: List[Dict[str, Any]], key: str, index: int, row_axis: int) -> np.ndarray:
@@ -192,14 +198,18 @@ def infer_clips(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, An
         if isinstance(block, DWBlock):
             block.register_forward_pre_hook(count, with_kwargs=True)
     x, state = np.asarray(run["x"]), np.asarray(run["state"])
+    s = x.shape[1] // run["clips"]
     if mesh is not None:
         x, state = x[mesh.videos(len(x))], state[mesh.videos(len(state))]
         x, state = mesh.band(x, 2), mesh.band(state, 1)
+        # on a seq axis, this rank's frames of each clip
+        x = np.concatenate([mesh.frames(x[:, k * s:(k + 1) * s], 1)
+                            for k in range(run["clips"])], 1)
+        s = x.shape[1] // run["clips"]
     x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
     if x.dtype != torch.uint8:
         x = x.to(dtype)
     state = torch.from_numpy(np.ascontiguousarray(state)).to(device=device, dtype=dtype)
-    s = x.shape[1] // run["clips"]
     out: Dict[str, Any] = {"coords": coords(mesh), "saliency": [], "state": [], "launches": [],
                            "admitted": []}
     t0 = time.perf_counter()
@@ -221,6 +231,8 @@ def infer_clips(group: Optional[RankGroup], run: Dict[str, Any]) -> Dict[str, An
 
 def run_jobs(group: Optional[RankGroup], jobs: List[Any]) -> List[Any]:
     from _dp_runs import train_steps
+    from _seq_runs import seq_exchanges
 
-    table = {"exchanges": exchanges, "infer_clips": infer_clips, "train_steps": train_steps}
+    table = {"exchanges": exchanges, "infer_clips": infer_clips, "train_steps": train_steps,
+             "seq_exchanges": seq_exchanges}
     return [table[name](group, arg) for name, arg in jobs]

@@ -10,6 +10,7 @@ import pytest
 
 from iip_uavsal_saliency_tpu_torch.parallel import spawn
 from _dp_runs import sleep_then_sum
+from test_torch_train_step import few_threads  # noqa: F401
 
 
 def test_ranks_outlive_the_collective_timeout():

@@ -19,6 +19,7 @@ from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
 from iip_uavsal_saliency_tpu_torch.ops import dwblock as tdw
 from iip_uavsal_saliency_tpu_torch.ops import layers as tl
 from iip_uavsal_saliency_tpu_torch.ops.fold import fold_conv_bn
+from test_torch_train_step import few_threads  # noqa: F401
 
 # f32 on the CPU: XLA and torch sum the C, 9 and E products in other orders
 ATOL = 2e-5

@@ -31,6 +31,7 @@ from iip_uavsal_saliency_tpu.evaluation import metrics_jax as mj
 from iip_uavsal_saliency_tpu.evaluation import metrics_np as jnp_metrics
 from iip_uavsal_saliency_tpu_torch.evaluation import metrics_np as tnp_metrics
 from iip_uavsal_saliency_tpu_torch.evaluation import metrics_torch as mt
+from test_torch_train_step import few_threads  # noqa: F401
 
 
 def blob_frames(seed, n, h, w, quantize=False):

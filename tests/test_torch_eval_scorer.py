@@ -27,6 +27,7 @@ from iip_uavsal_saliency_tpu.evaluation import scorer as js
 from iip_uavsal_saliency_tpu_torch import cli
 from iip_uavsal_saliency_tpu_torch.data.matio import loadmat, savemat
 from iip_uavsal_saliency_tpu_torch.evaluation import scorer as ts
+from test_torch_train_step import few_threads  # noqa: F401
 
 TOL = 1e-5
 KEYS = js.KEYS_ORDER

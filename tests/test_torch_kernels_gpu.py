@@ -353,6 +353,47 @@ def test_twa_kernel_per_frame_on_bands_with_halo_rows(card, name, dtype, atol):
                                                             atol=atol, rtol=0)
 
 
+# K1 as a seq mesh runs it: a clip cut into runs of frames, each run one
+# call from the last h of the run before. (route, dtype, shape): the
+# persistent kernel at the flagship's state (one launch a run), the per-frame
+# kernels in f32 and bf16 at the flagship's and at 720x1280 serving's state
+SEGMENT_SCANS = {
+    "persistent_bf16_45x80": ("twa_scan", torch.bfloat16, (1, 20, 45, 80, 256)),
+    "step_f32_45x80": ("twa_step", torch.float32, (1, 20, 45, 80, 256)),
+    "step_bf16_45x80": ("twa_step", torch.bfloat16, (1, 20, 45, 80, 256)),
+    "step_f32_90x160": ("twa_step", torch.float32, (1, 20, 90, 160, 256)),
+    "step_bf16_90x160": ("twa_step", torch.bfloat16, (1, 20, 90, 160, 256)),
+}
+
+
+@pytest.mark.parametrize("runs", [2, 4])
+@pytest.mark.parametrize("name", sorted(SEGMENT_SCANS))
+def test_twa_kernel_over_runs_of_frames_gives_the_clips_bits(card, name, runs):
+    """A clip's S frames cut into `runs` runs, each scanned by one call of
+    the kernel from the run before's last h (`parallel/seq.py::hand_state`):
+    the one-call clip's bits, frame for frame and the last h, with the
+    launches of the route once a run (the persistent kernel) or once a
+    frame."""
+    route, dtype, shape = SEGMENT_SCANS[name]
+    x, gx, w_h, h0 = [torch.tensor(a, dtype=torch.float32).to(card, dtype)
+                      for a in _case(*shape)]
+    assert kernel_route(shape, dtype) == route or route == "twa_step"
+    whole, whole_last = _twa_scan_cuda(x, gx, w_h, h0, route=route)
+    frames = shape[1] // runs
+    kernels.reset_launches()
+    h, parts = h0, []
+    for q in range(runs):
+        seg = slice(q * frames, (q + 1) * frames)
+        ys, h = _twa_scan_cuda(x[:, seg].contiguous(), gx[:, seg].contiguous(), w_h, h,
+                               route=route)
+        parts.append(ys)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {**_launches(route, 1),
+                                      route: runs if route == "twa_scan" else shape[1]}
+    assert torch.equal(torch.cat(parts, 1), whole)
+    assert torch.equal(h, whole_last)
+
+
 def test_twa_kernel_raises_on_what_it_does_not_take(card):
     """A CUDA tensor launches the kernel or raises; nothing falls back."""
     x, gx, w_h, h0 = [torch.zeros(s, device=card) for s in

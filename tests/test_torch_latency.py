@@ -15,6 +15,7 @@ from iip_uavsal_saliency_tpu.runners import latency as jlatency
 from iip_uavsal_saliency_tpu.utils import profiling as jprofiling
 from iip_uavsal_saliency_tpu_torch.runners import latency as tlatency
 from iip_uavsal_saliency_tpu_torch.utils import profiling as tprofiling
+from test_torch_train_step import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n,frames", [(1000, 20), (7, 80), (1, 5)])

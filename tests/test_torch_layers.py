@@ -16,6 +16,7 @@ from iip_uavsal_saliency_tpu_torch.models import convert
 from iip_uavsal_saliency_tpu_torch.ops import fold as tfold
 from iip_uavsal_saliency_tpu_torch.ops import layers as tl
 from iip_uavsal_saliency_tpu_torch.ops import resize as tr
+from test_torch_train_step import few_threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -40,6 +40,7 @@ from iip_uavsal_saliency_tpu_torch.runners import infer as tinfer
 from iip_uavsal_saliency_tpu_torch.serving.steps import GraphedStep, graph_step
 from iip_uavsal_saliency_tpu_torch.utils.config import load_config
 from test_torch_serving import _randomize
+from test_torch_train_step import few_threads  # noqa: F401
 
 H, W, T = 64, 128, 5
 IOSIZE = (H, W, H // 8, W // 8)

@@ -30,6 +30,7 @@ from iip_uavsal_saliency_tpu_torch.ops.layers import DWBlock
 from iip_uavsal_saliency_tpu_torch.runners.infer import load_model_for_inference, predict_videos
 from iip_uavsal_saliency_tpu_torch.serving.steps import build_infer_fn, make_baked_infer_step
 from iip_uavsal_saliency_tpu_torch.training.checkpoint import load_checkpoint
+from test_torch_train_step import few_threads  # noqa: F401
 
 H, W, T = 64, 128, 5
 IOSIZE = (H, W, H // 8, W // 8)

@@ -40,6 +40,7 @@ from iip_uavsal_saliency_tpu_torch.training.optim import make_optimizer
 from iip_uavsal_saliency_tpu_torch.training.steps import (create_train_state, make_eval_step,
                                                           make_train_step)
 from _spatial_runs import LAYERS, run_jobs
+from test_torch_train_step import few_threads  # noqa: F401
 
 TOL = 1e-12          # f64, relative to the whole map's largest entry
 TOL_KERNEL_PATH = 1e-5  # the fused kernel's path in f32
@@ -111,11 +112,11 @@ def _mesh(n_data=1, n_spatial=2):
     axis = Axis(0, n_spatial, ranks[:n_spatial], "gloo", CPU)
     return Mesh({"data": n_data, "spatial": n_spatial, "seq": 1, "model": 1}, group,
                 Axis(0, n_data, ranks[::n_spatial], "gloo", CPU), axis,
-                Axis(0, len(ranks), ranks, "gloo", CPU))
+                Axis(0, 1, (0,), "gloo", CPU), Axis(0, len(ranks), ranks, "gloo", CPU))
 
 
 @pytest.mark.parametrize("shape,error", [((1, 4), ValueError), ((3, 1), ValueError),
-                                         ((1, 1, 2), NotImplementedError),
+                                         ((1, 2, 2), NotImplementedError),
                                          ((1, 1, 1, 2), NotImplementedError)],
                          ids=["spatial_4_of_2", "data_3_of_2", "seq", "model"])
 def test_make_mesh_refuses(shape, error):

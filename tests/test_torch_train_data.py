@@ -24,6 +24,7 @@ from iip_uavsal_saliency_tpu_torch.data import video as tvideo  # noqa: E402
 from iip_uavsal_saliency_tpu_torch.data.loaders import _prefetched  # noqa: E402
 from iip_uavsal_saliency_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from iip_uavsal_saliency_tpu_torch.utils.metrics_log import MetricsLogger  # noqa: E402
+from test_torch_train_step import few_threads  # noqa: E402,F401
 from test_torch_train_trainer import DATASET, VIDEOS, dataset  # noqa: E402,F401
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from flax.core import unfreeze
 
 from iip_uavsal_saliency_tpu.models import UAVSal as JUAVSal
@@ -111,13 +112,14 @@ def priors(seed=5, ho=HO, wo=WO):
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """Two intra-op threads for torch while this module runs: the suite
-    runs several workers on one host, and torch's default of one thread per
-    core in each of them oversubscribes it (a worker's run grows from a
-    minute to tens of minutes)."""
+    """Two intra-op threads for torch, and two for numpy's BLAS, while this
+    module runs: the suite runs several workers on one host, and a default
+    of one thread per core in each of them oversubscribes it (a worker's
+    run grows from a minute to tens of minutes; idle BLAS threads spin)."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(2, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
@@ -268,6 +270,7 @@ def check_against_jax(jax_runs, freeze, trainable, **step_kw):
             worst[kind, who] = max(worst.get((kind, who), 0.0), err / bound)
 
     for k, (start, jl, jg, jsd, js) in enumerate(jax_runs):
+        before = from_jax_variables({"params": start[0], "batch_stats": start[1]})
         l32, g32, sd32, s32 = port_step(start, k, freeze, torch.float32, **step_kw)
         l64, g64, sd64, s64 = port_step(start, k, freeze, torch.float64, **step_kw)
         held("loss", k, [abs(v - l64) / abs(l64) for v in (jl, l32)], TOL_LOSS)
@@ -288,9 +291,8 @@ def check_against_jax(jax_runs, freeze, trainable, **step_kw):
                 ulp = np.spacing(np.float32(np.abs(sd32[n]).max()))
                 assert np.abs(jsd[n] - sd32[n]).max() <= 2 * LR + 2 * ulp, f"{n} after clip {k}"
             else:
-                before = np.asarray(from_jax_variables(
-                    {"params": start[0], "batch_stats": start[1]})[n], np.float64)
-                assert np.array_equal(sd32[n], before) and np.array_equal(jsd[n], before), n
+                frozen = np.asarray(before[n], np.float64)
+                assert np.array_equal(sd32[n], frozen) and np.array_equal(jsd[n], frozen), n
         held("state", k, [_err(s, s64, 1.0) for s in (js, s32)], TOL_STATE)
     return worst
 

@@ -15,6 +15,7 @@ from iip_uavsal_saliency_tpu_torch.models import recurrent
 from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
 from iip_uavsal_saliency_tpu_torch.ops.twa import (clip_takes, kernel_route, twa_scan,
                                                     twa_scan_ref)
+from test_torch_train_step import few_threads  # noqa: F401
 
 # f32 on the CPU: XLA and torch sum the 9*C conv products in other orders
 ATOL = 1e-5

@@ -14,6 +14,7 @@ from iip_uavsal_saliency_tpu_torch.models import recurrent
 from iip_uavsal_saliency_tpu_torch.models.recurrent import ConvTWA
 from iip_uavsal_saliency_tpu_torch.ops import twa
 from iip_uavsal_saliency_tpu_torch.ops.dwblock import tf32_split
+from test_torch_train_step import few_threads  # noqa: F401
 
 TOL_F32 = 1e-5  # chip_smoke.py's tolerance of K1 in f32 against twa_scan_ref
 

@@ -18,6 +18,7 @@ from iip_uavsal_saliency_tpu.ops.fold import fold_batchnorm
 from iip_uavsal_saliency_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from iip_uavsal_saliency_tpu_torch.models.uavsal import UAVSal
 from iip_uavsal_saliency_tpu_torch.ops.layers import DWBlock
+from test_torch_train_step import few_threads  # noqa: F401
 
 SMALL_H, SMALL_W, SMALL_T = 64, 128, 5
 # f32: XLA and torch order the conv sums differently. The JAX package held

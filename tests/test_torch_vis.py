@@ -14,6 +14,7 @@ from iip_uavsal_saliency_tpu.data.matio import savemat
 from iip_uavsal_saliency_tpu.vis import overlay as joverlay
 from iip_uavsal_saliency_tpu_torch.vis import overlay as toverlay
 from test_torch_images import write_salicon
+from test_torch_train_step import few_threads  # noqa: F401
 
 H, W, T = 40, 72, 6  # native video size and frames
 

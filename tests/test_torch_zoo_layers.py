@@ -27,6 +27,7 @@ from iip_uavsal_saliency_tpu_torch.ops import fold as tfold
 from iip_uavsal_saliency_tpu_torch.ops import layers as tl
 from test_torch_layers import ATOL, jax_init, nchw, nhwc
 from test_torch_train_step import TOL_BN
+from test_torch_train_step import few_threads  # noqa: F401
 
 C, T, S = 16, 5, 10   # channels (= planes, so the residuals apply), time_dims, frames
 H, W = 6, 7

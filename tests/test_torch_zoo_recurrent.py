@@ -21,6 +21,7 @@ from iip_uavsal_saliency_tpu_torch.models import convert
 from iip_uavsal_saliency_tpu_torch.models import recurrent as trec
 from iip_uavsal_saliency_tpu_torch.ops.layers import BatchNorm
 from test_torch_layers import randomize
+from test_torch_train_step import few_threads  # noqa: F401
 
 ATOL = 2e-5
 C, S, H, W, V = 16, 10, 6, 7, 2

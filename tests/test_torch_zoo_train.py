@@ -122,11 +122,12 @@ def train_step_matches_jax(name):
                 assert _err(sd[n], sd64[n], bn_scale(n, sd64)) <= TOL_BN, (who, n)
         assert _err(st, s64, 1.0) <= TOL_STATE, who
     moved = 0
+    before = from_jax_variables(variables, table)
     for n in sd64:
         if "running" not in n:
             ulp = np.spacing(np.float32(np.abs(sd32[n]).max()))
             assert np.abs(jsd[n] - sd32[n]).max() <= 2 * LR + 2 * ulp, n
-            moved += not np.array_equal(sd32[n], from_jax_variables(variables, table)[n].numpy())
+            moved += not np.array_equal(sd32[n], before[n].numpy())
     assert moved == len(g64)  # every parameter trained
     if name == "uavsal_lstm":
         assert np.abs(s64).max() > 0.1 and not np.allclose(s64, state)
